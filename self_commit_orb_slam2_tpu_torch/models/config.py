@@ -1,0 +1,66 @@
+"""Static configuration of the SLAM engine.
+
+Counterpart of the JAX package's models/config.py (reference settings file
++ constants, src/Tracking.cc:93-218): the same names and defaults for the
+fields this slice reads; later slices add the rest.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+from ..ops.camera import CameraParams
+from ..ops.orb.extractor import OrbConfig
+
+
+class Capacities(NamedTuple):
+    """Fixed array capacities of the map and the per-frame working sets."""
+
+    max_keyframes: int = 256
+    max_points: int = 65536
+    local_points: int = 2048   # frustum-visible local map points per frame
+    local_keyframes: int = 80  # reference caps the local-KF set at 80 (Tracking.cc:1964)
+    cull_log: int = 2048       # retired-keyframe archive ring
+    loop_log: int = 32         # persisted loop-edge ring
+
+
+class TrackingConfig(NamedTuple):
+    """The fields of the JAX package's TrackingConfig that this slice reads."""
+
+    # Keyframe policy (reference Tracking::NeedNewKeyFrame, Tracking.cc:1509-1648)
+    min_frames_between_kf: int = 0
+    max_frames_between_kf: int = 30
+    kf_ref_ratio_stereo: float = 0.75
+    kf_min_close_points: int = 100
+    kf_min_new_close: int = 70
+    kf_attrition_ratio: float = 0.6
+    # Matching (reference Tracking.cc:1353-1440, ORBmatcher radii)
+    motion_search_radius: float = 15.0
+    motion_search_radius_wide: float = 30.0
+    local_search_radius: float = 3.0
+    min_inliers_local: int = 30
+    # Depth handling
+    depth_threshold_factor: float = 35.0     # close = depth < 35 * baseline
+    max_new_points_per_kf: int = 100
+    min_init_depth_points: int = 100
+    # RGB-D u_right information weight (sigma_ur = 1/sqrt(w) px)
+    rgbd_ur_weight: float = 25.0
+
+
+class SlamConfig(NamedTuple):
+    camera: CameraParams
+    orb: OrbConfig = OrbConfig()
+    caps: Capacities = Capacities()
+    tracking: TrackingConfig = TrackingConfig()
+    sensor: str = "rgbd"       # only "rgbd" is ported
+    depth_map_factor: float = 1.0
+    vocab: object = None       # BoW vocabulary: not ported yet, must be None
+
+    @property
+    def ur_weight(self) -> float:
+        return self.tracking.rgbd_ur_weight if self.sensor == "rgbd" else 1.0
+
+    @property
+    def th_depth(self) -> float:
+        """Close/far point split: reference mThDepth = bf * ThDepth / fx."""
+        return float(self.camera.bf / self.camera.fx * self.tracking.depth_threshold_factor)

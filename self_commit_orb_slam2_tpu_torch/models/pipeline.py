@@ -1,0 +1,284 @@
+"""Per-frame SLAM step and the chunked RGB-D stream.
+
+Counterpart of the JAX package's models/pipeline.py: a chunk of frames is
+built through one batched extraction chain (frames_rgbd_packed), then the
+tracking steps run in order over it (batch_steps_frames -> track_step):
+dual-hypothesis motion tracking, local-map tracking, the keyframe decision
+and keyframe insertion.  The JAX package compiles each step into one XLA
+program with lax.cond branches; here the step runs eagerly and each branch is
+a host `if` on a 0-d tensor.  The keyframe branch costs one host sync per
+frame; removing it is later work.
+
+This slice ports the mapping-off, vocabulary-off configuration: no local
+mapping after keyframe insertion and no relocalization on the LOST branch
+(the JAX package runs neither when they are switched off).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..ops import se3
+from ..ops.indexing import row
+from . import frame as frame_mod
+from . import map_state as ms
+from . import tracking
+from .config import SlamConfig
+from .frame import FrameData
+from .map_state import NO_POINT, MapState
+
+
+class TrackCarry(NamedTuple):
+    """Tracking state threaded between frames (JAX field names)."""
+
+    Tcw: torch.Tensor            # [4, 4]
+    velocity: torch.Tensor       # [4, 4]
+    last_frame: FrameData
+    last_obs_pt: torch.Tensor    # [N]
+    last_obs_birth: torch.Tensor # [N] pt_birth stamps captured with last_obs_pt
+    frame_id: torch.Tensor       # scalar int32
+    last_kf_frame_id: torch.Tensor
+    prev_inliers: torch.Tensor   # scalar int32
+    state_ok: torch.Tensor       # scalar bool (False = lost)
+    key: torch.Tensor            # [2] int64: the JAX package's relocalization
+                                 # PRNG key words, carried unchanged (nothing
+                                 # random runs without a vocabulary)
+    vo: torch.Tensor             # scalar bool: localization-mode VO flag
+
+
+class StepInfo(NamedTuple):
+    """Small per-step summary fetched by the host."""
+
+    Tcw: torch.Tensor
+    n_inliers: torch.Tensor
+    created_kf: torch.Tensor   # bool
+    state_ok: torch.Tensor     # bool
+    n_keyframes: torch.Tensor
+    n_points: torch.Tensor
+    ref_kf: torch.Tensor       # latest keyframe slot
+    ref_kf_Tcw: torch.Tensor   # its pose at track time
+    ref_kf_seq: torch.Tensor   # its sequence number
+    vo: torch.Tensor           # bool
+
+
+def _scalar(value, dtype, device) -> torch.Tensor:
+    return torch.tensor(value, dtype=dtype, device=device)
+
+
+def init_carry(config: SlamConfig, frame: FrameData) -> TrackCarry:
+    n = frame.capacity
+    dev = frame.xy.device
+    eye = torch.eye(4, dtype=torch.float32, device=dev)
+    return TrackCarry(
+        Tcw=eye,
+        velocity=eye.clone(),
+        last_frame=frame,
+        last_obs_pt=torch.full((n,), NO_POINT, dtype=torch.int32, device=dev),
+        last_obs_birth=torch.zeros(n, dtype=torch.int32, device=dev),
+        frame_id=_scalar(0, torch.int32, dev),
+        last_kf_frame_id=_scalar(0, torch.int32, dev),
+        prev_inliers=_scalar(0, torch.int32, dev),
+        state_ok=_scalar(True, torch.bool, dev),
+        key=torch.tensor([0, 23], dtype=torch.int64, device=dev),  # PRNGKey(23)
+        vo=_scalar(False, torch.bool, dev),
+    )
+
+
+def _need_keyframe(config: SlamConfig, m: MapState, carry: TrackCarry,
+                   frame: FrameData, lres: tracking.LocalMapResult) -> torch.Tensor:
+    """Keyframe policy (reference Tracking::NeedNewKeyFrame,
+    src/Tracking.cc:1509-1648, as the JAX package adapts it)."""
+    cfg = config.tracking
+    frames_since = carry.frame_id - carry.last_kf_frame_id
+    n_inl = lres.n_inliers
+    overlap = lres.ref_shared.to(torch.float32) / torch.clamp_min(n_inl, 1).to(torch.float32)
+    close = frame.has_depth() & (frame.depth < config.th_depth)
+    n_close_tracked = torch.sum(close & (lres.obs_pt >= 0))
+    n_close_new = torch.sum(close & (lres.obs_pt < 0))
+    c1 = frames_since >= cfg.max_frames_between_kf
+    c2 = overlap < cfg.kf_ref_ratio_stereo
+    c3 = (n_close_tracked < cfg.kf_min_close_points) & (n_close_new > cfg.kf_min_new_close)
+    c4 = n_inl < (cfg.kf_attrition_ratio * carry.prev_inliers.to(torch.float32))
+    capacity_ok = ~torch.all(m.kf_valid)  # a free slot exists
+    need = (c1 | c2 | c3 | c4) & (n_inl >= 15) & capacity_ok
+    return need & (frames_since >= cfg.min_frames_between_kf)
+
+
+def _select(take_a: torch.Tensor, a: NamedTuple, b: NamedTuple):
+    return type(a)(*(torch.where(take_a, x, y) for x, y in zip(a, b)))
+
+
+def track_step(config: SlamConfig, m: MapState, carry: TrackCarry,
+               frame: FrameData, timestamp):
+    """One tracking step (frame already built) -> (map, carry, StepInfo).
+    Updates the map in place when a keyframe is inserted."""
+    cfg = config.tracking
+    dev = frame.xy.device
+    eye = torch.eye(4, dtype=torch.float32, device=dev)
+
+    # dual-hypothesis motion tracking: the static prior with the wide window
+    # and the constant-velocity prior; static wins unless clearly worse
+    res_static, res_vel = (
+        tracking.track_motion(config, m, frame, carry.Tcw, vel, carry.last_frame,
+                              carry.last_obs_pt, rad,
+                              last_obs_birth=carry.last_obs_birth)
+        for vel, rad in ((eye, cfg.motion_search_radius_wide),
+                         (carry.velocity, cfg.motion_search_radius)))
+    take_static = (res_static.n_inliers.to(torch.float32)
+                   >= 0.9 * res_vel.n_inliers.to(torch.float32))
+    res = _select(take_static, res_static, res_vel)
+
+    lres = tracking.track_local_map(config, m, frame, res.Tcw, res.obs_pt)
+    ok = lres.n_inliers >= cfg.min_inliers_local
+
+    new_Tcw = torch.where(ok, lres.Tcw, carry.velocity @ carry.Tcw)  # dead-reckon if lost
+    new_velocity = torch.where(ok, new_Tcw @ se3.inverse(carry.Tcw), carry.velocity)
+    obs_pt = torch.where(ok, lres.obs_pt, NO_POINT)
+
+    need_kf = _need_keyframe(config, m, carry, frame, lres) & ok
+    if bool(need_kf):  # host branch: one sync per frame (lax.cond in JAX)
+        m, kf_id = tracking.create_keyframe(config, m, frame, new_Tcw, lres.obs_pt,
+                                            carry.frame_id, timestamp)
+        obs_after = row(m.kf_obs_pt, kf_id)
+    else:
+        obs_after = obs_pt
+
+    birth_after = torch.where(
+        obs_after >= 0,
+        m.pt_birth[torch.clamp(obs_after, 0, m.max_pt - 1).long()], 0)
+    carry_out = TrackCarry(
+        Tcw=new_Tcw,
+        velocity=new_velocity,
+        last_frame=frame,
+        last_obs_pt=obs_after,
+        last_obs_birth=birth_after,
+        frame_id=carry.frame_id + 1,
+        last_kf_frame_id=torch.where(need_kf, carry.frame_id, carry.last_kf_frame_id),
+        prev_inliers=torch.where(ok, lres.n_inliers, carry.prev_inliers),
+        state_ok=ok,
+        key=carry.key,
+        vo=torch.zeros((), dtype=torch.bool, device=dev),
+    )
+    return m, carry_out, _info(m, new_Tcw, lres.n_inliers, need_kf, ok, carry_out.vo)
+
+
+def _info(m: MapState, Tcw, n_inliers, created_kf, state_ok, vo) -> StepInfo:
+    ref_kf = ms.latest_kf(m)
+    return StepInfo(
+        Tcw=Tcw,
+        n_inliers=n_inliers,
+        created_kf=created_kf,
+        state_ok=state_ok,
+        n_keyframes=m.n_kf,
+        n_points=torch.sum(m.pt_valid).to(torch.int32),
+        ref_kf=ref_kf,
+        ref_kf_Tcw=row(m.kf_Tcw, ref_kf),
+        ref_kf_seq=row(m.kf_seq, ref_kf),
+        vo=vo,
+    )
+
+
+def _skip_info(m: MapState, carry: TrackCarry) -> StepInfo:
+    """StepInfo for a padded (invalid) frame: carry state echoed, no KF."""
+    return _info(m, carry.Tcw, torch.zeros_like(carry.prev_inliers),
+                 torch.zeros_like(carry.state_ok), carry.state_ok, carry.vo)
+
+
+def pack_infos(infos: list[StepInfo]) -> torch.Tensor:
+    """Stack per-frame StepInfos into ONE [B, 40] float32 tensor (one
+    device->host copy per chunk); layout of the JAX package's pack_infos."""
+    def col(x):
+        return x.reshape(-1).to(torch.float32)
+
+    rows = [torch.cat([col(i.Tcw), col(i.ref_kf_Tcw), col(i.n_inliers),
+                       col(i.created_kf), col(i.state_ok), col(i.n_keyframes),
+                       col(i.n_points), col(i.ref_kf), col(i.ref_kf_seq),
+                       col(i.vo)]) for i in infos]
+    return torch.stack(rows)
+
+
+def unpack_infos(arr: np.ndarray) -> StepInfo:
+    """Host-side inverse of pack_infos (numpy in, numpy out)."""
+    B = arr.shape[0]
+    return StepInfo(
+        Tcw=arr[:, 0:16].reshape(B, 4, 4),
+        n_inliers=arr[:, 32].astype(np.int32),
+        created_kf=arr[:, 33] > 0.5,
+        state_ok=arr[:, 34] > 0.5,
+        n_keyframes=arr[:, 35].astype(np.int32),
+        n_points=arr[:, 36].astype(np.int32),
+        ref_kf=arr[:, 37].astype(np.int32),
+        ref_kf_Tcw=arr[:, 16:32].reshape(B, 4, 4),
+        ref_kf_seq=arr[:, 38].astype(np.int32),
+        vo=arr[:, 39] > 0.5,
+    )
+
+
+def pack_rgbd_chunk(images_u8, depths_mm_u16, ts_f32, valid_b) -> np.ndarray:
+    """Host-side packer: per frame [H*W image u8][H*W*2 depth u16 LE]
+    [4 ts f32][4 valid u8] (the JAX package's layout)."""
+    B = images_u8.shape[0]
+    parts = [
+        images_u8.reshape(B, -1),
+        depths_mm_u16.astype("<u2").view(np.uint8).reshape(B, -1),
+        np.asarray(ts_f32, "<f4").view(np.uint8).reshape(B, 4),
+        np.repeat(valid_b.astype(np.uint8)[:, None], 4, axis=1),
+    ]
+    return np.concatenate(parts, axis=1)
+
+
+def frames_rgbd_packed(config: SlamConfig, buf: torch.Tensor):
+    """Packed uint8 chunk [B, bytes] on the device -> (FrameData [B, ...],
+    ts [B] float32, valid [B] bool).  The little-endian uint16 depth is
+    rebuilt from its two bytes in int32."""
+    cam = config.camera
+    H, W = int(cam.height), int(cam.width)
+    B = buf.shape[0]
+    images = buf[:, : H * W].reshape(B, H, W).to(torch.float32)
+    d = buf[:, H * W: 3 * H * W].reshape(B, H, W, 2).to(torch.int32)
+    depth_mm = d[..., 0] | (d[..., 1] << 8)
+    ts = buf[:, 3 * H * W: 3 * H * W + 4].contiguous().view(torch.float32)[:, 0]
+    valid = buf[:, 3 * H * W + 4] > 0
+    frames = frame_mod.make_frames_rgbd_batch(
+        config, images, depth_mm.to(torch.float32) * torch.tensor(
+            1e-3, dtype=torch.float32, device=buf.device))
+    return frames, ts, valid
+
+
+def batch_steps_frames(config: SlamConfig, m: MapState, carry: TrackCarry,
+                       frames: FrameData, timestamps: torch.Tensor,
+                       valid: torch.Tensor):
+    """Tracking steps over pre-built frames (leading dim B), in order.
+    Padded (invalid) frames pass the state through.  Returns (map, carry,
+    packed StepInfo [B, 40])."""
+    infos = []
+    for b, live in enumerate(valid.tolist()):
+        if live:
+            m, carry, info = track_step(config, m, carry, frames.select(b),
+                                        timestamps[b])
+        else:
+            info = _skip_info(m, carry)
+        infos.append(info)
+    return m, carry, pack_infos(infos)
+
+
+def init_rgbd(config: SlamConfig, m: MapState, image: torch.Tensor,
+              depth: torch.Tensor, timestamp):
+    """First-frame initialization -> (map, carry, number of depth features)."""
+    frame = frame_mod.make_frame_rgbd(config, image, depth)
+    dev = frame.xy.device
+    m, kf_id = tracking.initialize_depth(config, m, frame,
+                                         _scalar(0, torch.int32, dev), timestamp)
+    obs0 = row(m.kf_obs_pt, kf_id)
+    n_depth = torch.sum(frame.has_depth()).to(torch.int32)
+    carry = init_carry(config, frame)._replace(
+        last_obs_pt=obs0,
+        last_obs_birth=torch.where(
+            obs0 >= 0, m.pt_birth[torch.clamp(obs0, 0, m.max_pt - 1).long()], 0),
+        frame_id=_scalar(1, torch.int32, dev),
+        prev_inliers=n_depth,
+    )
+    return m, carry, n_depth

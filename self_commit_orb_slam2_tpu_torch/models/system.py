@@ -1,0 +1,165 @@
+"""Public API + host-side state machine, RGB-D surface.
+
+Counterpart of the JAX package's models/system.py (reference System,
+src/System.cc, and the NOT_INITIALIZED/OK/LOST machine of Tracking,
+Tracking.cc:419-786).  This slice runs with local mapping, loop closing and
+the vocabulary off: System(cfg, enable_mapping=False,
+enable_loop_closing=False) with cfg.vocab None.
+
+The engine runs on `cuda` unless the caller passes device="cpu"; with no
+card and no explicit device it raises instead of falling back to the CPU.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..utils import trajectory as traj_io
+from . import map_state as ms
+from . import pipeline
+from .config import SlamConfig
+from .frame import make_frame_rgbd
+from .streaming import STATE_LOST, STATE_NOT_INITIALIZED, STATE_OK, StreamSession
+
+__all__ = ["System", "resolve_device", "STATE_NOT_INITIALIZED", "STATE_OK",
+           "STATE_LOST"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """`cuda` by default; raises when no card is present rather than falling
+    back to the CPU.  Pass device="cpu" to run on the CPU on purpose."""
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' to "
+                           "run the port on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+class System:
+    """RGB-D SLAM engine (reference System.h: TrackRGBD, Reset, trajectory
+    savers) with the chunked streaming API."""
+
+    def __init__(self, config: SlamConfig, enable_mapping: bool = True,
+                 enable_loop_closing: bool = True, device=None):
+        self.device = resolve_device(device)
+        if enable_mapping or enable_loop_closing:
+            raise NotImplementedError(
+                "local mapping and loop closing are not ported yet: pass "
+                "enable_mapping=False, enable_loop_closing=False")
+        if config.vocab is not None:
+            raise NotImplementedError("the BoW vocabulary is not ported yet")
+        if config.sensor != "rgbd":
+            raise NotImplementedError(f"sensor {config.sensor!r}: only 'rgbd' is ported")
+        self.config = config
+        self._batch_chunk = 4  # frames per streamed chunk (the JAX package's default)
+        self.reset()
+
+    # ------------------------------------------------------------- public API
+
+    def track_rgbd(self, image: np.ndarray, depth: np.ndarray, timestamp: float) -> np.ndarray:
+        """One frame: [H, W] grayscale (0..255) and depth in metres."""
+        return self._track(torch.as_tensor(np.asarray(image, np.float32)),
+                           torch.as_tensor(np.asarray(depth, np.float32)), timestamp)
+
+    def track_batch_rgbd(self, images: np.ndarray, depths: np.ndarray,
+                         timestamps: np.ndarray,
+                         chunk: Optional[int] = None) -> np.ndarray:
+        """Throughput mode: stream a frame batch in fixed-size chunks (the
+        first frame initializes the map if needed).  Returns [B, 4, 4] poses."""
+        depths_mm = np.clip(np.asarray(depths) * 1e3, 0, 65535).astype(np.uint16)
+        sess = self.open_stream("rgbd", chunk)
+        sess.feed((np.clip(images, 0, 255).astype(np.uint8), depths_mm), timestamps)
+        poses = sess.finish()
+        return poses if len(poses) else np.asarray(self.Tcw)[None]
+
+    def open_stream(self, sensor: str, chunk: Optional[int] = None) -> StreamSession:
+        """A persistent streaming session: feed() chunks for the lifetime of a
+        run (models/streaming.py)."""
+        return StreamSession(self, sensor, chunk)
+
+    def reset(self) -> None:
+        """Reference Tracking::Reset (src/Tracking.cc:2242): clear everything."""
+        self.map = ms.empty_map(self.config, self.device)
+        self.state = STATE_NOT_INITIALIZED
+        self.carry: Optional[pipeline.TrackCarry] = None
+        self.trajectory: list[tuple[float, np.ndarray]] = []
+        # (timestamp, ref keyframe seq, T_cr): poses are recomposed against the
+        # keyframes' current poses at save time (reference SaveTrajectoryTUM)
+        self._rel_trajectory: list[tuple[float, int, np.ndarray]] = []
+        self.Tcw = np.eye(4, dtype=np.float32)
+
+    def get_trajectory(self) -> tuple[np.ndarray, np.ndarray]:
+        """(timestamps, poses_cw): each frame's T_cr composed with its
+        reference keyframe's current pose; retired keyframes resolve through
+        the cull archive (reference SaveTrajectoryTUM, src/System.cc:438-460)."""
+        m = self.map
+        kf_poses = m.kf_Tcw.cpu().numpy()
+        kf_valid = m.kf_valid.cpu().numpy()
+        kf_seq = m.kf_seq.cpu().numpy()
+        cull_seq = m.cull_seq.cpu().numpy()
+        cull_parent = m.cull_parent_seq.cpu().numpy()
+        cull_Tcp = m.cull_Tcp.cpu().numpy()
+        seq_to_slot = {int(s): i for i, s in enumerate(kf_seq) if kf_valid[i] and s >= 0}
+        seq_to_arch = {int(s): i for i, s in enumerate(cull_seq) if s >= 0}
+
+        def resolve(seq: int) -> np.ndarray:
+            T = np.eye(4)
+            guard = 0
+            while seq not in seq_to_slot and guard < 64:
+                a = seq_to_arch.get(seq)
+                if a is None:
+                    break
+                T = T @ cull_Tcp[a]
+                seq = int(cull_parent[a])
+                guard += 1
+            if seq not in seq_to_slot:
+                older = [s for s in seq_to_slot if s <= seq]
+                seq = max(older) if older else min(seq_to_slot)
+            return T @ kf_poses[seq_to_slot[seq]]
+
+        ts = np.array([t for t, _, _ in self._rel_trajectory])
+        poses = np.stack([Tcr @ resolve(ref) for _, ref, Tcr in self._rel_trajectory]
+                         ) if self._rel_trajectory else np.zeros((0, 4, 4))
+        return ts, poses
+
+    def save_trajectory_tum(self, path: str) -> None:
+        ts, poses = self.get_trajectory()
+        traj_io.save_tum(path, ts, poses)
+
+    def n_keyframes(self) -> int:
+        return int(self.map.n_kf)
+
+    def n_points(self) -> int:
+        return int(torch.sum(self.map.pt_valid))
+
+    # ------------------------------------------------------------ state machine
+
+    def _track(self, image: torch.Tensor, depth: torch.Tensor, timestamp: float) -> np.ndarray:
+        image = image.to(self.device)
+        depth = depth.to(self.device)
+        ts = torch.tensor(timestamp, dtype=torch.float32, device=self.device)
+        if self.state == STATE_NOT_INITIALIZED:
+            m, carry, n_depth = pipeline.init_rgbd(self.config, self.map, image, depth, ts)
+            if int(n_depth) >= self.config.tracking.min_init_depth_points:
+                self.map, self.carry = m, carry
+                self.state = STATE_OK
+                self.Tcw = np.eye(4, dtype=np.float32)
+                self._rel_trajectory.append((timestamp, 0, np.eye(4)))
+            else:  # not enough depth features: drop the premature keyframe
+                self.map = ms.empty_map(self.config, self.device)
+                self.carry = None
+        else:
+            frame = make_frame_rgbd(self.config, image, depth)
+            self.map, self.carry, info = pipeline.track_step(
+                self.config, self.map, self.carry, frame, ts)
+            self.Tcw = info.Tcw.cpu().numpy()
+            self.state = STATE_OK if bool(info.state_ok) else STATE_LOST
+            Tcr = self.Tcw @ np.linalg.inv(info.ref_kf_Tcw.cpu().numpy())
+            self._rel_trajectory.append((timestamp, int(info.ref_kf_seq), Tcr))
+        self.trajectory.append((timestamp, self.Tcw))
+        return self.Tcw

@@ -1,0 +1,63 @@
+"""Tests of the port that need an NVIDIA card (marker `card`).
+
+They skip without one.  This file imports neither JAX nor the JAX package, so
+on a machine without JAX it runs with the repository's conftest switched off:
+
+    python -m pytest --noconftest -m card tests/test_torch_card.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from self_commit_orb_slam2_tpu_torch.ops.orb import fast_band
+
+pytestmark = pytest.mark.card
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the CUDA kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("G,H0p,W0,L", [(8, 480, 640, 8), (6, 64, 200, 3)])
+def test_fast_band_kernel_bitwise_equals_plain(cuda, G, H0p, W0, L):
+    rng = np.random.default_rng(0)
+    base = rng.uniform(0, 255, (G * H0p // 8 + 1, W0 // 8 + 1)).astype(np.float32)
+    img = np.kron(base, np.ones((8, 8), np.float32))[:G * H0p, :W0]
+    img = torch.from_numpy(img + rng.normal(0, 12, img.shape).astype(np.float32)).to(cuda)
+    dims = tuple((round(H0p / 1.2**l), round(W0 / 1.2**l)) for l in range(L))
+    args = (20.0, 7.0, H0p, dims, 16, L)
+    before = fast_band.kernel.launches
+    got = fast_band.fast_nms_bands_hi_lo(img, *args)
+    ref = fast_band.fast_bands_plain(img, *args)
+    torch.cuda.synchronize()
+    assert fast_band.kernel.launches == before + 1
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert int((got[2] > 0).sum()) > 100
+
+
+def test_system_streams_on_card(cuda):
+    from self_commit_orb_slam2_tpu_torch.models.config import (
+        Capacities, SlamConfig, TrackingConfig)
+    from self_commit_orb_slam2_tpu_torch.models.system import STATE_OK, System
+    from self_commit_orb_slam2_tpu_torch.ops.camera import CameraParams
+    from self_commit_orb_slam2_tpu_torch.ops.orb.extractor import OrbConfig
+    from self_commit_orb_slam2_tpu_torch.utils.evaluation import ate_rmse
+    from self_commit_orb_slam2_tpu_torch.utils.synthetic import generate_sequence
+
+    seq = generate_sequence(n_frames=13, width=320, height=240, fx=260.0, seed=5)
+    cfg = SlamConfig(camera=CameraParams.create(fx=260.0, fy=260.0, cx=160.0, cy=120.0,
+                                                bf=26.0, width=320, height=240),
+                     orb=OrbConfig(n_features=500),
+                     caps=Capacities(max_keyframes=64, max_points=16384, local_points=1024),
+                     tracking=TrackingConfig(max_frames_between_kf=10))
+    slam = System(cfg, enable_mapping=False, enable_loop_closing=False)
+    assert slam.map.kf_Tcw.is_cuda
+    slam.track_batch_rgbd(seq.images, seq.depths, seq.timestamps, chunk=4)
+    _, est = slam.get_trajectory()
+    assert slam.state == STATE_OK
+    assert ate_rmse(est, seq.poses_gt) < 0.02

@@ -1,0 +1,88 @@
+"""The port's rules, as tests: it imports neither JAX nor the JAX package,
+it never falls back to the CPU silently, and its copies of the JAX package's
+numpy-only modules give the same results."""
+
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from self_commit_orb_slam2_tpu.ops.orb import brief_pattern as jbrief
+from self_commit_orb_slam2_tpu.ops.orb import fast as jfast
+from self_commit_orb_slam2_tpu.utils import evaluation as jevaluation
+from self_commit_orb_slam2_tpu.utils import synthetic as jsynthetic
+from self_commit_orb_slam2_tpu_torch.models import config
+from self_commit_orb_slam2_tpu_torch.models.system import System, resolve_device
+from self_commit_orb_slam2_tpu_torch.ops.camera import CameraParams
+from self_commit_orb_slam2_tpu_torch.ops.orb import brief_pattern, fast
+from self_commit_orb_slam2_tpu_torch.utils import evaluation, synthetic
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "self_commit_orb_slam2_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "self_commit_orb_slam2_tpu"), (path, mod)
+
+
+def _cfg():
+    return config.SlamConfig(camera=CameraParams.create(fx=260.0, fy=260.0, cx=160.0,
+                                                        cy=120.0, bf=26.0, width=320,
+                                                        height=240))
+
+
+def test_no_silent_cpu_fallback():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        System(_cfg(), enable_mapping=False, enable_loop_closing=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("kwargs", [dict(enable_mapping=True, enable_loop_closing=False),
+                                    dict(enable_mapping=False, enable_loop_closing=True)])
+def test_unported_phases_refused(kwargs):
+    with pytest.raises(NotImplementedError):
+        System(_cfg(), device="cpu", **kwargs)
+    with pytest.raises(NotImplementedError):
+        System(_cfg()._replace(vocab=object()), enable_mapping=False,
+               enable_loop_closing=False, device="cpu")
+
+
+def test_generate_sequence_copy_identical():
+    kw = dict(n_frames=2, width=96, height=72, fx=80.0, seed=5)
+    a, b = jsynthetic.generate_sequence(**kw), synthetic.generate_sequence(**kw)
+    for f in ("images", "depths", "poses_gt", "K", "timestamps"):
+        np.testing.assert_array_equal(getattr(b, f), getattr(a, f), err_msg=f)
+    for name in ("lookat_trajectory", "orbit_trajectory", "circle_trajectory",
+                 "spin_trajectory"):
+        np.testing.assert_array_equal(getattr(synthetic, name)(7),
+                                      getattr(jsynthetic, name)(7), err_msg=name)
+
+
+def test_numpy_constants_and_evaluation_copies(rng):
+    np.testing.assert_array_equal(brief_pattern.BIT_PATTERN_31, jbrief.BIT_PATTERN_31)
+    np.testing.assert_array_equal(fast.RING_OFFSETS, jfast.RING_OFFSETS)
+    assert fast.ARC_LENGTH == jfast.ARC_LENGTH
+    est = jsynthetic.lookat_trajectory(20)
+    gt = est.copy()
+    gt[:, :3, 3] += rng.normal(0, 0.01, (20, 3)).astype(np.float32)
+    assert evaluation.ate_rmse(est, gt) == jevaluation.ate_rmse(est, gt)
+    assert evaluation.rpe_rmse(est, gt) == jevaluation.rpe_rmse(est, gt)
