@@ -5,18 +5,25 @@
 
 Phases (any failure exits non-zero and prints no result):
   1. device: the card's name, count, and nvidia-smi's name and power limit;
-  2. build: compile every kernel of the main path from the checkout's
-     sources (nvcc, sm_90a) and print ptxas' registers / shared memory;
+  2. build: compile every kernel of the port's paths from the checkout's
+     sources (one nvcc per source, all at once, sm_90a) and print ptxas'
+     registers / shared memory;
   3. kernels: run each kernel and its plain PyTorch version on the card at
-     the main path's shapes; require bitwise equality; time both with CUDA
-     events beside the kernel's bound;
-  4. main path: the port's System (RGB-D, 640x480, 1000 features, the
-     bench's capacities, chunk 4, mapping and loop closing off) streams
-     1 + 60 frames of generate_sequence(seed=5, fx=520); require STATE_OK,
-     >= 2 keyframes, ATE < 0.01 m and every kernel launched by that run.
+     its path's shapes (the first frame and a chunk of 4); require bitwise
+     equality; time both with CUDA events beside the kernel's bound;
+  4. the port's System (RGB-D, 640x480, 1000 features, the bench's
+     capacities, chunk 4, loop closing off) streams 1 + 60 frames of
+     generate_sequence(seed=5, fx=520) along each path, with every launch
+     count set to 0 just before it and read just after:
+       path 1: 16-px cells (FAST band kernel), local mapping off;
+       path 2: 8-px cells (FAST NMS kernel + slab selection), local mapping
+               on, one mapping pass per keyframe inserted after the first;
+     each must end STATE_OK with >= 2 keyframes and ATE < 0.01 m, launch its
+     own kernel once per extraction call and the other kernel never.
 
-The second-to-last line is the kernels JSON; the last line is
-{"ok": true, "device": {...}}.  Imports nothing of JAX.
+The second-to-last line is the kernels JSON (each kernel with its launches
+on its own path); the last line is {"ok": true, "device": {...}}.  Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -67,17 +74,22 @@ def phase_device():
 
 
 def phase_build():
-    from self_commit_orb_slam2_tpu_torch.ops.orb import fast_band
+    from concurrent.futures import ThreadPoolExecutor
 
+    from self_commit_orb_slam2_tpu_torch.ops.orb import fast_band, fast_nms
+
+    kernels = [fast_band.kernel, fast_nms.kernel]
     t0 = time.perf_counter()
-    lib = fast_band.kernel.build()
-    print(f"[build] {fast_band.kernel.name}: {lib.name} in "
-          f"{time.perf_counter() - t0:.1f} s")
-    for line in fast_band.kernel.build_log.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            print(f"[build]   {line.strip()}")
-    fast_band.kernel.function()  # load it
-    return [fast_band.kernel]
+    with ThreadPoolExecutor(len(kernels)) as pool:   # one nvcc per source, together
+        libs = list(pool.map(lambda k: k.build(), kernels))
+    print(f"[build] {len(kernels)} kernels in {time.perf_counter() - t0:.1f} s")
+    for k, lib in zip(kernels, libs):
+        print(f"[build] {k.name}: {lib.name}")
+        for line in k.build_log.splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                print(f"[build]   {line.strip()}")
+        k.function()  # load it
+    return {k.name: k for k in kernels}
 
 
 def _cuda_time_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -96,9 +108,10 @@ def _cuda_time_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _slab(images_u8, cfg):
-    """The [G*H0p, W0] slab and the band arguments extract_batch gives the
-    kernel for these frames."""
+def _slab(images_u8, cfg, band: bool):
+    """The [G*H0p, W0] slab (slices padded to 16 rows for the band kernel,
+    [G*H0, W0] for the NMS kernel), H0p and the level dims extract_batch
+    gives the kernel for these frames."""
     import torch
 
     from self_commit_orb_slam2_tpu_torch.ops.orb import pyramid
@@ -108,7 +121,7 @@ def _slab(images_u8, cfg):
     dims = tuple(tuple(l.shape[-2:]) for l in levels)
     slab = pyramid.stack_slab_batch(levels)
     B, L, H0, W0 = slab.shape
-    H0p = H0 + (-H0) % 16
+    H0p = H0 + (-H0) % 16 if band else H0
     slab = slab[:, :, torch.clamp(torch.arange(H0p, device=slab.device), max=H0 - 1)]
     return slab.reshape(B * L * H0p, W0).contiguous(), H0p, dims
 
@@ -123,55 +136,87 @@ def fast_band_bound_ms(h: int, w: int) -> tuple[float, str]:
     # subtractions each for bright and dark, 2 accumulations); max; 8 NMS
     # compares; 1 band compare
     ops = h * w * 2 * (2 + 16 * (2 + 4 + 2) + 1 + 8 + 1)
+    return _bound(n_bytes, ops)
+
+
+def fast_nms_bound_ms(h: int, w: int) -> tuple[float, str]:
+    """Least time for the NMS function on these inputs: the image read once
+    and two [h, w] float32 maps written once, or its fp32 operations (the
+    band kernel's less the band compare)."""
+    return _bound(h * w * 4 + 2 * h * w * 4, h * w * 2 * (2 + 16 * (2 + 4 + 2) + 1 + 8))
+
+
+def _bound(n_bytes: float, ops: float) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FP32_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def phase_kernels(seq):
+def _check_kernel(name, label, out_k, out_p, n_corners):
     import torch
 
-    from self_commit_orb_slam2_tpu_torch.ops.orb import fast_band
+    torch.cuda.synchronize()
+    n_diff = sum(int((a != b).sum()) for a, b in zip(out_k, out_p))
+    max_err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(out_k, out_p))
+    print(f"[kernels] {name} {label}: {n_corners} maxima > 0, differing entries "
+          f"{n_diff}, max |kernel - plain| {max_err}")
+    require(n_corners > 0, f"{name} {label}: no corners found")
+    require(n_diff == 0, f"{name} {label}: {n_diff} entries differ from the plain version")
+    return max_err
+
+
+def _timed(name, source, replaces, slab, kernel_fn, plain_fn, bound, max_err):
+    ms = _cuda_time_ms(kernel_fn, 100)
+    plain_ms = _cuda_time_ms(plain_fn, 5, 1)
+    bound_ms, bound_by = bound(*slab.shape)
+    print(f"[kernels] {name} chunk {tuple(slab.shape)}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+def phase_kernels(seq):
+    from self_commit_orb_slam2_tpu_torch.ops.orb import fast_band, fast_nms
     from self_commit_orb_slam2_tpu_torch.ops.orb.extractor import OrbConfig
 
     cfg = OrbConfig(n_features=N_FEATURES)
+    thr = (cfg.fast_threshold_hi, cfg.fast_threshold_lo)
     images = np.clip(seq.images, 0, 255).astype(np.uint8)
     results = {}
     # first-frame shape (8 slices), then a chunk of 4 frames (32 slices)
     for label, frames in (("first frame", images[0:1]), ("chunk", images[1:1 + CHUNK])):
-        slab, H0p, dims = _slab(frames, cfg)
-        args = (cfg.fast_threshold_hi, cfg.fast_threshold_lo, H0p, dims,
-                cfg.border, cfg.n_levels)
+        slab, H0p, dims = _slab(frames, cfg, band=True)
+        args = (*thr, H0p, dims, cfg.border, cfg.n_levels)
         out_k = fast_band.fast_nms_bands_hi_lo(slab, *args)
         out_p = fast_band.fast_bands_plain(slab, *args)
-        torch.cuda.synchronize()
-        n_diff = sum(int((a != b).sum()) for a, b in zip(out_k, out_p))
-        max_err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(out_k, out_p))
-        n_corners = int((out_k[2] > 0).sum())
-        print(f"[kernels] fast_band {label}: slab {tuple(slab.shape)}, "
-              f"{n_corners} band maxima > 0, differing entries {n_diff}, "
-              f"max |kernel - plain| {max_err}")
-        require(n_corners > 0, f"fast_band {label}: no corners found")
-        require(n_diff == 0, f"fast_band {label}: {n_diff} entries differ from "
-                             f"the plain version")
+        err = _check_kernel("fast_band", label, out_k, out_p, int((out_k[2] > 0).sum()))
         if label == "chunk":
-            ms = _cuda_time_ms(lambda: fast_band.fast_nms_bands_hi_lo(slab, *args), 100)
-            plain_ms = _cuda_time_ms(lambda: fast_band.fast_bands_plain(slab, *args), 5, 1)
-            bound_ms, bound_by = fast_band_bound_ms(*slab.shape)
-            print(f"[kernels] fast_band chunk: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-            results["fast_band"] = dict(
-                name="fast_band", route="cuda",
-                source="self_commit_orb_slam2_tpu_torch/csrc/fast_band.cu",
-                replaces="self_commit_orb_slam2_tpu/ops/orb/fast_pallas.py:107",
-                max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+            results["fast_band"] = _timed(
+                "fast_band", "self_commit_orb_slam2_tpu_torch/csrc/fast_band.cu",
+                "self_commit_orb_slam2_tpu/ops/orb/fast_pallas.py:107", slab,
+                lambda: fast_band.fast_nms_bands_hi_lo(slab, *args),
+                lambda: fast_band.fast_bands_plain(slab, *args), fast_band_bound_ms, err)
+
+        slab, _, _ = _slab(frames, cfg, band=False)
+        out_k = fast_nms.fast_nms_hi_lo(slab, *thr)
+        out_p = fast_nms.fast_nms_plain(slab, *thr)
+        err = _check_kernel("fast_nms", label, out_k, out_p, int((out_k[1] > 0).sum()))
+        if label == "chunk":
+            results["fast_nms"] = _timed(
+                "fast_nms", "self_commit_orb_slam2_tpu_torch/csrc/fast_nms.cu",
+                "self_commit_orb_slam2_tpu/ops/orb/fast_pallas.py:33", slab,
+                lambda: fast_nms.fast_nms_hi_lo(slab, *thr),
+                lambda: fast_nms.fast_nms_plain(slab, *thr), fast_nms_bound_ms, err)
     return results
 
 
-def phase_main_path(seq, kernels):
+def phase_path(seq, kernels, label: str, cell_size: int, mapping: bool, own: str):
+    """Stream the 61 frames through the System along one path; `own` is the
+    FAST kernel the path must run (once per extraction call)."""
     import torch
 
+    from self_commit_orb_slam2_tpu_torch.models import pipeline
     from self_commit_orb_slam2_tpu_torch.models.config import (
         Capacities, SlamConfig, TrackingConfig)
     from self_commit_orb_slam2_tpu_torch.models.system import STATE_OK, System
@@ -182,48 +227,76 @@ def phase_main_path(seq, kernels):
     cam = CameraParams.create(fx=FX, fy=FX, cx=WIDTH / 2, cy=HEIGHT / 2,
                               bf=FX * 0.1, width=WIDTH, height=HEIGHT)
     cfg = SlamConfig(
-        camera=cam, orb=OrbConfig(n_features=N_FEATURES),
+        camera=cam, orb=OrbConfig(n_features=N_FEATURES, cell_size=cell_size),
         caps=Capacities(max_keyframes=64, max_points=16384, local_points=1024),
         tracking=TrackingConfig(max_frames_between_kf=10), sensor="rgbd")
-    slam = System(cfg, enable_mapping=False, enable_loop_closing=False)
+    slam = System(cfg, enable_mapping=mapping, enable_loop_closing=False)
     images = np.clip(seq.images, 0, 255).astype(np.uint8)
     depths = np.clip(seq.depths * 1e3, 0, 65535).astype(np.uint16)
     ts = seq.timestamps
 
-    for k in kernels:
-        k.launches = 0
-    sess = slam.open_stream("rgbd", CHUNK)
-    warm = 1 + CHUNK  # the initializing frame + the first chunk
-    sess.feed((images[:warm], depths[:warm]), ts[:warm])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    sess.feed((images[warm:], depths[warm:]), ts[warm:])
-    sess.finish()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in kernels}
+    # count and time the mapping passes (host clock, synced) at the call site
+    # the pipeline uses
+    process = pipeline.local_mapping._process
+    pass_s = []
+
+    def timed_process(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = process(*args)
+        torch.cuda.synchronize()
+        pass_s.append(time.perf_counter() - t0)
+        return out
+
+    pipeline.local_mapping._process = timed_process
+    try:
+        for k in kernels.values():
+            k.launches = 0
+        sess = slam.open_stream("rgbd", CHUNK)
+        warm = 1 + CHUNK  # the initializing frame + the first chunk
+        sess.feed((images[:warm], depths[:warm]), ts[:warm])
+        torch.cuda.synchronize()
+        n_warm_passes = len(pass_s)
+        t0 = time.perf_counter()
+        sess.feed((images[warm:], depths[warm:]), ts[warm:])
+        sess.finish()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels.values()}
+    finally:
+        pipeline.local_mapping._process = process
 
     n_timed = N_FRAMES - warm
     fps = n_timed / dt
     _, est = slam.get_trajectory()
-    require(len(est) == N_FRAMES, f"trajectory has {len(est)} poses, want {N_FRAMES}")
-    require(np.all(np.isfinite(est)), "non-finite poses")
+    require(len(est) == N_FRAMES, f"{label}: trajectory has {len(est)} poses, want {N_FRAMES}")
+    require(np.all(np.isfinite(est)), f"{label}: non-finite poses")
     ate = float(ate_rmse(est, seq.poses_gt[:len(est)]))
     n_kf, n_pt = slam.n_keyframes(), slam.n_points()
-    print(f"[main] {N_FRAMES} frames {WIDTH}x{HEIGHT}, {N_FEATURES} features, "
-          f"chunk {CHUNK}: state {slam.state}, keyframes {n_kf}, points {n_pt}, "
-          f"ATE {ate:.6f} m")
-    print(f"[main] steady stream: {n_timed} frames in {dt:.3f} s = {fps:.2f} "
+    steady_map_s = sum(pass_s[n_warm_passes:])
+    print(f"[{label}] {N_FRAMES} frames {WIDTH}x{HEIGHT}, {N_FEATURES} features, "
+          f"cell {cell_size}, mapping {'on' if mapping else 'off'}, chunk {CHUNK}: "
+          f"state {slam.state}, keyframes {n_kf}, points {n_pt}, culled keyframes "
+          f"{int(slam.map.n_culled)}, ATE {ate:.6f} m")
+    print(f"[{label}] steady stream: {n_timed} frames in {dt:.3f} s = {fps:.2f} "
           f"frames/s (host clock, ends in cuda.synchronize)")
-    print(f"[main] launches during the run: {launches}")
-    require(slam.state == STATE_OK, f"tracking lost (state {slam.state})")
-    require(n_kf >= 2, f"only {n_kf} keyframes")
-    require(ate < ATE_LIMIT_M, f"ATE {ate:.6f} m >= {ATE_LIMIT_M} m")
+    if mapping:
+        print(f"[{label}] mapping passes: {len(pass_s)}, mean {np.mean(pass_s) * 1e3:.1f} ms "
+              f"per pass (host clock, synced); steady stream: {steady_map_s:.3f} s of "
+              f"mapping, {dt - steady_map_s:.3f} s of frame building and tracking")
+    print(f"[{label}] launches during the run: {launches}")
+    require(slam.state == STATE_OK, f"{label}: tracking lost (state {slam.state})")
+    require(n_kf >= 2, f"{label}: only {n_kf} keyframes")
+    require(ate < ATE_LIMIT_M, f"{label}: ATE {ate:.6f} m >= {ATE_LIMIT_M} m")
     n_extract = 1 + (N_FRAMES - 1) // CHUNK
-    require(launches["fast_band"] == n_extract,
-            f"fast_band launched {launches['fast_band']} times, want one per "
-            f"extraction call ({n_extract})")
-    return launches, fps, ate
+    for name, n in launches.items():
+        want = n_extract if name == own else 0
+        require(n == want, f"{label}: {name} launched {n} times, want {want}")
+    want_passes = n_kf - 1 if mapping else 0
+    require(len(pass_s) == want_passes,
+            f"{label}: {len(pass_s)} mapping passes, want {want_passes} (one per "
+            f"keyframe inserted after initialization)")
+    return launches[own], fps, ate
 
 
 def main() -> int:
@@ -248,15 +321,18 @@ def main() -> int:
         print(f"[data] generate_sequence: {N_FRAMES} frames in "
               f"{time.perf_counter() - t0:.1f} s (host)")
         results = phase_kernels(seq)
-        launches, fps, ate = phase_main_path(seq, kernels)
+        summary = []
+        for label, cell, mapping, own in (("path 1", 16, False, "fast_band"),
+                                          ("path 2", 8, True, "fast_nms")):
+            n, fps, ate = phase_path(seq, kernels, label, cell, mapping, own)
+            results[own]["launches"] = n
+            summary.append(f"{label} {fps:.2f} frames/s, ATE {ate:.6f} m")
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
-    for k, n in launches.items():
-        results[k]["launches"] = n
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(f"[summary] {card}: main path {fps:.2f} frames/s, ATE {ate:.6f} m")
+    print(f"[summary] {card}: {'; '.join(summary)}")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results.values()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

@@ -7,10 +7,13 @@ an obvious counterpart, and the state keeps the JAX field names (`MapState`,
 `TrackCarry`, `FrameData`, `StepInfo`) so `convert.py` can move a map between
 the two packages field by field.
 
-This slice covers RGB-D tracking with local mapping, loop closing and the
-vocabulary off: ORB extraction (with the FAST band kernel as hand-written
-CUDA, `csrc/fast_band.cu`), depth association, dual-hypothesis motion
-tracking, local-map tracking, the keyframe decision and keyframe insertion.
+It covers RGB-D tracking with loop closing and the vocabulary off: ORB
+extraction (with the two FAST kernels as hand-written CUDA: the band kernel
+`csrc/fast_band.cu` for 16-px cells, the NMS kernel `csrc/fast_nms.cu` for
+any other cell size), depth association, dual-hypothesis motion tracking,
+local-map tracking, the keyframe decision, keyframe insertion and, when
+enabled, local mapping (triangulation, fusion, local bundle adjustment,
+point and keyframe culling).
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`.  On the
 CPU every kernel wrapper takes its plain PyTorch version; on the card it

@@ -17,71 +17,26 @@
 // into shared memory, and reduces each column's 16 rows in registers.  The
 // full-resolution score maps never reach device memory.
 //
-// Arithmetic follows the JAX order exactly (ring > p + t, ring < p - t,
-// acc + ((ring - p) - t), acc + ((p - t) - ring) in RING_OFFSETS order), so
-// the result is bitwise equal to the plain PyTorch version beside the
-// wrapper (ops/orb/fast_band.py).  No wgmma/TMA: speed is later work.
+// The staging and the scores are fast_common.cuh's, shared with fast_nms.cu,
+// in the JAX arithmetic order, so the result is bitwise equal to the plain
+// PyTorch version beside the wrapper (ops/orb/fast_band.py).  No wgmma/TMA:
+// speed is later work.
 
 #include <cuda_runtime.h>
 
+#include "fast_common.cuh"
+
 namespace {
 
-constexpr int kBand = 16;           // rows per band (one output row)
-constexpr int kHalo = 4;            // 3 (FAST ring) + 1 (NMS)
-constexpr int kStrip = 128;         // columns per block = threads per block
-constexpr int kTileH = kBand + 2 * kHalo;
-constexpr int kTileW = kStrip + 2 * kHalo;
+using namespace fastk;
+
+constexpr int kBand = kRows;        // rows per band (one output row)
 constexpr int kMaxLevels = 32;
 
 struct LevelDims {
   int h[kMaxLevels];
   int w[kMaxLevels];
 };
-
-// Bresenham ring of radius 3, clockwise from 12 o'clock (fast.RING_OFFSETS).
-__constant__ int kRingDy[16] = {-3, -3, -2, -1, 0, 1, 2, 3, 3, 3, 2, 1, 0, -1, -2, -3};
-__constant__ int kRingDx[16] = {0, 1, 2, 3, 3, 3, 2, 1, 0, -1, -2, -3, -3, -3, -2, -1};
-
-__device__ __forceinline__ bool has_arc(unsigned bits) {
-  unsigned acc = bits;
-#pragma unroll
-  for (int k = 1; k < 9; ++k) acc &= ((bits << k) | (bits >> (16 - k))) & 0xFFFFu;
-  return acc != 0u;
-}
-
-// FAST score at tile position (r, c): max of the bright and dark excess sums
-// when a 9-contiguous arc exists, else 0.
-__device__ __forceinline__ float fast_score(const float (*tile)[kTileW], int r, int c,
-                                            float t) {
-  const float p = tile[r][c];
-  const float hi = p + t;
-  const float lo = p - t;
-  unsigned bits_b = 0u, bits_d = 0u;
-  float sum_b = 0.f, sum_d = 0.f;
-#pragma unroll
-  for (int k = 0; k < 16; ++k) {
-    const float q = tile[r + kRingDy[k]][c + kRingDx[k]];
-    if (q > hi) {
-      bits_b |= 1u << k;
-      sum_b = sum_b + ((q - p) - t);
-    }
-    if (q < lo) {
-      bits_d |= 1u << k;
-      sum_d = sum_d + (lo - q);
-    }
-  }
-  return (has_arc(bits_b) || has_arc(bits_d)) ? fmaxf(sum_b, sum_d) : 0.f;
-}
-
-// 3x3 non-max suppression with raster tie-break: strict against earlier
-// neighbours, >= against later ones (fast_pallas.py:172-175).
-__device__ __forceinline__ float nms(const float (*s)[kStrip + 2], int r, int c) {
-  const float v = s[r][c];
-  const bool keep = v > s[r - 1][c - 1] && v > s[r - 1][c] && v > s[r - 1][c + 1] &&
-                    v > s[r][c - 1] && v >= s[r][c + 1] && v >= s[r + 1][c - 1] &&
-                    v >= s[r + 1][c] && v >= s[r + 1][c + 1];
-  return keep ? v : 0.f;
-}
 
 __global__ void __launch_bounds__(kStrip)
 fast_band_kernel(const float* __restrict__ img, float* __restrict__ hi_max,
@@ -90,37 +45,13 @@ fast_band_kernel(const float* __restrict__ img, float* __restrict__ hi_max,
                  LevelDims dims, int n_levels, int border, float thr_hi,
                  float thr_lo) {
   __shared__ float tile[kTileH][kTileW];
-  __shared__ float score[2][kBand + 2][kStrip + 2];
+  __shared__ float score[2][kScoreH][kScoreW];
 
   const int band = blockIdx.y;
   const int row0 = band * kBand;
   const int col0 = blockIdx.x * kStrip;
   const int tid = threadIdx.x;
-
-  // Stage the band with its halo; rows/columns past the slab read the edge
-  // pixel (jnp.pad mode="edge").
-  for (int i = tid; i < kTileH * kTileW; i += kStrip) {
-    const int r = i / kTileW, c = i - (i / kTileW) * kTileW;
-    const int gr = min(max(row0 - kHalo + r, 0), h - 1);
-    const int gc = min(max(col0 - kHalo + c, 0), w - 1);
-    tile[r][c] = img[(size_t)gr * w + gc];
-  }
-  __syncthreads();
-
-  // Scores of the band rows +-1 and strip columns +-1 (what the NMS reads);
-  // zero on the slab's 4-pixel border, as in the TPU kernel.
-  for (int i = tid; i < (kBand + 2) * (kStrip + 2); i += kStrip) {
-    const int sr = i / (kStrip + 2), sc = i - (i / (kStrip + 2)) * (kStrip + 2);
-    const int gr = row0 - 1 + sr, gc = col0 - 1 + sc;
-    float s_hi = 0.f, s_lo = 0.f;
-    if (gr >= kHalo && gr < h - kHalo && gc >= kHalo && gc < w - kHalo) {
-      s_hi = fast_score(tile, sr + 3, sc + 3, thr_hi);
-      s_lo = fast_score(tile, sr + 3, sc + 3, thr_lo);
-    }
-    score[0][sr][sc] = s_hi;
-    score[1][sr][sc] = s_lo;
-  }
-  __syncthreads();
+  stage_scores(img, h, w, row0, col0, tile, score, thr_hi, thr_lo);
 
   const int c = col0 + tid;
   if (c >= wp) return;

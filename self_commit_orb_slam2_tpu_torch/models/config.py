@@ -20,12 +20,23 @@ class Capacities(NamedTuple):
     max_points: int = 65536
     local_points: int = 2048   # frustum-visible local map points per frame
     local_keyframes: int = 80  # reference caps the local-KF set at 80 (Tracking.cc:1964)
+    # Local bundle adjustment window: the top covisible keyframes free, the
+    # top second-ring observers fixed, the window's points (Optimizer.cc:
+    # 640-724, capacity-bounded by covisibility ranking)
+    ba_free_kfs: int = 12
+    ba_fixed_kfs: int = 12
+    ba_points: int = 4096
+    # Gauss-Newton budget of the local BA before / after the outlier gate
+    # (the reference runs 5 + 10, Optimizer.cc:863-917)
+    ba_iters_pre: int = 3
+    ba_iters_post: int = 5
     cull_log: int = 2048       # retired-keyframe archive ring
     loop_log: int = 32         # persisted loop-edge ring
 
 
 class TrackingConfig(NamedTuple):
-    """The fields of the JAX package's TrackingConfig that this slice reads."""
+    """The fields of the JAX package's TrackingConfig that the ported paths
+    read (tracking and local mapping)."""
 
     # Keyframe policy (reference Tracking::NeedNewKeyFrame, Tracking.cc:1509-1648)
     min_frames_between_kf: int = 0
@@ -45,6 +56,10 @@ class TrackingConfig(NamedTuple):
     min_init_depth_points: int = 100
     # RGB-D u_right information weight (sigma_ur = 1/sqrt(w) px)
     rgbd_ur_weight: float = 25.0
+    # Keyframe culling: a covisible keyframe whose points are >= this share
+    # observed by >= 3 other keyframes is retired (reference
+    # LocalMapping::KeyFrameCulling 0.9, src/LocalMapping.cc:952)
+    kf_cull_redundancy: float = 0.9
 
 
 class SlamConfig(NamedTuple):

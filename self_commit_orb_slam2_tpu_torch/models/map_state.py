@@ -176,6 +176,51 @@ def points_of_keyframes_cached(m: MapState, kf_mask: torch.Tensor) -> torch.Tens
     return (s > 0) & m.pt_valid
 
 
+def covisibility_of_points_cached(m: MapState, pt_mask: torch.Tensor) -> torch.Tensor:
+    """[K] count of the points of a [P] bool mask each keyframe observes
+    (cached incidence)."""
+    counts = m.kf_pt_inc.to(torch.float32) @ pt_mask.to(torch.float32)
+    return counts.to(torch.int32) * m.kf_valid
+
+
+def covisibility_matrix_cached(m: MapState) -> torch.Tensor:
+    """[K, K] keyframe-keyframe shared-observation counts, inc @ inc.T."""
+    inc = m.kf_pt_inc.to(torch.float32)
+    C = (inc @ inc.T).to(torch.int32)
+    return C * (m.kf_valid[:, None] & m.kf_valid[None, :])
+
+
+def points_of_keyframes(m: MapState, kf_mask: torch.Tensor) -> torch.Tensor:
+    """[P] bool: points observed by any keyframe of kf_mask (exact, from the
+    observation table)."""
+    obs = torch.where(kf_mask[:, None] & (m.kf_obs_pt >= 0), m.kf_obs_pt, -1)
+    return indicator(m.max_pt, obs.reshape(-1)) & m.pt_valid
+
+
+def observation_count(m: MapState) -> torch.Tensor:
+    """[P] int32 number of keyframes observing each point."""
+    ok = m.kf_feat_valid & (m.kf_obs_pt >= 0) & m.kf_valid[:, None]
+    zero = torch.zeros(m.max_pt, dtype=torch.int32, device=m.pt_valid.device)
+    return add_drop(zero, torch.where(ok, m.kf_obs_pt, -1).reshape(-1), 1)
+
+
+def keyframe_positions(m: MapState) -> torch.Tensor:
+    """[K, 3] camera centres c = -R^T t."""
+    return -torch.einsum("kij,ki->kj", m.kf_Tcw[:, :3, :3], m.kf_Tcw[:, :3, 3])
+
+
+def rebuild_incidence(m: MapState) -> MapState:
+    """Recompute the incidence cache kf_pt_inc and pt_obs from the
+    observation table; the last step of every mapping pass, so the cache
+    the per-frame tracking reads reflects its culls and rebinds."""
+    K, P = m.max_kf, m.max_pt
+    ok = m.kf_valid[:, None] & m.kf_feat_valid & (m.kf_obs_pt >= 0)
+    flat = torch.arange(K, device=ok.device)[:, None] * (P + 1) + torch.where(
+        ok, m.kf_obs_pt, P).long()
+    inc = indicator(K * (P + 1), flat.reshape(-1), torch.int8).reshape(K, P + 1)[:, :P]
+    return m._replace(kf_pt_inc=inc, pt_obs=inc.sum(0, dtype=torch.int32))
+
+
 def _inc_row(m: MapState, obs_pt: torch.Tensor, feat_valid: torch.Tensor) -> torch.Tensor:
     """[P] int8 incidence row for one keyframe's observation row."""
     return indicator(m.max_pt, torch.where(feat_valid & (obs_pt >= 0), obs_pt, -1),

@@ -3,15 +3,14 @@
 Counterpart of the JAX package's models/pipeline.py: a chunk of frames is
 built through one batched extraction chain (frames_rgbd_packed), then the
 tracking steps run in order over it (batch_steps_frames -> track_step):
-dual-hypothesis motion tracking, local-map tracking, the keyframe decision
-and keyframe insertion.  The JAX package compiles each step into one XLA
-program with lax.cond branches; here the step runs eagerly and each branch is
-a host `if` on a 0-d tensor.  The keyframe branch costs one host sync per
-frame; removing it is later work.
+dual-hypothesis motion tracking, local-map tracking, the keyframe decision,
+keyframe insertion and, with run_mapping, the local-mapping pass.  The JAX
+package compiles each step into one XLA program with lax.cond branches; here
+the step runs eagerly and each branch is a host `if` on a 0-d tensor.  The
+keyframe branch costs one host sync per frame; removing it is later work.
 
-This slice ports the mapping-off, vocabulary-off configuration: no local
-mapping after keyframe insertion and no relocalization on the LOST branch
-(the JAX package runs neither when they are switched off).
+The vocabulary is not ported: no relocalization runs on the LOST branch
+(the JAX package runs none without a vocabulary either).
 """
 
 from __future__ import annotations
@@ -24,6 +23,7 @@ import torch
 from ..ops import se3
 from ..ops.indexing import row
 from . import frame as frame_mod
+from . import local_mapping
 from . import map_state as ms
 from . import tracking
 from .config import SlamConfig
@@ -112,9 +112,10 @@ def _select(take_a: torch.Tensor, a: NamedTuple, b: NamedTuple):
 
 
 def track_step(config: SlamConfig, m: MapState, carry: TrackCarry,
-               frame: FrameData, timestamp):
+               frame: FrameData, timestamp, run_mapping: bool = True):
     """One tracking step (frame already built) -> (map, carry, StepInfo).
-    Updates the map in place when a keyframe is inserted."""
+    Updates the map in place when a keyframe is inserted; with run_mapping
+    the local-mapping pass follows the insertion."""
     cfg = config.tracking
     dev = frame.xy.device
     eye = torch.eye(4, dtype=torch.float32, device=dev)
@@ -142,6 +143,8 @@ def track_step(config: SlamConfig, m: MapState, carry: TrackCarry,
     if bool(need_kf):  # host branch: one sync per frame (lax.cond in JAX)
         m, kf_id = tracking.create_keyframe(config, m, frame, new_Tcw, lres.obs_pt,
                                             carry.frame_id, timestamp)
+        if run_mapping:
+            m = local_mapping._process(config, m, kf_id)
         obs_after = row(m.kf_obs_pt, kf_id)
     else:
         obs_after = obs_pt
@@ -250,7 +253,7 @@ def frames_rgbd_packed(config: SlamConfig, buf: torch.Tensor):
 
 def batch_steps_frames(config: SlamConfig, m: MapState, carry: TrackCarry,
                        frames: FrameData, timestamps: torch.Tensor,
-                       valid: torch.Tensor):
+                       valid: torch.Tensor, run_mapping: bool = True):
     """Tracking steps over pre-built frames (leading dim B), in order.
     Padded (invalid) frames pass the state through.  Returns (map, carry,
     packed StepInfo [B, 40])."""
@@ -258,7 +261,7 @@ def batch_steps_frames(config: SlamConfig, m: MapState, carry: TrackCarry,
     for b, live in enumerate(valid.tolist()):
         if live:
             m, carry, info = track_step(config, m, carry, frames.select(b),
-                                        timestamps[b])
+                                        timestamps[b], run_mapping)
         else:
             info = _skip_info(m, carry)
         infos.append(info)

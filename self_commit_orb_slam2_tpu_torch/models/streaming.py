@@ -1,7 +1,7 @@
 """Persistent chunked streaming session over a live System.
 
 Counterpart of the JAX package's models/streaming.py::StreamSession for the
-RGB-D sensor with the loop closer off: feed() frames for the lifetime of a
+RGB-D sensor with the loop closer off (local mapping as the System says): feed() frames for the lifetime of a
 run; every full chunk goes to the device as one packed buffer, is built
 through one extraction chain and tracked frame by frame; finish() flushes the
 padded tail and records the trajectory.  (The reference analogue is the
@@ -86,7 +86,8 @@ class StreamSession:
         cfg = self.sys.config
         frames, ts, valid = pipeline.frames_rgbd_packed(cfg, buf)
         self.sys.map, self.sys.carry, packed = pipeline.batch_steps_frames(
-            cfg, self.sys.map, self.sys.carry, frames, ts, valid)
+            cfg, self.sys.map, self.sys.carry, frames, ts, valid,
+            self.sys.enable_mapping)
         n_live = len(ts_live)
         self._packed_parts.append(packed[:n_live])
         self._all_ts.extend(ts_live)

@@ -26,7 +26,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.camera import in_frustum, project
-from ..ops.indexing import indicator, nonzero_padded, row
+from ..ops.indexing import indicator, nonzero_padded, row, set_drop
 from ..ops.matching import core as mcore
 from ..ops.optim.pose_opt import pose_optimize
 from . import map_state as ms
@@ -67,12 +67,9 @@ def _scatter_matches(n_feat: int, match: mcore.MatchResult,
                      pt_ids: torch.Tensor) -> torch.Tensor:
     """Invert a query->feature match into per-feature point ids [N].  Where
     two queries match one feature the later query wins, as in XLA's
-    sequential scatter."""
-    q = torch.arange(match.idx.shape[0], device=pt_ids.device)
-    tgt = torch.where(match.valid, match.idx.long(), n_feat)
-    winner = torch.full((n_feat + 1,), -1, dtype=torch.int64, device=pt_ids.device)
-    winner = winner.scatter_reduce(0, tgt, q, reduce="amax")[:n_feat]
-    return torch.where(winner >= 0, pt_ids[winner.clamp(min=0)], NO_POINT).to(torch.int32)
+    sequential scatter (set_drop's rule)."""
+    none = torch.full((n_feat,), NO_POINT, dtype=torch.int32, device=pt_ids.device)
+    return set_drop(none, torch.where(match.valid, match.idx, -1), pt_ids)
 
 
 def _optimize_with_matches(config: SlamConfig, m: MapState, Tcw0, frame: FrameData,

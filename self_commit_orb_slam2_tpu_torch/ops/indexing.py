@@ -12,16 +12,22 @@ import torch
 
 
 def set_drop(arr: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
-    """arr.at[idx].set(vals, mode="drop") along dim 0, returned as a new
-    tensor.  Dropped rows land in a discarded extra row.  Indices must be
-    unique among the rows kept."""
-    n = arr.shape[0]
-    idx = idx.long()
-    tgt = torch.where((idx >= 0) & (idx < n), idx, n)
-    ext = torch.cat([arr, arr[:1]])
+    """arr.at[idx].set(vals, mode="drop") along dim 0 for any index shape,
+    returned as a new tensor; negative indices are dropped too.  Among
+    duplicate indices the update that comes last in idx's row-major order
+    wins, as in XLA's sequential CPU scatter: a max-index reduce picks it,
+    so the card gives the same answer (index_put_ promises no order among
+    duplicates there)."""
+    n, m = arr.shape[0], idx.numel()
     vals = torch.as_tensor(vals, dtype=arr.dtype, device=arr.device)
-    ext.index_put_((tgt,), vals.expand(tgt.shape + arr.shape[1:]))
-    return ext[:n]
+    vals = vals.expand(*idx.shape, *arr.shape[1:]).reshape(m, *arr.shape[1:])
+    idx = idx.reshape(-1).long()
+    tgt = torch.where((idx >= 0) & (idx < n), idx, n)
+    winner = torch.full((n + 1,), -1, dtype=torch.int64, device=arr.device)
+    winner = winner.scatter_reduce(0, tgt, torch.arange(m, device=arr.device),
+                                   reduce="amax")[:n]
+    hit = (winner >= 0).reshape(n, *([1] * (arr.ndim - 1)))
+    return torch.where(hit, vals[winner.clamp(min=0)], arr)
 
 
 def add_drop(arr: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
@@ -48,6 +54,14 @@ def nonzero_padded(mask: torch.Tensor, size: int, fill: int) -> torch.Tensor:
     out = torch.full((size + 1,), fill, dtype=torch.int64, device=mask.device)
     out.scatter_(0, tgt, torch.arange(n, device=mask.device))
     return out[:size]
+
+
+def top_k(x: torch.Tensor, k: int):
+    """jax.lax.top_k over the last dim: the k largest first, equal values by
+    lowest index (a stable descending sort; torch.topk promises no order
+    among ties)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
 
 
 def row(arr: torch.Tensor, i: torch.Tensor) -> torch.Tensor:

@@ -19,9 +19,8 @@ import ctypes
 import torch
 
 from ...kernels import CudaKernel, check_launch
-from .fast import fast_response, nms3x3
+from .fast_nms import fast_nms_plain
 
-HALO = 4   # 3 (FAST ring) + 1 (NMS): the slab border the kernel zeroes
 BAND = 16  # rows per band
 
 kernel = CudaKernel(
@@ -81,14 +80,14 @@ def fast_nms_bands_hi_lo(image: torch.Tensor, thr_hi: float, thr_lo: float,
 
 def fast_bands_plain(image: torch.Tensor, thr_hi: float, thr_lo: float,
                      H0p: int, dims, border: int, n_levels: int):
-    """Plain torch version of the kernel: fast_response + nms3x3, the slab's
-    4-px border mask, the per-level border mask, the band reduction."""
+    """Plain torch version of the kernel: fast_nms_plain (FAST with the
+    slab's 4-px border zeroed, NMS), the per-level border mask, the band
+    reduction."""
     h, w = image.shape
     wp = out_width(w)
     dev = image.device
     rows = torch.arange(h, device=dev)[:, None]
     cols = torch.arange(w, device=dev)[None, :]
-    inb = (rows >= HALO) & (rows < h - HALO) & (cols >= HALO) & (cols < w - HALO)
 
     slc = rows // H0p
     row_in = rows - slc * H0p
@@ -100,9 +99,8 @@ def fast_bands_plain(image: torch.Tensor, thr_hi: float, thr_lo: float,
     valid = ((row_in >= border) & (row_in < hr - border)
              & (cols >= border) & (cols < wr - border))
 
-    def bands(thr):
-        score = torch.where(inb, fast_response(image, thr), 0.0)
-        score = torch.where(valid, nms3x3(score), 0.0)
+    def bands(score):
+        score = torch.where(valid, score, 0.0)
         score = torch.nn.functional.pad(score, (0, wp - w))
         sb = score.reshape(h // BAND, BAND, wp)
         mx = sb.amax(dim=1)
@@ -110,6 +108,7 @@ def fast_bands_plain(image: torch.Tensor, thr_hi: float, thr_lo: float,
         arg = torch.where(sb == mx[:, None], ri, BAND).amin(dim=1)  # first row of the max
         return mx, arg
 
-    hi_max, hi_arg = bands(thr_hi)
-    lo_max, lo_arg = bands(thr_lo)
+    hi, lo = fast_nms_plain(image, thr_hi, thr_lo)
+    hi_max, hi_arg = bands(hi)
+    lo_max, lo_arg = bands(lo)
     return hi_max, hi_arg, lo_max, lo_arg

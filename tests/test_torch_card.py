@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from self_commit_orb_slam2_tpu_torch.ops.orb import fast_band
+from self_commit_orb_slam2_tpu_torch.ops.orb import fast_band, fast_nms
 
 pytestmark = pytest.mark.card
 
@@ -40,7 +40,24 @@ def test_fast_band_kernel_bitwise_equals_plain(cuda, G, H0p, W0, L):
     assert int((got[2] > 0).sum()) > 100
 
 
-def test_system_streams_on_card(cuda):
+@pytest.mark.parametrize("h,w", [(3840, 640), (97, 200)])
+def test_fast_nms_kernel_bitwise_equals_plain(cuda, h, w):
+    rng = np.random.default_rng(0)
+    base = rng.uniform(0, 255, (h // 8 + 1, w // 8 + 1)).astype(np.float32)
+    img = np.kron(base, np.ones((8, 8), np.float32))[:h, :w]
+    img = torch.from_numpy(img + rng.normal(0, 12, img.shape).astype(np.float32)).to(cuda)
+    before = fast_nms.kernel.launches
+    got = fast_nms.fast_nms_hi_lo(img, 20.0, 7.0)
+    ref = fast_nms.fast_nms_plain(img, 20.0, 7.0)
+    torch.cuda.synchronize()
+    assert fast_nms.kernel.launches == before + 1
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert int((got[1] > 0).sum()) > 100
+
+
+@pytest.mark.parametrize("cell_size,mapping", [(16, False), (8, True)])
+def test_system_streams_on_card(cuda, cell_size, mapping):
     from self_commit_orb_slam2_tpu_torch.models.config import (
         Capacities, SlamConfig, TrackingConfig)
     from self_commit_orb_slam2_tpu_torch.models.system import STATE_OK, System
@@ -52,12 +69,48 @@ def test_system_streams_on_card(cuda):
     seq = generate_sequence(n_frames=13, width=320, height=240, fx=260.0, seed=5)
     cfg = SlamConfig(camera=CameraParams.create(fx=260.0, fy=260.0, cx=160.0, cy=120.0,
                                                 bf=26.0, width=320, height=240),
-                     orb=OrbConfig(n_features=500),
+                     orb=OrbConfig(n_features=500, cell_size=cell_size),
                      caps=Capacities(max_keyframes=64, max_points=16384, local_points=1024),
                      tracking=TrackingConfig(max_frames_between_kf=10))
-    slam = System(cfg, enable_mapping=False, enable_loop_closing=False)
+    slam = System(cfg, enable_mapping=mapping, enable_loop_closing=False)
     assert slam.map.kf_Tcw.is_cuda
     slam.track_batch_rgbd(seq.images, seq.depths, seq.timestamps, chunk=4)
     _, est = slam.get_trajectory()
     assert slam.state == STATE_OK
     assert ate_rmse(est, seq.poses_gt) < 0.02
+
+
+def test_mapping_pass_on_card_matches_cpu(cuda):
+    """One local-mapping pass from the same map on the card and on the CPU.
+    The card sums BA's normal equations (scatter-adds) and the matrix
+    products in other orders, so poses agree to 1e-3 and the integer state
+    (observations, culls) to all but a few entries at a float threshold;
+    duplicate-index scatters pick the same winner on both."""
+    from self_commit_orb_slam2_tpu_torch.models import local_mapping
+    from self_commit_orb_slam2_tpu_torch.models import map_state as ms
+    from self_commit_orb_slam2_tpu_torch.models.config import (
+        Capacities, SlamConfig, TrackingConfig)
+    from self_commit_orb_slam2_tpu_torch.models.system import System
+    from self_commit_orb_slam2_tpu_torch.ops.camera import CameraParams
+    from self_commit_orb_slam2_tpu_torch.ops.orb.extractor import OrbConfig
+    from self_commit_orb_slam2_tpu_torch.utils.synthetic import generate_sequence
+
+    seq = generate_sequence(n_frames=9, width=320, height=240, fx=260.0, seed=5)
+    cfg = SlamConfig(camera=CameraParams.create(fx=260.0, fy=260.0, cx=160.0, cy=120.0,
+                                                bf=26.0, width=320, height=240),
+                     orb=OrbConfig(n_features=500, cell_size=8),
+                     caps=Capacities(max_keyframes=16, max_points=4096, local_points=512),
+                     tracking=TrackingConfig(max_frames_between_kf=3))
+    slam = System(cfg, enable_mapping=True, enable_loop_closing=False, device="cpu")
+    slam.track_batch_rgbd(seq.images, seq.depths, seq.timestamps, chunk=4)
+    m_cpu = slam.map
+    kf = ms.latest_kf(m_cpu)
+    m_gpu = type(m_cpu)(*(t.to(cuda) for t in m_cpu))
+    ref = local_mapping._process(cfg, type(m_cpu)(*(t.clone() for t in m_cpu)), kf)
+    got = local_mapping._process(cfg, m_gpu, kf.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.allclose(got.kf_Tcw.cpu(), ref.kf_Tcw, atol=1e-3)
+    obs_same = (got.kf_obs_pt.cpu() == ref.kf_obs_pt).float().mean()
+    assert obs_same >= 0.999
+    assert abs(int(got.pt_valid.sum()) - int(ref.pt_valid.sum())) <= 5
+    assert int(got.n_culled) == int(ref.n_culled)

@@ -16,7 +16,7 @@ from self_commit_orb_slam2_tpu.utils import synthetic as jsynthetic
 from self_commit_orb_slam2_tpu_torch.models import config
 from self_commit_orb_slam2_tpu_torch.models.system import System, resolve_device
 from self_commit_orb_slam2_tpu_torch.ops.camera import CameraParams
-from self_commit_orb_slam2_tpu_torch.ops.orb import brief_pattern, fast
+from self_commit_orb_slam2_tpu_torch.ops.orb import brief_pattern, detect, fast
 from self_commit_orb_slam2_tpu_torch.utils import evaluation, synthetic
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -56,7 +56,7 @@ def test_no_silent_cpu_fallback():
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("kwargs", [dict(enable_mapping=True, enable_loop_closing=False),
+@pytest.mark.parametrize("kwargs", [dict(enable_mapping=True, enable_loop_closing=True),
                                     dict(enable_mapping=False, enable_loop_closing=True)])
 def test_unported_phases_refused(kwargs):
     with pytest.raises(NotImplementedError):
@@ -86,3 +86,17 @@ def test_numpy_constants_and_evaluation_copies(rng):
     gt[:, :3, 3] += rng.normal(0, 0.01, (20, 3)).astype(np.float32)
     assert evaluation.ate_rmse(est, gt) == jevaluation.ate_rmse(est, gt)
     assert evaluation.rpe_rmse(est, gt) == jevaluation.rpe_rmse(est, gt)
+
+
+def test_slab_border_mask_built_once_per_shape():
+    """select_keypoints_slab builds its [G, H0, W0] border mask on the
+    device once per shape, not on the host per call."""
+    score = torch.rand(3, 40, 56)
+    dims = [(40, 56), (33, 47), (40, 56)]
+    before = detect._border_mask.cache_info()
+    for _ in range(3):
+        detect.select_keypoints_slab(score, score, [20, 10, 20], dims, cell=8, border=8)
+    after = detect._border_mask.cache_info()
+    assert (after.misses, after.hits) == (before.misses + 1, before.hits + 2)
+    detect.select_keypoints_slab(score[:2], score[:2], [20, 10], dims[:2], cell=8, border=8)
+    assert detect._border_mask.cache_info().misses == before.misses + 2

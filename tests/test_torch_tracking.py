@@ -79,7 +79,8 @@ def test_track_step_matches(jax_run):
         m, carry = convert.state_from_numpy(m_np, carry_np, "cpu")
         frame = convert.frame_from_numpy(frame_np, "cpu")
         m2, carry2, got = pipeline.track_step(
-            tcfg, m, carry, frame, torch.tensor(ts, dtype=torch.float32))
+            tcfg, m, carry, frame, torch.tensor(ts, dtype=torch.float32),
+            run_mapping=False)
         np.testing.assert_allclose(got.Tcw.numpy(), info.Tcw, atol=1e-4)
         assert abs(int(got.n_inliers) - int(info.n_inliers)) <= 2
         assert bool(got.created_kf) == bool(info.created_kf)
