@@ -126,30 +126,92 @@ def _slab(images_u8, cfg, band: bool):
     return slab.reshape(B * L * H0p, W0).contiguous(), H0p, dims
 
 
-def fast_band_bound_ms(h: int, w: int) -> tuple[float, str]:
+def _fast_ops(image, thr: float, scored) -> int:
+    """fp32 operations FAST at one threshold needs on this image over the
+    pixels `scored` marks (integer bit work not counted): p + t, p - t and
+    the 32 ring compares at each; then, at the pixels with a 9-arc only, 3
+    for each brighter tap ((q - p) - t and its sum), 2 for each darker one
+    ((p - t) - q and its sum) and the max of the two sums."""
+    import torch
+
+    from self_commit_orb_slam2_tpu_torch.ops.orb import fast
+
+    h, w = image.shape
+    pad = torch.nn.functional.pad(image[None, None], (3, 3, 3, 3), mode="replicate")[0, 0]
+    hi, lo = image + thr, image - thr
+    bits_b, bits_d, n_b, n_d = (torch.zeros(image.shape, dtype=torch.int32,
+                                            device=image.device) for _ in range(4))
+    for k, (dy, dx) in enumerate(fast.RING_OFFSETS.tolist()):
+        ring = pad[3 + dy:3 + dy + h, 3 + dx:3 + dx + w]
+        bright, dark = (ring > hi).int(), (ring < lo).int()
+        bits_b |= bright << k
+        bits_d |= dark << k
+        n_b += bright
+        n_d += dark
+    arc = scored & (fast._has_arc(bits_b) | fast._has_arc(bits_d))
+    return 34 * int(scored.sum()) + int(((3 * n_b + 2 * n_d + 1) * arc).sum())
+
+
+def _nms_ops(score, out, at) -> int:
+    """fp32 compares the 3x3 NMS needs at the pixels `at` marks: 8 where a
+    nonzero score is kept, at least 1 where one is dropped, none at a zero."""
+    return int(8 * (at & (out > 0)).sum() + (at & (score > 0) & (out == 0)).sum())
+
+
+def _scores(image, thr: float, inb):
+    from self_commit_orb_slam2_tpu_torch.ops.orb import fast
+
+    score = fast.fast_response(image, thr) * inb
+    return score, fast.nms3x3(score)
+
+
+def fast_band_bound_ms(image, thr_hi, thr_lo, H0p, dims, border, n_levels):
     """Least time for the band function on these inputs: the slab read once
-    and four [h/16, w16] outputs written once, or its fp32 operations
-    (integer bit operations not counted) at the published peak rates."""
-    wp = w + (-w) % 16
-    n_bytes = h * w * 4 + 4 * (h // 16) * wp * 4
-    # per pixel and threshold: p+t, p-t; 16 taps x (2 compares, 2 excess
-    # subtractions each for bright and dark, 2 accumulations); max; 8 NMS
-    # compares; 1 band compare
-    ops = h * w * 2 * (2 + 16 * (2 + 4 + 2) + 1 + 8 + 1)
-    return _bound(n_bytes, ops)
+    and four [h/16, w16] outputs written once, or the fp32 operations these
+    inputs need at the published peak rates.  Operations: FAST (_fast_ops)
+    at the pixels within 1 of the level masks, where the NMS reads scores;
+    the NMS (_nms_ops) inside the masks; one band-max compare for each
+    nonzero masked maximum past the first of its band column."""
+    import torch
+
+    from self_commit_orb_slam2_tpu_torch.ops.orb import fast_band, fast_nms
+
+    h, w = image.shape
+    valid = fast_band.level_valid_mask(h, w, H0p, dims, border, n_levels, image.device)
+    inb = fast_nms.inner_mask(h, w, image.device)
+    near = inb & (torch.nn.functional.max_pool2d(
+        valid[None, None].float(), 3, 1, 1)[0, 0] > 0)
+    ops = 0
+    for thr in (thr_hi, thr_lo):
+        score, out = _scores(image, thr, inb)
+        per_col = (valid & (out > 0)).reshape(h // fast_band.BAND, fast_band.BAND, w).sum(1)
+        ops += (_fast_ops(image, thr, near) + _nms_ops(score, out, valid)
+                + int(torch.clamp_min(per_col - 1, 0).sum()))
+    wp = fast_band.out_width(w)
+    return _bound(h * w * 4 + 4 * (h // fast_band.BAND) * wp * 4, ops)
 
 
-def fast_nms_bound_ms(h: int, w: int) -> tuple[float, str]:
+def fast_nms_bound_ms(image, thr_hi, thr_lo):
     """Least time for the NMS function on these inputs: the image read once
-    and two [h, w] float32 maps written once, or its fp32 operations (the
-    band kernel's less the band compare)."""
-    return _bound(h * w * 4 + 2 * h * w * 4, h * w * 2 * (2 + 16 * (2 + 4 + 2) + 1 + 8))
+    and two [h, w] float32 maps written once, or the fp32 operations these
+    inputs need (_fast_ops off the 4-px border, _nms_ops everywhere) at the
+    published peak rates."""
+    from self_commit_orb_slam2_tpu_torch.ops.orb import fast_nms
+
+    h, w = image.shape
+    inb = fast_nms.inner_mask(h, w, image.device)
+    ops = 0
+    for thr in (thr_hi, thr_lo):
+        score, out = _scores(image, thr, inb)
+        ops += _fast_ops(image, thr, inb) + _nms_ops(score, out, inb)
+    return _bound(h * w * 4 + 2 * h * w * 4, ops)
 
 
-def _bound(n_bytes: float, ops: float) -> tuple[float, str]:
+def _bound(n_bytes: float, ops: float) -> tuple[float, str, float, float]:
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FP32_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            n_bytes, ops)
 
 
 def _check_kernel(name, label, out_k, out_p, n_corners):
@@ -168,9 +230,10 @@ def _check_kernel(name, label, out_k, out_p, n_corners):
 def _timed(name, source, replaces, slab, kernel_fn, plain_fn, bound, max_err):
     ms = _cuda_time_ms(kernel_fn, 100)
     plain_ms = _cuda_time_ms(plain_fn, 5, 1)
-    bound_ms, bound_by = bound(*slab.shape)
+    bound_ms, bound_by, n_bytes, ops = bound
     print(f"[kernels] {name} chunk {tuple(slab.shape)}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {n_bytes:.0f} bytes, "
+          f"{ops} fp32 operations)")
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None)
@@ -196,7 +259,8 @@ def phase_kernels(seq):
                 "fast_band", "self_commit_orb_slam2_tpu_torch/csrc/fast_band.cu",
                 "self_commit_orb_slam2_tpu/ops/orb/fast_pallas.py:107", slab,
                 lambda: fast_band.fast_nms_bands_hi_lo(slab, *args),
-                lambda: fast_band.fast_bands_plain(slab, *args), fast_band_bound_ms, err)
+                lambda: fast_band.fast_bands_plain(slab, *args),
+                fast_band_bound_ms(slab, *args), err)
 
         slab, _, _ = _slab(frames, cfg, band=False)
         out_k = fast_nms.fast_nms_hi_lo(slab, *thr)
@@ -207,7 +271,8 @@ def phase_kernels(seq):
                 "fast_nms", "self_commit_orb_slam2_tpu_torch/csrc/fast_nms.cu",
                 "self_commit_orb_slam2_tpu/ops/orb/fast_pallas.py:33", slab,
                 lambda: fast_nms.fast_nms_hi_lo(slab, *thr),
-                lambda: fast_nms.fast_nms_plain(slab, *thr), fast_nms_bound_ms, err)
+                lambda: fast_nms.fast_nms_plain(slab, *thr),
+                fast_nms_bound_ms(slab, *thr), err)
     return results
 
 
@@ -235,21 +300,7 @@ def phase_path(seq, kernels, label: str, cell_size: int, mapping: bool, own: str
     depths = np.clip(seq.depths * 1e3, 0, 65535).astype(np.uint16)
     ts = seq.timestamps
 
-    # count and time the mapping passes (host clock, synced) at the call site
-    # the pipeline uses
-    process = pipeline.local_mapping._process
-    pass_s = []
-
-    def timed_process(*args):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = process(*args)
-        torch.cuda.synchronize()
-        pass_s.append(time.perf_counter() - t0)
-        return out
-
-    pipeline.local_mapping._process = timed_process
-    try:
+    with pipeline.timed_mapping_passes() as pass_s:  # count and time them
         for k in kernels.values():
             k.launches = 0
         sess = slam.open_stream("rgbd", CHUNK)
@@ -263,8 +314,6 @@ def phase_path(seq, kernels, label: str, cell_size: int, mapping: bool, own: str
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches = {k.name: k.launches for k in kernels.values()}
-    finally:
-        pipeline.local_mapping._process = process
 
     n_timed = N_FRAMES - warm
     fps = n_timed / dt

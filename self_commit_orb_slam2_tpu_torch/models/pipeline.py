@@ -15,6 +15,8 @@ The vocabulary is not ported: no relocalization runs on the LOST branch
 
 from __future__ import annotations
 
+import contextlib
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -107,6 +109,36 @@ def _need_keyframe(config: SlamConfig, m: MapState, carry: TrackCarry,
     return need & (frames_since >= cfg.min_frames_between_kf)
 
 
+# Seconds of each local-mapping pass while timed_mapping_passes() is open,
+# else None (nothing is timed).
+_pass_s: list | None = None
+
+
+@contextlib.contextmanager
+def timed_mapping_passes():
+    """Time every local-mapping pass track_step runs inside the block (host
+    clock, with cuda.synchronize on both sides on a CUDA map); yields the
+    list the seconds are appended to."""
+    global _pass_s
+    _pass_s = []
+    try:
+        yield _pass_s
+    finally:
+        _pass_s = None
+
+
+def _mapping_pass(config: SlamConfig, m: MapState, kf_id: torch.Tensor) -> MapState:
+    if _pass_s is None:
+        return local_mapping._process(config, m, kf_id)
+    sync = torch.cuda.synchronize if m.kf_valid.is_cuda else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    m = local_mapping._process(config, m, kf_id)
+    sync()
+    _pass_s.append(time.perf_counter() - t0)
+    return m
+
+
 def _select(take_a: torch.Tensor, a: NamedTuple, b: NamedTuple):
     return type(a)(*(torch.where(take_a, x, y) for x, y in zip(a, b)))
 
@@ -144,7 +176,7 @@ def track_step(config: SlamConfig, m: MapState, carry: TrackCarry,
         m, kf_id = tracking.create_keyframe(config, m, frame, new_Tcw, lres.obs_pt,
                                             carry.frame_id, timestamp)
         if run_mapping:
-            m = local_mapping._process(config, m, kf_id)
+            m = _mapping_pass(config, m, kf_id)
         obs_after = row(m.kf_obs_pt, kf_id)
     else:
         obs_after = obs_pt

@@ -78,6 +78,23 @@ def fast_nms_bands_hi_lo(image: torch.Tensor, thr_hi: float, thr_lo: float,
     return hi_max, hi_arg, lo_max, lo_arg
 
 
+def level_valid_mask(h: int, w: int, H0p: int, dims, border: int, n_levels: int,
+                     device) -> torch.Tensor:
+    """[h, w] bool: the pixels of the stacked slab inside their level's image
+    and its `border`, the pixels whose scores the bands keep."""
+    rows = torch.arange(h, device=device)[:, None]
+    cols = torch.arange(w, device=device)[None, :]
+    slc = rows // H0p
+    row_in = rows - slc * H0p
+    lvl = slc % n_levels
+    dims_t = torch.tensor([list(d) for d in dims[:n_levels]], dtype=torch.int64,
+                          device=device)
+    hr = dims_t[lvl, 0]
+    wr = dims_t[lvl, 1]
+    return ((row_in >= border) & (row_in < hr - border)
+            & (cols >= border) & (cols < wr - border))
+
+
 def fast_bands_plain(image: torch.Tensor, thr_hi: float, thr_lo: float,
                      H0p: int, dims, border: int, n_levels: int):
     """Plain torch version of the kernel: fast_nms_plain (FAST with the
@@ -86,18 +103,7 @@ def fast_bands_plain(image: torch.Tensor, thr_hi: float, thr_lo: float,
     h, w = image.shape
     wp = out_width(w)
     dev = image.device
-    rows = torch.arange(h, device=dev)[:, None]
-    cols = torch.arange(w, device=dev)[None, :]
-
-    slc = rows // H0p
-    row_in = rows - slc * H0p
-    lvl = slc % n_levels
-    dims_t = torch.tensor([list(d) for d in dims[:n_levels]], dtype=torch.int64,
-                          device=dev)
-    hr = dims_t[lvl, 0]
-    wr = dims_t[lvl, 1]
-    valid = ((row_in >= border) & (row_in < hr - border)
-             & (cols >= border) & (cols < wr - border))
+    valid = level_valid_mask(h, w, H0p, dims, border, n_levels, dev)
 
     def bands(score):
         score = torch.where(valid, score, 0.0)

@@ -49,12 +49,16 @@ def fast_nms_hi_lo(image: torch.Tensor, thr_hi: float, thr_lo: float):
     return hi, lo
 
 
+def inner_mask(h: int, w: int, device) -> torch.Tensor:
+    """[h, w] bool: the pixels the kernel scores, off the image's 4-px border."""
+    rows = torch.arange(h, device=device)[:, None]
+    cols = torch.arange(w, device=device)[None, :]
+    return (rows >= HALO) & (rows < h - HALO) & (cols >= HALO) & (cols < w - HALO)
+
+
 def fast_nms_plain(image: torch.Tensor, thr_hi: float, thr_lo: float):
     """Plain torch version of the kernel: fast_response with the 4-px
     border zeroed, then nms3x3, per threshold."""
-    h, w = image.shape
-    rows = torch.arange(h, device=image.device)[:, None]
-    cols = torch.arange(w, device=image.device)[None, :]
-    inb = (rows >= HALO) & (rows < h - HALO) & (cols >= HALO) & (cols < w - HALO)
+    inb = inner_mask(*image.shape, image.device)
     return tuple(nms3x3(torch.where(inb, fast_response(image, thr), 0.0))
                  for thr in (thr_hi, thr_lo))

@@ -45,17 +45,6 @@ def main(n_chunks: int = 2, path2: bool = False) -> None:
                                      local_points=1024),
                      tracking=TrackingConfig(max_frames_between_kf=10))
     slam = System(cfg, enable_mapping=path2, enable_loop_closing=False)
-    process = pipeline.local_mapping._process
-    map_s = []
-
-    def timed_process(*args):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = process(*args)
-        torch.cuda.synchronize()
-        map_s.append(time.perf_counter() - t0)
-        return out
-
     images = np.clip(seq.images, 0, 255).astype(np.uint8)
     depths = np.clip(seq.depths * 1e3, 0, 65535).astype(np.uint16)
     sess = slam.open_stream("rgbd", CHUNK)
@@ -69,21 +58,20 @@ def main(n_chunks: int = 2, path2: bool = False) -> None:
 
     # host-clock phase split
     frame_s, track_s = [], []
-    pipeline.local_mapping._process = timed_process
-    for k in range(n_chunks):
-        buf = chunk_buf(k)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        frames, ts, valid = pipeline.frames_rgbd_packed(cfg, buf)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        slam.map, slam.carry, _ = pipeline.batch_steps_frames(
-            cfg, slam.map, slam.carry, frames, ts, valid, slam.enable_mapping)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        frame_s.append(t1 - t0)
-        track_s.append(t2 - t1)
-    pipeline.local_mapping._process = process
+    with pipeline.timed_mapping_passes() as map_s:
+        for k in range(n_chunks):
+            buf = chunk_buf(k)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frames, ts, valid = pipeline.frames_rgbd_packed(cfg, buf)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            slam.map, slam.carry, _ = pipeline.batch_steps_frames(
+                cfg, slam.map, slam.carry, frames, ts, valid, slam.enable_mapping)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            frame_s.append(t1 - t0)
+            track_s.append(t2 - t1)
     print(f"path {2 if path2 else 1}: frame phase: {np.mean(frame_s) / CHUNK * 1e3:.3f} "
           f"ms/frame, tracking phase: {np.mean(track_s) / CHUNK * 1e3:.3f} ms/frame, of "
           f"which mapping {sum(map_s) / (n_chunks * CHUNK) * 1e3:.3f} ms/frame "

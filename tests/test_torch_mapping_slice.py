@@ -6,7 +6,8 @@ Both Systems stream the same 21 frames (320x240, 500 features, the bench's
 capacities, chunk 4).  Both select keypoints through the slab path here, so
 the trajectories are held close: both STATE_OK, the port's ATE < 0.02 m and
 within 0.005 m of the JAX package's, per-frame camera centres within 0.01 m,
-keyframe counts within one.
+keyframe counts within one, and one mapping pass per keyframe inserted after
+initialization.
 """
 
 import numpy as np
@@ -16,7 +17,7 @@ from self_commit_orb_slam2_tpu.models import config as jconfig
 from self_commit_orb_slam2_tpu.models import system as jsystem
 from self_commit_orb_slam2_tpu.ops.camera import CameraParams as JCam
 from self_commit_orb_slam2_tpu.ops.orb.extractor import OrbConfig as JOrb
-from self_commit_orb_slam2_tpu_torch.models import config
+from self_commit_orb_slam2_tpu_torch.models import config, pipeline
 from self_commit_orb_slam2_tpu_torch.models.system import STATE_OK, System
 from self_commit_orb_slam2_tpu_torch.ops.camera import CameraParams
 from self_commit_orb_slam2_tpu_torch.ops.orb.extractor import OrbConfig
@@ -51,7 +52,8 @@ def test_mapping_stream_matches_jax(seq):
                             caps=config.Capacities(**CAPS),
                             tracking=config.TrackingConfig(max_frames_between_kf=10))
     slam = System(cfg, enable_mapping=True, enable_loop_closing=False, device="cpu")
-    poses = slam.track_batch_rgbd(seq.images, seq.depths, seq.timestamps, chunk=4)
+    with pipeline.timed_mapping_passes() as pass_s:
+        poses = slam.track_batch_rgbd(seq.images, seq.depths, seq.timestamps, chunk=4)
     _, est = slam.get_trajectory()
 
     assert poses.shape == (N_FRAMES - 1, 4, 4) and est.shape == (N_FRAMES, 4, 4)
@@ -63,3 +65,5 @@ def test_mapping_stream_matches_jax(seq):
     assert np.abs(_centres(est) - _centres(jest)).max() <= 0.01
     assert abs(slam.n_keyframes() - jsys.n_keyframes()) <= 1
     assert slam.n_keyframes() >= 2 and slam.n_points() > 100
+    assert len(pass_s) == slam.n_keyframes() - 1 and min(pass_s) > 0
+    assert pipeline._pass_s is None  # the timer is off again
