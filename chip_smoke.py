@@ -9,8 +9,12 @@ Phases (any failure exits non-zero and prints no result):
      sources (one nvcc per source, all at once, sm_90a) and print ptxas'
      registers / shared memory;
   3. kernels: run each kernel and its plain PyTorch version on the card at
-     its path's shapes (the first frame and a chunk of 4); require bitwise
-     equality; time both with CUDA events beside the kernel's bound;
+     its path's shapes (the first frame and a chunk of 4) and on a chunk-sized
+     slab of uniform noise (the kernels' worst case); require bitwise
+     equality; time the kernel on the device alone (launches on preallocated
+     outputs replayed from a CUDA graph, L2 hot; then with the L2 flushed
+     before each launch), the wrapper's host time per call and the plain
+     version, beside the kernel's bound;
   4. the port's System (RGB-D, 640x480, 1000 features, the bench's
      capacities, chunk 4, loop closing off) streams 1 + 60 frames of
      generate_sequence(seed=5, fx=520) along each path, with every launch
@@ -92,11 +96,12 @@ def phase_build():
     return {k.name: k for k in kernels}
 
 
-def _cuda_time_ms(fn, reps: int, warmup: int = 3) -> float:
+def _plain_time_ms(fn, reps: int = 5) -> float:
+    """CUDA-event time per call of a plain version (tens of ms of device
+    work a call: the host does not set it)."""
     import torch
 
-    for _ in range(warmup):
-        fn()
+    fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -106,24 +111,6 @@ def _cuda_time_ms(fn, reps: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def _slab(images_u8, cfg, band: bool):
-    """The [G*H0p, W0] slab (slices padded to 16 rows for the band kernel,
-    [G*H0, W0] for the NMS kernel), H0p and the level dims extract_batch
-    gives the kernel for these frames."""
-    import torch
-
-    from self_commit_orb_slam2_tpu_torch.ops.orb import pyramid
-
-    imgs = torch.from_numpy(images_u8.astype(np.float32)).cuda()
-    levels = pyramid.build_pyramid(imgs, cfg.n_levels, cfg.scale_factor)
-    dims = tuple(tuple(l.shape[-2:]) for l in levels)
-    slab = pyramid.stack_slab_batch(levels)
-    B, L, H0, W0 = slab.shape
-    H0p = H0 + (-H0) % 16 if band else H0
-    slab = slab[:, :, torch.clamp(torch.arange(H0p, device=slab.device), max=H0 - 1)]
-    return slab.reshape(B * L * H0p, W0).contiguous(), H0p, dims
 
 
 def _fast_ops(image, thr: float, scored) -> int:
@@ -166,12 +153,15 @@ def _scores(image, thr: float, inb):
 
 
 def fast_band_bound_ms(image, thr_hi, thr_lo, H0p, dims, border, n_levels):
-    """Least time for the band function on these inputs: the slab read once
-    and four [h/16, w16] outputs written once, or the fp32 operations these
-    inputs need at the published peak rates.  Operations: FAST (_fast_ops)
-    at the pixels within 1 of the level masks, where the NMS reads scores;
-    the NMS (_nms_ops) inside the masks; one band-max compare for each
-    nonzero masked maximum past the first of its band column."""
+    """Least time for the band function on these inputs: the pixels it needs
+    read once (those within 4 of a level mask: a masked pixel's NMS reads
+    scores within 1, and a score reads pixels within 3) and four [h/16, w16]
+    outputs written once, or the fp32 operations these inputs need at the
+    published peak rates.  Operations: FAST (_fast_ops) at the pixels within
+    1 of the level masks, where the NMS reads scores; the NMS (_nms_ops)
+    inside the masks; one band-max compare for each nonzero masked maximum
+    past the first of its band column.  Also returns the bound that charges
+    the whole slab, as the earlier count did."""
     import torch
 
     from self_commit_orb_slam2_tpu_torch.ops.orb import fast_band, fast_nms
@@ -187,8 +177,9 @@ def fast_band_bound_ms(image, thr_hi, thr_lo, H0p, dims, border, n_levels):
         per_col = (valid & (out > 0)).reshape(h // fast_band.BAND, fast_band.BAND, w).sum(1)
         ops += (_fast_ops(image, thr, near) + _nms_ops(score, out, valid)
                 + int(torch.clamp_min(per_col - 1, 0).sum()))
-    wp = fast_band.out_width(w)
-    return _bound(h * w * 4 + 4 * (h // fast_band.BAND) * wp * 4, ops)
+    out_bytes = 4 * (h // fast_band.BAND) * fast_band.out_width(w) * 4
+    needed = int((torch.nn.functional.max_pool2d(valid[None, None].float(), 9, 1, 4) > 0).sum())
+    return _bound(needed * 4 + out_bytes, ops), _bound(h * w * 4 + out_bytes, ops)
 
 
 def fast_nms_bound_ms(image, thr_hi, thr_lo):
@@ -227,52 +218,88 @@ def _check_kernel(name, label, out_k, out_p, n_corners):
     return max_err
 
 
-def _timed(name, source, replaces, slab, kernel_fn, plain_fn, bound, max_err):
-    ms = _cuda_time_ms(kernel_fn, 100)
-    plain_ms = _cuda_time_ms(plain_fn, 5, 1)
+def _timed(name, source, replaces, slab, launch_fn, wrapper_fn, plain_fn, bound, max_err,
+           noise_launch_fn, old=None):
+    """Times of one kernel at the chunk shape.  `launch_fn` launches it on
+    preallocated outputs (device time), `wrapper_fn` is the public wrapper
+    (host time per call), `noise_launch_fn` the launch on the noise slab;
+    `old` is the row's earlier bound, printed beside the new one."""
+    from self_commit_orb_slam2_tpu_torch.tools import time_fast
+
+    ms = time_fast.graph_time_ms(launch_fn)
+    cold_ms = time_fast.cold_time_ms(launch_fn)
+    host_ms = time_fast.host_time_ms(wrapper_fn)
+    noise_ms = time_fast.graph_time_ms(noise_launch_fn)
+    plain_ms = _plain_time_ms(plain_fn)
     bound_ms, bound_by, n_bytes, ops = bound
-    print(f"[kernels] {name} chunk {tuple(slab.shape)}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {n_bytes:.0f} bytes, "
-          f"{ops} fp32 operations)")
+    print(f"[kernels] {name} chunk {tuple(slab.shape)}: kernel {ms:.4f} ms on the device "
+          f"(CUDA graph replay, L2 hot), {cold_ms:.4f} ms with the L2 flushed before each "
+          f"launch, {noise_ms:.4f} ms on uniform noise (worst case, L2 hot); wrapper "
+          f"{host_ms:.4f} ms of host time per call; plain {plain_ms:.4f} ms")
+    print(f"[kernels] {name} bound {bound_ms:.4f} ms ({bound_by}: {n_bytes:.0f} bytes, "
+          f"{ops} fp32 operations): the kernel takes {ms / bound_ms:.2f} x its bound")
+    if old is not None:
+        print(f"[kernels] {name} bound charging the whole slab, as counted before: "
+              f"{old[0]:.4f} ms ({old[1]}: {old[2]:.0f} bytes)")
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None)
 
 
 def phase_kernels(seq):
+    import torch
+
     from self_commit_orb_slam2_tpu_torch.ops.orb import fast_band, fast_nms
     from self_commit_orb_slam2_tpu_torch.ops.orb.extractor import OrbConfig
+    from self_commit_orb_slam2_tpu_torch.tools.time_fast import frames_slab, noise_slab
 
     cfg = OrbConfig(n_features=N_FEATURES)
     thr = (cfg.fast_threshold_hi, cfg.fast_threshold_lo)
     images = np.clip(seq.images, 0, 255).astype(np.uint8)
     results = {}
-    # first-frame shape (8 slices), then a chunk of 4 frames (32 slices)
+    # first-frame shape (8 slices), then a chunk of 4 frames (32 slices), then
+    # uniform noise at the chunk shape: most pixels pass the kernels' pre-test
     for label, frames in (("first frame", images[0:1]), ("chunk", images[1:1 + CHUNK])):
-        slab, H0p, dims = _slab(frames, cfg, band=True)
+        slab, H0p, dims = frames_slab(frames, cfg, band=True)
         args = (*thr, H0p, dims, cfg.border, cfg.n_levels)
         out_k = fast_band.fast_nms_bands_hi_lo(slab, *args)
         out_p = fast_band.fast_bands_plain(slab, *args)
         err = _check_kernel("fast_band", label, out_k, out_p, int((out_k[2] > 0).sum()))
         if label == "chunk":
+            noise = noise_slab(slab.shape)
+            out_k = fast_band.fast_nms_bands_hi_lo(noise, *args)
+            err = max(err, _check_kernel("fast_band", "noise", out_k,
+                                         fast_band.fast_bands_plain(noise, *args),
+                                         int((out_k[2] > 0).sum())))
+            outs = fast_band.empty_outputs(slab)
+            bound, old_bound = fast_band_bound_ms(slab, *args)
             results["fast_band"] = _timed(
                 "fast_band", "self_commit_orb_slam2_tpu_torch/csrc/fast_band.cu",
                 "self_commit_orb_slam2_tpu/ops/orb/fast_pallas.py:107", slab,
+                lambda: fast_band.launch(slab, outs, *args),
                 lambda: fast_band.fast_nms_bands_hi_lo(slab, *args),
-                lambda: fast_band.fast_bands_plain(slab, *args),
-                fast_band_bound_ms(slab, *args), err)
+                lambda: fast_band.fast_bands_plain(slab, *args), bound, err,
+                lambda: fast_band.launch(noise, outs, *args), old_bound)
 
-        slab, _, _ = _slab(frames, cfg, band=False)
+        slab, _, _ = frames_slab(frames, cfg, band=False)
         out_k = fast_nms.fast_nms_hi_lo(slab, *thr)
         out_p = fast_nms.fast_nms_plain(slab, *thr)
         err = _check_kernel("fast_nms", label, out_k, out_p, int((out_k[1] > 0).sum()))
         if label == "chunk":
+            noise = noise_slab(slab.shape)
+            out_k = fast_nms.fast_nms_hi_lo(noise, *thr)
+            err = max(err, _check_kernel("fast_nms", "noise", out_k,
+                                         fast_nms.fast_nms_plain(noise, *thr),
+                                         int((out_k[1] > 0).sum())))
+            hi, lo = torch.empty_like(slab), torch.empty_like(slab)
             results["fast_nms"] = _timed(
                 "fast_nms", "self_commit_orb_slam2_tpu_torch/csrc/fast_nms.cu",
                 "self_commit_orb_slam2_tpu/ops/orb/fast_pallas.py:33", slab,
+                lambda: fast_nms.launch(slab, hi, lo, *thr),
                 lambda: fast_nms.fast_nms_hi_lo(slab, *thr),
                 lambda: fast_nms.fast_nms_plain(slab, *thr),
-                fast_nms_bound_ms(slab, *thr), err)
+                fast_nms_bound_ms(slab, *thr), err,
+                lambda: fast_nms.launch(noise, hi, lo, *thr))
     return results
 
 

@@ -57,10 +57,10 @@ class CudaKernel:
 
     def build(self) -> Path:
         """Compile the source (or reuse the cached library); returns its path.
-        The cache key covers the source, every shared header in csrc/ and
+        The cache key covers the source, every shared header beside it and
         the flags."""
         text = self.source.read_bytes() + b"".join(
-            h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+            h.read_bytes() for h in sorted(self.source.parent.glob("*.cuh")))
         digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
         lib = BUILD_DIR / f"{self.source.stem}_{digest}.so"
         log = lib.with_suffix(".log")

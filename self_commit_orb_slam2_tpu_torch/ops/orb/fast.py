@@ -44,6 +44,47 @@ def _has_arc(bits: torch.Tensor) -> torch.Tensor:
     return acc != 0
 
 
+def has_arc_doubling(bits: torch.Tensor) -> torch.Tensor:
+    """`_has_arc` as the CUDA kernels compute it (csrc/fast_common.cuh): the
+    16-bit mask copied into both halves of a word, so that a rotate is a
+    shift; runs of 2, 4 and 8 by doubling, then 9."""
+    x = bits | (bits << 16)
+    run = x & (x >> 1)
+    run = run & (run >> 2)
+    run = run & (run >> 4)
+    run = run & (x >> 8)
+    return (run & 0xFFFF) != 0
+
+
+def ring_masks(image: torch.Tensor, threshold: float):
+    """(brighter, darker) 16-bit ring masks [..., H, W] int64 of
+    `fast_response`'s compares at one threshold: bit k is set where ring tap
+    k is > p + t (< p - t)."""
+    h, w = image.shape[-2:]
+    padded = _pad_edge(image, 3)
+    t = torch.tensor(threshold, dtype=torch.float32, device=image.device)
+    hi = image + t
+    lo = image - t
+    bits_b = torch.zeros(image.shape, dtype=torch.int64, device=image.device)
+    bits_d = torch.zeros_like(bits_b)
+    for k, (dy, dx) in enumerate(RING_OFFSETS.tolist()):
+        ring = padded[..., 3 + dy:3 + dy + h, 3 + dx:3 + dx + w]
+        bits_b = bits_b | ((ring > hi).to(torch.int64) << k)
+        bits_d = bits_d | ((ring < lo).to(torch.int64) << k)
+    return bits_b, bits_d
+
+
+def compass_pass(bits_b: torch.Tensor, bits_d: torch.Tensor) -> torch.Tensor:
+    """The kernels' pre-test on the four compass taps (k = 0, 4, 8, 12) of
+    `ring_masks`: a 9-arc always covers two neighbouring compass taps, so a
+    pixel passes where (N or S) and (E or W) are both brighter, or both
+    darker.  False only where no 9-arc can exist."""
+    def two(bits):
+        n, e, s, w = ((bits >> k) & 1 for k in (0, 4, 8, 12))
+        return ((n | s) & (e | w)) != 0
+    return two(bits_b) | two(bits_d)
+
+
 def fast_response(image: torch.Tensor, threshold: float) -> torch.Tensor:
     """Dense FAST-9 corner response [..., H, W]; 0 where not a corner.
 

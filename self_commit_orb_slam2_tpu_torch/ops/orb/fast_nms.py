@@ -26,26 +26,45 @@ kernel = CudaKernel(
 )
 
 
-def fast_nms_hi_lo(image: torch.Tensor, thr_hi: float, thr_lo: float):
-    """[H, W] float32 -> (hi, lo) NMS'd FAST score maps, each [H, W]."""
-    if image.dtype != torch.float32 or image.ndim != 2:
-        raise ValueError(f"fast nms: need a 2-D float32 image, got "
-                         f"{tuple(image.shape)} {image.dtype}")
-    if image.device.type == "cpu":
-        return fast_nms_plain(image, thr_hi, thr_lo)
-    if image.device.type != "cuda":
-        raise ValueError(f"fast nms: no kernel for device {image.device}")
-    if not image.is_contiguous():
-        raise ValueError("fast nms: image must be contiguous")
+def check_thresholds(who: str, thr_hi: float, thr_lo: float) -> None:
+    """Both FAST kernels reject a pixel for both thresholds where the low
+    one finds no 9-arc, which is exact only for thr_hi >= thr_lo."""
+    if not thr_hi >= thr_lo:
+        raise ValueError(f"{who}: need thr_hi >= thr_lo, got {thr_hi} < {thr_lo}")
+
+
+def launch(image: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor,
+           thr_hi: float, thr_lo: float) -> None:
+    """Launch the kernel on a CUDA image and preallocated outputs of its
+    shape, on the current stream; raises on what the kernel does not take."""
+    check_thresholds("fast nms", thr_hi, thr_lo)
+    for name, t in (("image", image), ("hi", hi), ("lo", lo)):
+        if (t.device != image.device or t.device.type != "cuda" or t.dtype != torch.float32
+                or t.shape != image.shape or t.ndim != 2 or not t.is_contiguous()):
+            raise ValueError(f"fast nms: {name} must be a contiguous 2-D float32 CUDA "
+                             f"tensor of the image's shape, got {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}")
     h, w = image.shape
-    hi = torch.empty_like(image)
-    lo = torch.empty_like(image)
     fn = kernel.function()
     with torch.cuda.device(image.device):
         stream = torch.cuda.current_stream(image.device).cuda_stream
         rc = fn(image.data_ptr(), hi.data_ptr(), lo.data_ptr(), h, w,
                 thr_hi, thr_lo, stream)
     check_launch(kernel, rc)
+
+
+def fast_nms_hi_lo(image: torch.Tensor, thr_hi: float, thr_lo: float):
+    """[H, W] float32 -> (hi, lo) NMS'd FAST score maps, each [H, W].
+    Needs thr_hi >= thr_lo."""
+    if image.dtype != torch.float32 or image.ndim != 2:
+        raise ValueError(f"fast nms: need a 2-D float32 image, got "
+                         f"{tuple(image.shape)} {image.dtype}")
+    check_thresholds("fast nms", thr_hi, thr_lo)
+    if image.device.type == "cpu":
+        return fast_nms_plain(image, thr_hi, thr_lo)
+    hi = torch.empty_like(image, memory_format=torch.contiguous_format)
+    lo = torch.empty_like(hi)
+    launch(image, hi, lo, thr_hi, thr_lo)
     return hi, lo
 
 

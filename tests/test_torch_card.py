@@ -22,14 +22,28 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("G,H0p,W0,L", [(8, 480, 640, 8), (6, 64, 200, 3)])
-def test_fast_band_kernel_bitwise_equals_plain(cuda, G, H0p, W0, L):
+def _image(kind: str, h: int, w: int) -> np.ndarray:
+    """Test images, made with numpy from a seed."""
     rng = np.random.default_rng(0)
-    base = rng.uniform(0, 255, (G * H0p // 8 + 1, W0 // 8 + 1)).astype(np.float32)
-    img = np.kron(base, np.ones((8, 8), np.float32))[:G * H0p, :W0]
-    img = torch.from_numpy(img + rng.normal(0, 12, img.shape).astype(np.float32)).to(cuda)
-    dims = tuple((round(H0p / 1.2**l), round(W0 / 1.2**l)) for l in range(L))
-    args = (20.0, 7.0, H0p, dims, 16, L)
+    if kind == "blobs":  # smooth blobs + noise: corners of both polarities
+        base = rng.uniform(0, 255, (h // 8 + 1, w // 8 + 1)).astype(np.float32)
+        img = np.kron(base, np.ones((8, 8), np.float32))[:h, :w]
+        return img + rng.normal(0, 12, img.shape).astype(np.float32)
+    if kind == "noise":  # most pixels pass the kernels' pre-test
+        return rng.uniform(0, 255, (h, w)).astype(np.float32)
+    if kind == "constant":  # no pixel does
+        return np.full((h, w), 93.0, np.float32)
+    if kind == "plateaus":  # small integers in 3x3 plateaus: equal scores meet the NMS tie-break
+        base = rng.integers(0, 5, (h // 3 + 1, w // 3 + 1)).astype(np.float32) * 16.0
+        return np.kron(base, np.ones((3, 3), np.float32))[:h, :w]
+    if kind == "signed zeros":  # -0 beside pixels that equal a threshold exactly
+        return rng.choice(np.array([-0.0, 0.0, 7.0, 20.0, 27.0], np.float32), (h, w))
+    raise ValueError(kind)
+
+
+def _assert_band_kernel_equals_plain(cuda, img, H0p, dims, border=16, min_corners=100):
+    img = torch.from_numpy(img).to(cuda)
+    args = (20.0, 7.0, H0p, dims, border, len(dims))
     before = fast_band.kernel.launches
     got = fast_band.fast_nms_bands_hi_lo(img, *args)
     ref = fast_band.fast_bands_plain(img, *args)
@@ -37,15 +51,39 @@ def test_fast_band_kernel_bitwise_equals_plain(cuda, G, H0p, W0, L):
     assert fast_band.kernel.launches == before + 1
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
-    assert int((got[2] > 0).sum()) > 100
+    assert int((got[2] > 0).sum()) >= min_corners
 
 
-@pytest.mark.parametrize("h,w", [(3840, 640), (97, 200)])
-def test_fast_nms_kernel_bitwise_equals_plain(cuda, h, w):
-    rng = np.random.default_rng(0)
-    base = rng.uniform(0, 255, (h // 8 + 1, w // 8 + 1)).astype(np.float32)
-    img = np.kron(base, np.ones((8, 8), np.float32))[:h, :w]
-    img = torch.from_numpy(img + rng.normal(0, 12, img.shape).astype(np.float32)).to(cuda)
+@pytest.mark.parametrize("G,H0p,W0,L", [(8, 480, 640, 8), (6, 64, 200, 3)])
+def test_fast_band_kernel_bitwise_equals_plain(cuda, G, H0p, W0, L):
+    dims = tuple((round(H0p / 1.2**l), round(W0 / 1.2**l)) for l in range(L))
+    _assert_band_kernel_equals_plain(cuda, _image("blobs", G * H0p, W0), H0p, dims)
+
+
+@pytest.mark.parametrize("kind,min_corners", [("noise", 100), ("constant", 0),
+                                              ("plateaus", 100), ("signed zeros", 100)])
+def test_fast_band_kernel_bitwise_on_hard_images(cuda, kind, min_corners):
+    H0p, W0 = 480, 640
+    dims = tuple((round(H0p / 1.2**l), round(W0 / 1.2**l)) for l in range(8))
+    _assert_band_kernel_equals_plain(cuda, _image(kind, 8 * H0p, W0), H0p, dims,
+                                     min_corners=min_corners)
+
+
+@pytest.mark.parametrize("H0p,W0,dims,border", [
+    (96, 300, ((96, 300), (71, 170)), 16),   # level edges inside a tile
+    (96, 300, ((96, 300), (71, 170)), 5),    # the mask 1 px off the scored border
+    (64, 203, ((64, 203), (53, 169)), 16),   # a width that is no multiple of 4
+    (48, 131, ((48, 131), (40, 109), (33, 91)), 3),
+])
+def test_fast_band_kernel_bitwise_at_level_edges(cuda, H0p, W0, dims, border):
+    G = 2 * len(dims)
+    for kind in ("noise", "plateaus"):
+        _assert_band_kernel_equals_plain(cuda, _image(kind, G * H0p, W0), H0p, dims,
+                                         border=border, min_corners=20)
+
+
+def _assert_nms_kernel_equals_plain(cuda, img, min_corners=100):
+    img = torch.from_numpy(img).to(cuda)
     before = fast_nms.kernel.launches
     got = fast_nms.fast_nms_hi_lo(img, 20.0, 7.0)
     ref = fast_nms.fast_nms_plain(img, 20.0, 7.0)
@@ -53,7 +91,38 @@ def test_fast_nms_kernel_bitwise_equals_plain(cuda, h, w):
     assert fast_nms.kernel.launches == before + 1
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
-    assert int((got[1] > 0).sum()) > 100
+    assert int((got[1] > 0).sum()) >= min_corners
+
+
+@pytest.mark.parametrize("h,w", [(3840, 640), (97, 200)])
+def test_fast_nms_kernel_bitwise_equals_plain(cuda, h, w):
+    _assert_nms_kernel_equals_plain(cuda, _image("blobs", h, w))
+
+
+@pytest.mark.parametrize("kind,h,w,min_corners", [
+    ("noise", 3840, 640, 100), ("constant", 3840, 640, 0), ("plateaus", 3840, 640, 100),
+    ("signed zeros", 960, 640, 100),
+    ("noise", 97, 203, 100),      # a width that is no multiple of 4
+    ("plateaus", 50, 131, 20), ("noise", 9, 9, 0), ("noise", 16, 128, 20),
+    ("noise", 33, 257, 100),      # one pixel past a tile in both directions
+])
+def test_fast_nms_kernel_bitwise_on_hard_images(cuda, kind, h, w, min_corners):
+    _assert_nms_kernel_equals_plain(cuda, _image(kind, h, w), min_corners=min_corners)
+
+
+def test_fast_kernels_take_an_unaligned_base(cuda):
+    """A view that starts 4 bytes into its storage is contiguous but not
+    16-byte aligned: the kernels take their scalar loads and stores."""
+    flat = torch.from_numpy(_image("noise", 1, 96 * 200 + 1)[0]).to(cuda)
+    img = flat[1:].view(96, 200)
+    assert img.is_contiguous() and img.data_ptr() % 16 != 0
+    for a, b in zip(fast_nms.fast_nms_hi_lo(img, 20.0, 7.0),
+                    fast_nms.fast_nms_plain(img, 20.0, 7.0)):
+        assert torch.equal(a, b)
+    args = (20.0, 7.0, 48, ((48, 200), (40, 167)), 16, 2)
+    for a, b in zip(fast_band.fast_nms_bands_hi_lo(img, *args),
+                    fast_band.fast_bands_plain(img, *args)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("cell_size,mapping", [(16, False), (8, True)])
