@@ -23,11 +23,26 @@ Phases (any failure exits non-zero and prints no result):
        path 2: 8-px cells (FAST NMS kernel + slab selection), local mapping
                on, one mapping pass per keyframe inserted after the first;
      each must end STATE_OK with >= 2 keyframes and ATE < 0.01 m, launch its
-     own kernel once per extraction call and the other kernel never.
+     own kernel once per extraction call and the other kernel never;
+  5. vocabulary: the bundled vocabulary (k=10, L=6) is loaded and moved to
+     the card; transform + sparse_bow of one extracted frame on the card must
+     equal the same calls on the CPU (words, nodes, ids exactly; weights
+     within 1e-6); ms per call; the three batched eigh calls of a
+     relocalization, timed;
+  6. path 3: one System with the vocabulary, 16-px cells, local mapping on,
+     with the launch, mapping-pass and relocalization counts set to 0 before:
+       a. 1 + 40 frames streamed: STATE_OK, >= 2 keyframes, ATE < 0.01 m, a
+          BoW row and node ids in every keyframe, no relocalization attempt;
+       b. one batch of 3 blank frames, frame 20 three times, frame 21 twice:
+          recovers inside the batch, within 0.05 m of its own estimate;
+       c. per frame: 3 blank frames (LOST), then frame 24 until it recovers;
+       d. localization mode over frames 25 to 40: STATE_OK throughout, no
+          keyframe and no point added, within 0.05 m of the estimates of (a);
+       e. save_map, load_map into a second System: every field equal.
 
 The second-to-last line is the kernels JSON (each kernel with its launches
-on its own path); the last line is {"ok": true, "device": {...}}.  Imports
-nothing of JAX.
+on its own path; the band kernel also with those on path 3); the last line
+is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -96,9 +111,9 @@ def phase_build():
     return {k.name: k for k in kernels}
 
 
-def _plain_time_ms(fn, reps: int = 5) -> float:
-    """CUDA-event time per call of a plain version (tens of ms of device
-    work a call: the host does not set it)."""
+def _event_time_ms(fn, reps: int = 5) -> float:
+    """CUDA-event time per call, after a warm-up call (for calls with enough
+    device work that the host does not set the time)."""
     import torch
 
     fn()
@@ -230,7 +245,7 @@ def _timed(name, source, replaces, slab, launch_fn, wrapper_fn, plain_fn, bound,
     cold_ms = time_fast.cold_time_ms(launch_fn)
     host_ms = time_fast.host_time_ms(wrapper_fn)
     noise_ms = time_fast.graph_time_ms(noise_launch_fn)
-    plain_ms = _plain_time_ms(plain_fn)
+    plain_ms = _event_time_ms(plain_fn)
     bound_ms, bound_by, n_bytes, ops = bound
     print(f"[kernels] {name} chunk {tuple(slab.shape)}: kernel {ms:.4f} ms on the device "
           f"(CUDA graph replay, L2 hot), {cold_ms:.4f} ms with the L2 flushed before each "
@@ -309,19 +324,11 @@ def phase_path(seq, kernels, label: str, cell_size: int, mapping: bool, own: str
     import torch
 
     from self_commit_orb_slam2_tpu_torch.models import pipeline
-    from self_commit_orb_slam2_tpu_torch.models.config import (
-        Capacities, SlamConfig, TrackingConfig)
     from self_commit_orb_slam2_tpu_torch.models.system import STATE_OK, System
-    from self_commit_orb_slam2_tpu_torch.ops.camera import CameraParams
-    from self_commit_orb_slam2_tpu_torch.ops.orb.extractor import OrbConfig
     from self_commit_orb_slam2_tpu_torch.utils.evaluation import ate_rmse
 
-    cam = CameraParams.create(fx=FX, fy=FX, cx=WIDTH / 2, cy=HEIGHT / 2,
-                              bf=FX * 0.1, width=WIDTH, height=HEIGHT)
-    cfg = SlamConfig(
-        camera=cam, orb=OrbConfig(n_features=N_FEATURES, cell_size=cell_size),
-        caps=Capacities(max_keyframes=64, max_points=16384, local_points=1024),
-        tracking=TrackingConfig(max_frames_between_kf=10), sensor="rgbd")
+    cfg = _bench_config()
+    cfg = cfg._replace(orb=cfg.orb._replace(cell_size=cell_size))
     slam = System(cfg, enable_mapping=mapping, enable_loop_closing=False)
     images = np.clip(seq.images, 0, 255).astype(np.uint8)
     depths = np.clip(seq.depths * 1e3, 0, 65535).astype(np.uint16)
@@ -375,6 +382,241 @@ def phase_path(seq, kernels, label: str, cell_size: int, mapping: bool, own: str
     return launches[own], fps, ate
 
 
+def _bench_config(vocab=None):
+    from self_commit_orb_slam2_tpu_torch.models.config import (
+        Capacities, SlamConfig, TrackingConfig)
+    from self_commit_orb_slam2_tpu_torch.ops.camera import CameraParams
+    from self_commit_orb_slam2_tpu_torch.ops.orb.extractor import OrbConfig
+
+    cam = CameraParams.create(fx=FX, fy=FX, cx=WIDTH / 2, cy=HEIGHT / 2,
+                              bf=FX * 0.1, width=WIDTH, height=HEIGHT)
+    return SlamConfig(
+        camera=cam, orb=OrbConfig(n_features=N_FEATURES),
+        caps=Capacities(max_keyframes=64, max_points=16384, local_points=1024),
+        tracking=TrackingConfig(max_frames_between_kf=10), sensor="rgbd", vocab=vocab)
+
+
+def phase_vocabulary(seq):
+    """Load the bundled vocabulary, move it to the card, and hold transform
+    + sparse_bow on the card against the CPU on one extracted frame."""
+    import torch
+
+    from self_commit_orb_slam2_tpu_torch.models.frame import make_frame_rgbd
+    from self_commit_orb_slam2_tpu_torch.ops import bow
+
+    path = bow.default_vocab_path()
+    require(path is not None, "the bundled vocabulary file is missing from the checkout")
+    t0 = time.perf_counter()
+    vocab = bow.load_vocabulary(path)
+    t_load = time.perf_counter() - t0
+    on_card = vocab.to("cuda")
+    torch.cuda.synchronize()
+    print(f"[vocabulary] k={vocab.k} L={vocab.L} words={vocab.n_words} nodes="
+          f"{vocab.node_desc.shape[0]}: {on_card.device_bytes()} bytes on the card "
+          f"(child_desc {tuple(on_card.child_desc.shape)}); loaded in {t_load:.2f} s (host)")
+    cfg = _bench_config()
+    frame = make_frame_rgbd(cfg, torch.from_numpy(seq.images[0].astype(np.float32)).cuda(),
+                            torch.from_numpy(seq.depths[0].astype(np.float32)).cuda())
+    T = cfg.bow_top
+    words_c, nodes_c = bow.transform(on_card, frame.desc, frame.valid)
+    ids_c, vals_c = bow.sparse_bow(on_card, words_c, T)
+    words, nodes = bow.transform(vocab, frame.desc.cpu(), frame.valid.cpu())
+    ids, vals = bow.sparse_bow(vocab, words, T)
+    torch.cuda.synchronize()
+    n_valid, n_ids = int(frame.valid.sum()), int((ids >= 0).sum())
+    err = float((vals_c.cpu() - vals).abs().max())
+    print(f"[vocabulary] frame 0: {n_valid} descriptors, {n_ids} distinct words kept of "
+          f"T={T}; card vs CPU: words equal {torch.equal(words_c.cpu(), words)}, nodes equal "
+          f"{torch.equal(nodes_c.cpu(), nodes)}, ids equal {torch.equal(ids_c.cpu(), ids)}, "
+          f"max weight difference {err:.2e}")
+    require(n_valid > 500 and n_ids > 100, "vocabulary: too few descriptors or words")
+    require(torch.equal(words_c.cpu(), words), "vocabulary: words differ between card and CPU")
+    require(torch.equal(nodes_c.cpu(), nodes), "vocabulary: nodes differ between card and CPU")
+    require(torch.equal(ids_c.cpu(), ids), "vocabulary: sparse ids differ between card and CPU")
+    require(err <= 1e-6, f"vocabulary: weights differ by {err}")
+    ms_t = _event_time_ms(lambda: bow.transform(on_card, frame.desc, frame.valid))
+    ms_s = _event_time_ms(lambda: bow.sparse_bow(on_card, words_c, T))
+    print(f"[vocabulary] transform {ms_t:.3f} ms + sparse_bow {ms_s:.3f} ms per call at "
+          f"{frame.capacity} descriptors (CUDA events, after a warm-up)")
+    # the three batched eigh calls of one relocalization (5 candidates x 256 sets)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    eigh_ms = []
+    for n in (3, 12, 4):
+        a = torch.randn(1280, n, n, device="cuda", generator=g)
+        sym = a @ a.transpose(1, 2)
+        eigh_ms.append(_event_time_ms(lambda sym=sym: torch.linalg.eigh(sym), reps=5))
+    print(f"[vocabulary] torch.linalg.eigh on the card, library "
+          f"{torch.backends.cuda.preferred_linalg_library()}: [1280, 3, 3] {eigh_ms[0]:.3f} ms, "
+          f"[1280, 12, 12] {eigh_ms[1]:.3f} ms, [1280, 4, 4] {eigh_ms[2]:.3f} ms")
+    return vocab, ms_t + ms_s
+
+
+def _centre(T):
+    return -T[:3, :3].T @ T[:3, 3]
+
+
+def phase_path3(seq, kernels, vocab):
+    """The JAX package's default RGB-D configuration less loop closing: the
+    vocabulary loaded, 16-px cells, local mapping on; steps (a) to (e)."""
+    import tempfile
+
+    import torch
+
+    from self_commit_orb_slam2_tpu_torch.models import pipeline, relocalization
+    from self_commit_orb_slam2_tpu_torch.models.system import STATE_LOST, STATE_OK, System
+    from self_commit_orb_slam2_tpu_torch.utils.evaluation import ate_rmse
+
+    label, n_a = "path 3", 41
+    cfg = _bench_config(vocab)
+    slam = System(cfg, enable_mapping=True, enable_loop_closing=False)
+    require(slam.config.vocab.child_desc.is_cuda, f"{label}: the vocabulary is not on the card")
+    images = np.clip(seq.images, 0, 255).astype(np.uint8)
+    depths = np.clip(seq.depths * 1e3, 0, 65535).astype(np.uint16)
+    ts = seq.timestamps
+    blank, no_depth = np.zeros_like(seq.images[0]), np.zeros_like(seq.depths[0])
+
+    def counts_ok(n_extract: int, where: str):
+        got = {k.name: k.launches for k in kernels.values()}
+        require(got == {"fast_band": n_extract, "fast_nms": 0},
+                f"{label} {where}: launches {got}, want fast_band {n_extract}, fast_nms 0")
+
+    with pipeline.timed_mapping_passes() as pass_s:
+        for k in kernels.values():
+            k.launches = 0
+        relocalization.reset_counts()
+
+        # (a) the steady stream
+        sess = slam.open_stream("rgbd", CHUNK)
+        warm = 1 + CHUNK
+        sess.feed((images[:warm], depths[:warm]), ts[:warm])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sess.feed((images[warm:n_a], depths[warm:n_a]), ts[warm:n_a])
+        sess.finish()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        fps = (n_a - warm) / dt
+        _, est = slam.get_trajectory()
+        require(len(est) == n_a and np.all(np.isfinite(est)), f"{label} (a): bad trajectory")
+        ate = float(ate_rmse(est, seq.poses_gt[:n_a]))
+        own = [T for _, T in slam.trajectory]      # the engine's estimate of each frame
+        n_kf, n_pt = slam.n_keyframes(), slam.n_points()
+        m = slam.map
+        rows = (m.kf_bow_ids >= 0).sum(1)
+        nodes_ok = bool(((m.kf_node >= 0) == m.kf_feat_valid)[m.kf_valid].all())
+        words_ok = bool(((m.kf_word >= 0) == m.kf_feat_valid)[m.kf_valid].all())
+        attempts, _ = relocalization.counts()
+        print(f"[{label}] (a) {n_a} frames, vocabulary loaded, cell 16, mapping on, chunk "
+              f"{CHUNK}: state {slam.state}, keyframes {n_kf}, points {n_pt}, ATE {ate:.6f} m; "
+              f"{n_a - warm} frames in {dt:.3f} s = {fps:.2f} frames/s (host clock, synced); "
+              f"BoW words per keyframe {int(rows[m.kf_valid].min())} to "
+              f"{int(rows[m.kf_valid].max())}; mapping passes {len(pass_s)}, mean "
+              f"{np.mean(pass_s) * 1e3:.1f} ms; relocalization attempts {attempts}")
+        require(slam.state == STATE_OK, f"{label} (a): tracking lost")
+        require(n_kf >= 2, f"{label} (a): only {n_kf} keyframes")
+        require(ate < ATE_LIMIT_M, f"{label} (a): ATE {ate:.6f} m >= {ATE_LIMIT_M} m")
+        require(int(rows[m.kf_valid].min()) > 0 and nodes_ok and words_ok,
+                f"{label} (a): a keyframe lacks its BoW row, words or nodes")
+        require(int(rows[~m.kf_valid].max()) == 0, f"{label} (a): BoW row in a free slot")
+        require(len(pass_s) == n_kf - 1, f"{label} (a): {len(pass_s)} mapping passes, "
+                f"want {n_kf - 1}")
+        require(attempts == 0, f"{label} (a): {attempts} relocalization attempts in a "
+                "steady stream")
+        n_extract = 1 + (n_a - 1) // CHUNK
+        counts_ok(n_extract, "(a)")
+        launches_a = n_extract
+
+        # (b) kidnapped and returned inside one batch
+        imgs = np.stack([blank] * 3 + [seq.images[20]] * 3 + [seq.images[21]] * 2)
+        deps = np.stack([no_depth] * 3 + [seq.depths[20]] * 3 + [seq.depths[21]] * 2)
+        poses = slam.track_batch_rgbd(imgs, deps, np.arange(8) / 30.0 + 10.0, chunk=CHUNK)
+        attempts_b, ok_b = relocalization.counts()
+        d_b = float(np.linalg.norm(_centre(poses[-3]) - _centre(own[20])))
+        print(f"[{label}] (b) batch of 3 blank + 5 mapped frames: state {slam.state}, "
+              f"relocalization attempts {attempts_b}, successes {ok_b}, recovered centre "
+              f"{d_b:.4f} m from the earlier estimate of frame 20")
+        require(slam.state == STATE_OK, f"{label} (b): not recovered inside the batch")
+        require(attempts_b >= 1 and ok_b >= 1, f"{label} (b): no relocalization success")
+        require(d_b < 0.05, f"{label} (b): recovered {d_b:.4f} m away")
+        n_extract += 2
+        counts_ok(n_extract, "(b)")
+
+        # (c) kidnapped and returned with per-frame calls
+        for j in range(3):
+            slam.track_rgbd(blank, no_depth, 20.0 + j)
+            n_extract += 1
+        require(slam.state == STATE_LOST, f"{label} (c): blank frames did not lose tracking")
+        for j in range(3):
+            T = slam.track_rgbd(seq.images[24], seq.depths[24], 21.0 + j)
+            n_extract += 1
+            if slam.state == STATE_OK:
+                break
+        attempts_c, ok_c = relocalization.counts()
+        d_c = float(np.linalg.norm(_centre(T) - _centre(own[24])))
+        print(f"[{label}] (c) per frame, 3 blank then frame 24: state {slam.state} after "
+              f"{j + 1} tries, attempts {attempts_c - attempts_b}, successes {ok_c - ok_b}, "
+              f"recovered centre {d_c:.4f} m from the earlier estimate")
+        require(slam.state == STATE_OK, f"{label} (c): not recovered")
+        require(ok_c - ok_b >= 1, f"{label} (c): no relocalization success")
+        require(d_c < 0.05, f"{label} (c): recovered {d_c:.4f} m away")
+        counts_ok(n_extract, "(c)")
+
+        # one relocalization, timed (host clock, synced both sides)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        reloc_s = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = relocalization.relocalize(slam.config, slam.map, slam.carry.last_frame, gen)
+            torch.cuda.synchronize()
+            reloc_s.append(time.perf_counter() - t0)
+            require(bool(r.success), f"{label}: the timed relocalization failed")
+        reloc_ms = float(np.median(reloc_s)) * 1e3
+        attempts_t, _ = relocalization.counts()
+        print(f"[{label}] one relocalization of a mapped frame: {reloc_ms:.1f} ms (median of "
+              f"3, host clock, synced both sides; {int(r.n_inliers)} inliers)")
+
+        # (d) localization mode
+        slam.activate_localization_mode()
+        n_kf_d, n_pt_d, n_pass_d = slam.n_keyframes(), slam.n_points(), len(pass_s)
+        worst = 0.0
+        for i in range(25, n_a):
+            T = slam.track_rgbd(seq.images[i], seq.depths[i], 30.0 + i / 30.0)
+            n_extract += 1
+            require(slam.state == STATE_OK, f"{label} (d): lost at frame {i}")
+            worst = max(worst, float(np.linalg.norm(_centre(T) - _centre(own[i]))))
+        attempts_d, ok_d = relocalization.counts()
+        print(f"[{label}] (d) localization mode, frames 25 to {n_a - 1}: state {slam.state}, "
+              f"keyframes added {slam.n_keyframes() - n_kf_d}, points added "
+              f"{slam.n_points() - n_pt_d}, worst centre {worst:.4f} m from the estimates of "
+              f"(a), relocalization attempts {attempts_d - attempts_t}")
+        require(slam.n_keyframes() == n_kf_d and slam.n_points() == n_pt_d
+                and len(pass_s) == n_pass_d, f"{label} (d): the map changed")
+        require(worst < 0.05, f"{label} (d): {worst:.4f} m from the estimates of (a)")
+        counts_ok(n_extract, "(d)")
+        slam.deactivate_localization_mode()
+
+    # (e) checkpoint round trip into a second System
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "map.npz")
+        slam.save_map(path)
+        size = os.path.getsize(path)
+        other = System(cfg, enable_mapping=True, enable_loop_closing=False)
+        other.load_map(path)
+    differing = [f for f, a, b in zip(slam.map._fields, slam.map, other.map)
+                 if a.dtype != b.dtype or not torch.equal(a, b)]
+    print(f"[{label}] (e) save_map ({size} bytes) and load_map into a second System: "
+          f"{len(slam.map._fields) - len(differing)} of {len(slam.map._fields)} fields equal, "
+          f"state {other.state}")
+    require(not differing, f"{label} (e): fields differ after the round trip: {differing}")
+    require(other.state == STATE_LOST and other.map.kf_Tcw.is_cuda,
+            f"{label} (e): the loaded System is not LOST on the card")
+    print(f"[{label}] counts: fast_band launches {n_extract} ({launches_a} in (a)), fast_nms 0; "
+          f"mapping passes {len(pass_s)}; relocalization attempts {attempts_d}, "
+          f"successes {ok_d} (the 3 timed calls included)")
+    return n_extract, fps, ate, reloc_ms
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     try:
@@ -403,11 +645,17 @@ def main() -> int:
             n, fps, ate = phase_path(seq, kernels, label, cell, mapping, own)
             results[own]["launches"] = n
             summary.append(f"{label} {fps:.2f} frames/s, ATE {ate:.6f} m")
+        vocab, bow_ms = phase_vocabulary(seq)
+        n3, fps3, ate3, reloc_ms = phase_path3(seq, kernels, vocab)
+        results["fast_band"]["launches_path3"] = n3
+        results["fast_nms"]["launches_path3"] = 0
+        summary.append(f"path 3 {fps3:.2f} frames/s, ATE {ate3:.6f} m, BoW of a frame "
+                       f"{bow_ms:.3f} ms, one relocalization {reloc_ms:.1f} ms")
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_path3")
     print(f"[summary] {card}: {'; '.join(summary)}")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results.values()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -16,6 +16,7 @@ import torch
 from .models.frame import FrameData
 from .models.map_state import MapState
 from .models.pipeline import TrackCarry
+from .ops import bow as bow_ops
 
 _DESC_FIELDS = {"kf_desc", "pt_desc", "desc"}
 
@@ -60,6 +61,16 @@ def state_from_numpy(map_np: dict, carry_np: dict | None, device):
         else:
             fields[k] = _to_tensor(k, carry_np[k], device)
     return m, TrackCarry(**fields)
+
+
+def vocabulary_from_numpy(vocab_np, device="cpu") -> bow_ops.Vocabulary:
+    """A JAX Vocabulary (its arrays as numpy; node descriptors uint32) -> the
+    port's Vocabulary on `device`, with its child-descriptor table rebuilt."""
+    v = _as_dict(vocab_np)
+    return bow_ops.from_arrays(
+        np.asarray(v["node_desc"]), np.asarray(v["node_children"]),
+        np.asarray(v["word_id"]), np.asarray(v["word_weight"]),
+        v["k"], v["L"], v["n_words"], v["levelsup"]).to(device)
 
 
 def frame_from_numpy(frame_np, device) -> FrameData:

@@ -32,6 +32,11 @@ class Capacities(NamedTuple):
     ba_iters_post: int = 5
     cull_log: int = 2048       # retired-keyframe archive ring
     loop_log: int = 32         # persisted loop-edge ring
+    # Sparse BoW entries kept per keyframe (top-T words by TF-IDF weight,
+    # ops/bow.py sparse_bow): the place-recognition database is O(K*T),
+    # independent of the vocabulary's size.  Exact while a frame has <= T
+    # distinct words; beyond that the lowest-weight words are dropped.
+    bow_top: int = 512
 
 
 class TrackingConfig(NamedTuple):
@@ -69,11 +74,19 @@ class SlamConfig(NamedTuple):
     tracking: TrackingConfig = TrackingConfig()
     sensor: str = "rgbd"       # only "rgbd" is ported
     depth_map_factor: float = 1.0
-    vocab: object = None       # BoW vocabulary: not ported yet, must be None
+    # Trained BoW vocabulary (ops/bow.py) for relocalization; None disables
+    # place recognition.  The System moves it to its device at construction.
+    vocab: object = None
 
     @property
     def ur_weight(self) -> float:
         return self.tracking.rgbd_ur_weight if self.sensor == "rgbd" else 1.0
+
+    @property
+    def bow_top(self) -> int:
+        """Sparse-BoW row width: capped by the feature budget (a frame can
+        never have more distinct words than features)."""
+        return min(self.caps.bow_top, self.orb.feat_capacity())
 
     @property
     def th_depth(self) -> float:

@@ -95,6 +95,7 @@ def empty_map(config: SlamConfig, device) -> MapState:
     N = config.orb.feat_capacity()
     A = config.caps.cull_log
     Lp = config.caps.loop_log
+    T = config.bow_top if config.vocab is not None else 1
     f32, i32 = torch.float32, torch.int32
     eye = torch.eye(4, dtype=f32, device=device)
 
@@ -114,8 +115,8 @@ def empty_map(config: SlamConfig, device) -> MapState:
         kf_desc=full((K, N, 8), 0, i32),
         kf_feat_valid=full((K, N), False, torch.bool),
         kf_obs_pt=full((K, N), NO_POINT, i32),
-        kf_bow_ids=full((K, 1), -1, i32),
-        kf_bow_vals=full((K, 1), 0.0, f32),
+        kf_bow_ids=full((K, T), -1, i32),
+        kf_bow_vals=full((K, T), 0.0, f32),
         kf_parent=full((K,), -1, i32),
         kf_Tcp=eye.repeat(K, 1, 1),
         kf_tree_parent_seq=full((K,), -1, i32),
@@ -228,10 +229,14 @@ def _inc_row(m: MapState, obs_pt: torch.Tensor, feat_valid: torch.Tensor) -> tor
 
 
 def insert_keyframe(m: MapState, frame: FrameData, Tcw: torch.Tensor,
-                    frame_id, timestamp, obs_pt: torch.Tensor):
+                    frame_id, timestamp, obs_pt: torch.Tensor,
+                    bow: tuple | None = None, words: torch.Tensor | None = None,
+                    nodes: torch.Tensor | None = None):
     """Insert a keyframe into the first free slot (reference
     Tracking::CreateNewKeyFrame + Map::AddKeyFrame); the write is dropped if
-    every slot is live.  Returns (map, slot)."""
+    every slot is live.  bow: sparse (ids [T], vals [T]) from
+    ops/bow.sparse_bow; words, nodes: [N] from ops/bow.transform.  Returns
+    (map, slot)."""
     dev = m.kf_valid.device
     slot = torch.argmin(m.kf_valid.to(torch.int8)).reshape(1)   # first free slot
     ok = ~m.kf_valid[slot][0]
@@ -261,6 +266,13 @@ def insert_keyframe(m: MapState, frame: FrameData, Tcw: torch.Tensor,
     w(m.kf_feat_valid, frame.valid)
     w(m.kf_obs_pt, obs_row)
     w(m.kf_pt_inc, _inc_row(m, obs_pt, frame.valid))
+    if bow is not None:
+        w(m.kf_bow_ids, bow[0])
+        w(m.kf_bow_vals, bow[1])
+    if words is not None:
+        w(m.kf_word, words)
+    if nodes is not None:
+        w(m.kf_node, nodes)
     m.kf_valid.index_put_((slot,), (ok | m.kf_valid[slot][0])[None])
     # keep the cached observation counts consistent with the new row
     pt_obs = add_drop(m.pt_obs, torch.where(ok & frame.valid, obs_pt, -1), 1)

@@ -1,8 +1,8 @@
 """Persistent chunked streaming session over a live System.
 
 Counterpart of the JAX package's models/streaming.py::StreamSession for the
-RGB-D sensor with the loop closer off (local mapping as the System says): feed() frames for the lifetime of a
-run; every full chunk goes to the device as one packed buffer, is built
+RGB-D sensor with the loop closer off (local mapping, the vocabulary and
+localization mode as the System says): feed() frames for the lifetime of a run; every full chunk goes to the device as one packed buffer, is built
 through one extraction chain and tracked frame by frame; finish() flushes the
 padded tail and records the trajectory.  (The reference analogue is the
 standing Tracking thread and its queues, src/System.cc:116-145.)
@@ -32,6 +32,7 @@ class StreamSession:
         self.sys = system
         self.sensor = sensor
         self.C = int(chunk or system._batch_chunk)
+        self.loc = system.localization_only  # frozen at open
         self._tail: list | None = None    # frames that do not yet fill a chunk
         self._tail_ts: list = []
         self._packed_parts: list = []     # per-chunk packed StepInfo (device)
@@ -87,7 +88,8 @@ class StreamSession:
         frames, ts, valid = pipeline.frames_rgbd_packed(cfg, buf)
         self.sys.map, self.sys.carry, packed = pipeline.batch_steps_frames(
             cfg, self.sys.map, self.sys.carry, frames, ts, valid,
-            self.sys.enable_mapping)
+            self.sys.enable_mapping, localization_only=self.loc,
+            generator=self.sys._stream_gen)
         n_live = len(ts_live)
         self._packed_parts.append(packed[:n_live])
         self._all_ts.extend(ts_live)
@@ -116,4 +118,5 @@ class StreamSession:
         self._all_ts = []
         sysm.Tcw = infos.Tcw[-1]
         sysm.state = STATE_OK if bool(infos.state_ok[-1]) else STATE_LOST
+        sysm.vo_mode = bool(infos.vo[-1])
         return infos.Tcw

@@ -13,9 +13,11 @@ src/Tracking.cc:419-779):
                         from RGB-D depth.
   * create_keyframe   - CreateNewKeyFrame (:1649): keyframe + up to 100 new
                         close points, nearest first.
+  * track_motion_loc  - localization-mode motion tracking with temporal
+                        visual-odometry points (UpdateLastFrame :1247).
 
-Without a vocabulary keyframes carry no BoW (the JAX package's _frame_bow
-returns its None triple), so nothing of it is computed here.
+With a vocabulary every keyframe also gets its BoW row, word ids and node
+ids at insertion (_frame_bow).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops import bow as bow_ops
 from ..ops.camera import in_frustum, project
 from ..ops.indexing import indicator, nonzero_padded, row, set_drop
 from ..ops.matching import core as mcore
@@ -125,6 +128,96 @@ def track_motion(config: SlamConfig, m: MapState, frame: FrameData,
     return TrackResult(res.Tcw, obs_out, n_matches, res.n_inliers)
 
 
+class TrackResultVO(NamedTuple):
+    """track_motion_loc result: TrackResult + the count of inliers bound to
+    real map points (the reference's nmatchesMap, src/Tracking.cc:1401-1426,
+    which drives the mbVO 'map support lost' flag)."""
+
+    Tcw: torch.Tensor
+    obs_pt: torch.Tensor
+    n_matches: torch.Tensor
+    n_inliers: torch.Tensor
+    n_map_inliers: torch.Tensor
+
+
+def _depth_rank(depth: torch.Tensor, candidate: torch.Tensor) -> torch.Tensor:
+    """[N] rank of each feature by depth among the candidates, nearest
+    first; equal depths keep feature order (a stable sort, as jnp.argsort)."""
+    n = depth.shape[0]
+    order = torch.argsort(torch.where(candidate, depth, math.inf), stable=True)
+    return torch.empty(n, dtype=torch.int64, device=depth.device).scatter_(
+        0, order, torch.arange(n, device=depth.device))
+
+
+def track_motion_loc(config: SlamConfig, m: MapState, frame: FrameData,
+                     Tcw_last: torch.Tensor, velocity: torch.Tensor,
+                     last_frame: FrameData, last_obs_pt: torch.Tensor,
+                     search_radius: float, *,
+                     last_obs_birth: torch.Tensor | None = None) -> TrackResultVO:
+    """Localization-mode motion tracking with temporal "visual odometry"
+    points (reference Tracking::UpdateLastFrame src/Tracking.cc:1247-1350 +
+    TrackWithMotionModel :1353-1430).
+
+    The reference allocates temporary MapPoints from the last frame's close
+    RGB-D depth every frame (all with depth < mThDepth, plus the 100
+    closest) and deletes them after tracking (:670-716).  Here the same
+    candidates are frame-local tensors (backprojected positions and
+    descriptors of the last frame that never touch the map) and the pose
+    optimization runs over the union of map matches and VO matches."""
+    cam = config.camera
+    Tcw_pred = velocity @ Tcw_last
+
+    pt_ids = last_obs_pt
+    cl = torch.clamp(pt_ids, 0, m.max_pt - 1).long()
+    map_ok = (pt_ids >= 0) & m.pt_valid[cl]
+    if last_obs_birth is not None:  # slot-reuse guard (see track_motion)
+        map_ok &= m.pt_birth[cl] == last_obs_birth
+
+    # temporal VO candidates: depth-sorted close features of the last frame
+    # without a live map point (reference Tracking.cc:1301-1345)
+    depth_ok = last_frame.has_depth() & ~map_ok
+    rank = _depth_rank(last_frame.depth, depth_ok)
+    vo_ok = depth_ok & ((last_frame.depth < config.th_depth) | (rank < 100))
+    vo_pos = backproject_frame(cam, last_frame, Tcw_last)
+
+    pts_w = torch.where(map_ok[:, None], m.pt_pos[cl], vo_pos)
+    desc_q = torch.where(map_ok[:, None], m.pt_desc[cl], last_frame.desc)
+    q_ok = map_ok | vo_ok
+
+    pc = pts_w @ Tcw_pred[:3, :3].T + Tcw_pred[:3, 3]
+    uv, z = project(cam, pc)
+    inb = ((z > 0) & (uv[:, 0] >= 0) & (uv[:, 0] < cam.width)
+           & (uv[:, 1] >= 0) & (uv[:, 1] < cam.height))
+    q_ok &= inb & last_frame.valid
+
+    radius = search_radius * _scale_factors(config, uv.device)[last_frame.level.long()]
+    wmask = mcore.window_mask(uv, frame.xy, radius)
+    lmask = mcore.level_mask(last_frame.level, frame.level, -1, 1)
+    match = mcore.mutual_best_match(desc_q, frame.desc, wmask & lmask, q_ok,
+                                    frame.valid, max_dist=mcore.TH_HIGH, ratio=None)
+    keep = mcore.rotation_consistency_mask(last_frame.angle, frame.angle, match)
+    match = match._replace(valid=keep, idx=torch.where(keep, match.idx, -1))
+
+    # scatter the source feature index so VO positions survive the
+    # query->feature inversion (a VO match has no map-point id to scatter)
+    n_last = last_frame.capacity
+    src = _scatter_matches(frame.capacity, match,
+                           torch.arange(n_last, dtype=torch.int32, device=uv.device))
+    has = src >= 0
+    src_c = torch.clamp(src, 0, n_last - 1).long()
+    is_map = has & map_ok[src_c]
+    obs_pt_map = torch.where(is_map, pt_ids[src_c], NO_POINT)
+    n_matches = torch.sum(has).to(torch.int32)
+
+    sigma2 = torch.from_numpy(config.orb.sigma2()).to(uv.device)
+    res = pose_optimize(cam, Tcw_pred, pts_w[src_c], _observations(frame),
+                        sigma2[frame.level.long()], has & frame.valid,
+                        ur_weight=config.ur_weight)
+    obs_out = torch.where(res.inliers & is_map, obs_pt_map, NO_POINT)
+    n_map_inl = torch.sum(res.inliers & is_map).to(torch.int32)
+    return TrackResultVO(res.Tcw, obs_out, n_matches, res.n_inliers, n_map_inl)
+
+
 def track_local_map(config: SlamConfig, m: MapState, frame: FrameData,
                     Tcw: torch.Tensor, obs_pt: torch.Tensor) -> LocalMapResult:
     """Local-map tracking (reference TrackLocalMap + helpers,
@@ -208,6 +301,17 @@ def track_local_map(config: SlamConfig, m: MapState, frame: FrameData,
     )
 
 
+def _frame_bow(config: SlamConfig, frame: FrameData):
+    """(sparse bow (ids, vals), words, nodes) for keyframe insertion; a None
+    triple without a vocabulary.  Reference: KeyFrame::ComputeBoW
+    (src/KeyFrame.cc:79-95); the sparse pair is the inverted-file entry
+    (KeyFrameDatabase::add, src/KeyFrameDatabase.cc:53)."""
+    if config.vocab is None:
+        return None, None, None
+    words, nodes = bow_ops.transform(config.vocab, frame.desc, frame.valid)
+    return bow_ops.sparse_bow(config.vocab, words, config.bow_top), words, nodes
+
+
 def initialize_depth(config: SlamConfig, m: MapState, frame: FrameData,
                      frame_id, timestamp):
     """First RGB-D keyframe: a map point for every feature with depth
@@ -215,9 +319,11 @@ def initialize_depth(config: SlamConfig, m: MapState, frame: FrameData,
     dev = frame.xy.device
     Tcw = torch.eye(4, dtype=torch.float32, device=dev)
     n = frame.capacity
+    bow, words, nodes = _frame_bow(config, frame)
     m, kf_id = ms.insert_keyframe(
         m, frame, Tcw, frame_id, timestamp,
-        torch.full((n,), NO_POINT, dtype=torch.int32, device=dev))
+        torch.full((n,), NO_POINT, dtype=torch.int32, device=dev),
+        bow=bow, words=words, nodes=nodes)
     pts_w = backproject_frame(config.camera, frame, Tcw)
     feat_idx = torch.arange(n, dtype=torch.int32, device=dev)
     m, _ = ms.add_points(m, config, kf_id, feat_idx, pts_w, frame.has_depth())
@@ -230,13 +336,13 @@ def create_keyframe(config: SlamConfig, m: MapState, frame: FrameData,
     (reference CreateNewKeyFrame, src/Tracking.cc:1649-1758: by depth, until
     100 or depth > mThDepth)."""
     dev = frame.xy.device
-    m, kf_id = ms.insert_keyframe(m, frame, Tcw, frame_id, timestamp, obs_pt)
+    bow, words, nodes = _frame_bow(config, frame)
+    m, kf_id = ms.insert_keyframe(m, frame, Tcw, frame_id, timestamp, obs_pt,
+                                  bow=bow, words=words, nodes=nodes)
     candidate = frame.has_depth() & (obs_pt < 0) & (frame.depth < config.th_depth)
-    order = torch.argsort(torch.where(candidate, frame.depth, math.inf), stable=True)
     n = frame.capacity
-    rank = torch.empty(n, dtype=torch.int64, device=dev).scatter_(
-        0, order, torch.arange(n, device=dev))
-    create = candidate & (rank < config.tracking.max_new_points_per_kf)
+    create = candidate & (_depth_rank(frame.depth, candidate)
+                          < config.tracking.max_new_points_per_kf)
     pts_w = backproject_frame(config.camera, frame, Tcw)
     feat_idx = torch.arange(n, dtype=torch.int32, device=dev)
     m, _ = ms.add_points(m, config, kf_id, feat_idx, pts_w, create)

@@ -67,3 +67,9 @@ def top_k(x: torch.Tensor, k: int):
 def row(arr: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     """arr[i] for a 0-d index tensor, as a device gather (no host sync)."""
     return arr.index_select(0, i.reshape(1).long())[0]
+
+
+def select(take_a: torch.Tensor, a, b):
+    """Field-wise torch.where over two NamedTuples of one type (the JAX
+    package's jax.tree.map(lambda x, y: jnp.where(c, x, y), a, b))."""
+    return type(a)(*(torch.where(take_a, x, y) for x, y in zip(a, b)))

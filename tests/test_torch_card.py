@@ -183,3 +183,141 @@ def test_mapping_pass_on_card_matches_cpu(cuda):
     assert obs_same >= 0.999
     assert abs(int(got.pt_valid.sum()) - int(ref.pt_valid.sum())) <= 5
     assert int(got.n_culled) == int(ref.n_culled)
+
+
+# ---------------------------------------------- vocabulary, EPnP, relocalization
+
+
+def _small_world(device):
+    """A 320x240 System with a k=8, L=3 vocabulary trained on the sequence,
+    after 14 mapped frames."""
+    from self_commit_orb_slam2_tpu_torch.models.config import (
+        Capacities, SlamConfig, TrackingConfig)
+    from self_commit_orb_slam2_tpu_torch.models.system import System
+    from self_commit_orb_slam2_tpu_torch.ops import bow
+    from self_commit_orb_slam2_tpu_torch.ops.camera import CameraParams
+    from self_commit_orb_slam2_tpu_torch.ops.orb.extractor import OrbConfig, extract_batch
+    from self_commit_orb_slam2_tpu_torch.utils.synthetic import generate_sequence
+
+    seq = generate_sequence(n_frames=16, width=320, height=240, fx=260.0, seed=5)
+    feats, _ = extract_batch(torch.from_numpy(seq.images[0:16:4].astype(np.float32)),
+                             OrbConfig(n_features=300))
+    vocab = bow.train_vocabulary(feats.desc[feats.valid].numpy().view(np.uint32),
+                                 k=8, L=3, seed=2)
+    cfg = SlamConfig(camera=CameraParams.create(fx=260.0, fy=260.0, cx=160.0, cy=120.0,
+                                                bf=26.0, width=320, height=240),
+                     orb=OrbConfig(n_features=500),
+                     caps=Capacities(max_keyframes=32, max_points=8192, local_points=1024),
+                     tracking=TrackingConfig(max_frames_between_kf=8), vocab=vocab)
+    slam = System(cfg, enable_mapping=True, enable_loop_closing=False, device=device)
+    for i in range(14):
+        slam.track_rgbd(seq.images[i], seq.depths[i], i / 30.0)
+    return slam, seq
+
+
+def test_transform_and_sparse_bow_on_card_equal_cpu(cuda):
+    """Words, nodes and sparse ids exact (the bundled tree, random
+    descriptors, T = 512 and the live cut at T = 64); weights within 1e-6."""
+    from self_commit_orb_slam2_tpu_torch.ops import bow
+
+    vocab = bow.load_vocabulary(bow.default_vocab_path())
+    on_card = vocab.to(cuda)
+    assert on_card.child_desc.is_cuda and on_card.device_bytes() == vocab.device_bytes()
+    rng = np.random.default_rng(0)
+    desc = torch.from_numpy(rng.integers(-2**31, 2**31, (1000, 8)).astype(np.int32))
+    valid = torch.from_numpy(rng.random(1000) < 0.9)
+    words, nodes = bow.transform(vocab, desc, valid)
+    words_c, nodes_c = bow.transform(on_card, desc.to(cuda), valid.to(cuda))
+    assert torch.equal(words_c.cpu(), words) and torch.equal(nodes_c.cpu(), nodes)
+    for T in (512, 64):
+        ids, vals = bow.sparse_bow(vocab, words, T)
+        ids_c, vals_c = bow.sparse_bow(on_card, words_c, T)
+        assert torch.equal(ids_c.cpu(), ids)
+        assert torch.allclose(vals_c.cpu(), vals, rtol=0, atol=1e-6)
+
+
+def test_transform_first_minimum_on_card(cuda):
+    """Equal Hamming distances are common in the descent: a node whose
+    children are all one centre must send every query to the first, on the
+    card as on the CPU."""
+    from self_commit_orb_slam2_tpu_torch.ops import bow
+
+    k = 10
+    node_desc = np.zeros((1 + k, 8), np.uint32)
+    node_desc[1:] = 0xFFFF0000
+    children = np.full((1 + k, k), -1, np.int32)
+    children[0] = np.arange(1, 1 + k)
+    word_id = np.concatenate([[-1], np.arange(k)]).astype(np.int32)
+    vocab = bow.from_arrays(node_desc, children, word_id, np.ones(k, np.float32), k, 1, k, 0)
+    rng = np.random.default_rng(1)
+    desc = torch.from_numpy(rng.integers(-2**31, 2**31, (4096, 8)).astype(np.int32))
+    valid = torch.ones(4096, dtype=torch.bool)
+    words, nodes = bow.transform(vocab.to(cuda), desc.to(cuda), valid.to(cuda))
+    assert int(words.max()) == 0 and int(nodes.min()) == int(nodes.max()) == 1
+
+
+def test_epnp_eigh_shapes_on_card_match_cpu(cuda):
+    """1280 sets of 12 exact correspondences: the three batched eigh calls
+    ([1280, 3, 3], [1280, 12, 12], [1280, 4, 4]) run by the card's solver
+    give R and t within 1e-3 of the CPU's on at least 99% of the sets (the
+    rest are sets whose 12x12 kernel vector is badly separated in fp32)."""
+    from self_commit_orb_slam2_tpu_torch.ops import se3
+    from self_commit_orb_slam2_tpu_torch.ops.camera import CameraParams
+    from self_commit_orb_slam2_tpu_torch.ops.solvers import epnp
+
+    cam = CameraParams.create(fx=450.0, fy=450.0, cx=320.0, cy=240.0)
+    rng = np.random.default_rng(2)
+    T = se3.se3_exp(torch.tensor([0.4, -0.2, 0.6, 0.15, -0.1, 0.2])).numpy()
+    pts = rng.uniform(-3, 3, (1280, 12, 3)).astype(np.float32)
+    pts[..., 2] += 8.0
+    pc = pts @ T[:3, :3].T + T[:3, 3]
+    uv = np.stack([450.0 * pc[..., 0] / pc[..., 2] + 320.0,
+                   450.0 * pc[..., 1] / pc[..., 2] + 240.0], -1).astype(np.float32)
+    R, t = epnp._epnp_solve(torch.from_numpy(pts), torch.from_numpy(uv), cam)
+    Rc, tc = epnp._epnp_solve(torch.from_numpy(pts).to(cuda), torch.from_numpy(uv).to(cuda), cam)
+    err = torch.maximum((Rc.cpu() - R).abs().amax(dim=(1, 2)), (tc.cpu() - t).abs().amax(dim=1))
+    assert float((err <= 1e-3).float().mean()) >= 0.99, float(err.max())
+    assert float((R - torch.from_numpy(T[:3, :3])).abs().amax(dim=(1, 2)).median()) < 1e-3
+
+
+def test_zero_probability_rows_draw_on_card(cuda):
+    """A row with no valid correspondence must not reach multinomial as all
+    zeros: on the card that is a device-side assert that ends the context."""
+    from self_commit_orb_slam2_tpu_torch.ops.solvers import epnp
+
+    valid = torch.zeros(5, 1000, dtype=torch.bool, device=cuda)
+    valid[1, 10:20] = True
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    sets = epnp.draw_minimal_sets(valid, 256, 6, gen)
+    torch.cuda.synchronize()
+    assert sets.shape == (5, 256, 6) and int(sets.min()) >= 0 and int(sets.max()) < 1000
+    assert int(sets[1].min()) >= 10 and int(sets[1].max()) < 20
+    assert float(torch.ones(3, device=cuda).sum()) == 3.0   # the context is alive
+
+
+def test_relocalize_on_card(cuda):
+    """A mapped view recovers within 0.05 m of the engine's own earlier
+    estimate; a blank frame fails without raising and leaves the context
+    alive."""
+    from self_commit_orb_slam2_tpu_torch.models import relocalization
+    from self_commit_orb_slam2_tpu_torch.models.frame import make_frame_rgbd
+
+    slam, seq = _small_world(cuda)
+    assert slam.state == 1 and slam.n_keyframes() >= 2 and slam.config.vocab.node_desc.is_cuda
+    assert int((slam.map.kf_bow_ids[0] >= 0).sum()) > 50
+
+    def frame(image, depth):
+        return make_frame_rgbd(slam.config, torch.from_numpy(image.astype(np.float32)).to(cuda),
+                               torch.from_numpy(depth.astype(np.float32)).to(cuda))
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    res = relocalization.relocalize(slam.config, slam.map, frame(seq.images[4], seq.depths[4]), gen)
+    assert bool(res.success) and int(res.n_inliers) >= 50
+    T, T4 = res.Tcw.cpu().numpy(), slam.trajectory[4][1]
+    centre = lambda P: -P[:3, :3].T @ P[:3, 3]  # noqa: E731
+    assert np.linalg.norm(centre(T) - centre(T4)) < 0.05
+    res = relocalization.relocalize(slam.config, slam.map,
+                                    frame(np.zeros_like(seq.images[0]),
+                                          np.zeros_like(seq.depths[0])), gen)
+    torch.cuda.synchronize()
+    assert not bool(res.success) and int(res.n_inliers) == 0

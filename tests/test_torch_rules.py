@@ -1,6 +1,11 @@
 """The port's rules, as tests: it imports neither JAX nor the JAX package,
 it never falls back to the CPU silently, and its copies of the JAX package's
-numpy-only modules give the same results."""
+numpy-only modules give the same results.
+
+One exception to "nothing of the JAX package", and it is data, not code: the
+bundled vocabulary file stays in that package's assets directory and the
+port reads it by path (ops/bow.default_vocab_path).  The import scan stays as
+strict as it was."""
 
 import ast
 import pathlib
@@ -9,12 +14,14 @@ import numpy as np
 import pytest
 import torch
 
+from self_commit_orb_slam2_tpu.ops import bow as jbow
 from self_commit_orb_slam2_tpu.ops.orb import brief_pattern as jbrief
 from self_commit_orb_slam2_tpu.ops.orb import fast as jfast
 from self_commit_orb_slam2_tpu.utils import evaluation as jevaluation
 from self_commit_orb_slam2_tpu.utils import synthetic as jsynthetic
 from self_commit_orb_slam2_tpu_torch.models import config
 from self_commit_orb_slam2_tpu_torch.models.system import System, resolve_device
+from self_commit_orb_slam2_tpu_torch.ops import bow
 from self_commit_orb_slam2_tpu_torch.ops.camera import CameraParams
 from self_commit_orb_slam2_tpu_torch.ops.orb import brief_pattern, detect, fast
 from self_commit_orb_slam2_tpu_torch.utils import evaluation, synthetic
@@ -59,11 +66,22 @@ def test_no_silent_cpu_fallback():
 @pytest.mark.parametrize("kwargs", [dict(enable_mapping=True, enable_loop_closing=True),
                                     dict(enable_mapping=False, enable_loop_closing=True)])
 def test_unported_phases_refused(kwargs):
-    with pytest.raises(NotImplementedError):
+    """Loop closing is still refused, with or without a vocabulary, and so
+    are the sensors that are not ported; a vocabulary alone is accepted."""
+    tiny = bow.from_arrays(np.zeros((3, 8), np.uint32), np.array([[1, 2], [-1, -1], [-1, -1]]),
+                           np.array([-1, 0, 1]), np.ones(2, np.float32), 2, 1, 2, 0)
+    with pytest.raises(NotImplementedError, match="loop closing"):
         System(_cfg(), device="cpu", **kwargs)
-    with pytest.raises(NotImplementedError):
-        System(_cfg()._replace(vocab=object()), enable_mapping=False,
-               enable_loop_closing=False, device="cpu")
+    with pytest.raises(NotImplementedError, match="loop closing"):
+        System(_cfg()._replace(vocab=tiny), device="cpu", **kwargs)
+    for sensor in ("stereo", "mono"):
+        with pytest.raises(NotImplementedError, match=sensor):
+            System(_cfg()._replace(sensor=sensor), enable_mapping=False,
+                   enable_loop_closing=False, device="cpu")
+    slam = System(_cfg()._replace(vocab=tiny), enable_loop_closing=False, device="cpu",
+                  enable_mapping=kwargs["enable_mapping"])
+    assert slam.config.vocab.node_desc.device.type == "cpu"
+    assert slam.map.kf_bow_ids.shape[1] == slam.config.bow_top == 512
 
 
 def test_generate_sequence_copy_identical():
@@ -86,6 +104,32 @@ def test_numpy_constants_and_evaluation_copies(rng):
     gt[:, :3, 3] += rng.normal(0, 0.01, (20, 3)).astype(np.float32)
     assert evaluation.ate_rmse(est, gt) == jevaluation.ate_rmse(est, gt)
     assert evaluation.rpe_rmse(est, gt) == jevaluation.rpe_rmse(est, gt)
+
+
+def test_vocabulary_training_copies_identical(rng):
+    """The numpy halves of train_vocabulary: the byte-LUT Hamming table and
+    the k-majority clustering give the originals' results from one seed."""
+    np.testing.assert_array_equal(bow._POP_LUT, jbow._POP_LUT)
+    descs = rng.integers(0, 2**32, (600, 8), dtype=np.uint64).astype(np.uint32)
+    centers = descs[:7]
+    u8 = lambda a: np.ascontiguousarray(a).view(np.uint8).reshape(len(a), 32)  # noqa: E731
+    np.testing.assert_array_equal(bow._hamming_table(u8(descs), u8(centers), chunk=128),
+                                  jbow._hamming_table(u8(descs), u8(centers), chunk=128))
+    got = bow._kmajority(descs, 6, np.random.default_rng(4))
+    want = jbow._kmajority(descs, 6, np.random.default_rng(4))
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+def test_bundled_vocabulary_is_read_in_place_not_copied():
+    """The data-file exception: one copy of the vocabulary in the checkout,
+    in the JAX package's assets, found by path."""
+    path = pathlib.Path(bow.default_vocab_path())
+    assert path == ROOT / "self_commit_orb_slam2_tpu" / "assets" / "vocab_synthetic.npz"
+    assert not list((ROOT / "self_commit_orb_slam2_tpu_torch").rglob("*.npz"))
+    assert "self_commit_orb_slam2_tpu" not in {
+        m.split(".")[0] for m in _imported_modules(
+            ROOT / "self_commit_orb_slam2_tpu_torch" / "ops" / "bow.py")}
 
 
 def test_slab_border_mask_built_once_per_shape():
