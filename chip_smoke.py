@@ -39,10 +39,34 @@ Phases (any failure exits non-zero and prints no result):
        d. localization mode over frames 25 to 40: STATE_OK throughout, no
           keyframe and no point added, within 0.05 m of the estimates of (a);
        e. save_map, load_map into a second System: every field equal.
+  7. the band kernel at the stereo paths' slab shapes (first pair 16 slices,
+     chunk 64 slices, of 384x1241 and of 480x752): bitwise against the plain
+     version, timed from a CUDA graph, bound recounted at each shape;
+  8. stereo matcher: match_stereo on the card against the same call on the
+     CPU on the first KITTI-geometry pair (valid equal on >= 99.5%, u_right
+     within 0.02 px), the share of left keypoints that get a depth, their
+     depth against the rendered ground-truth depth map (median relative
+     error < 2%), ms per chunk of 4 pairs;
+  9. path 4, stereo, vocabulary loaded, mapping on, chunk 4:
+       a. KITTI geometry, 1241x376, fx 718.9, baseline 0.1, 2000 features:
+          1 + 24 pairs streamed; ATE < 0.01 m;
+       b. EuRoC geometry, 752x480, fx 458.7, baseline 0.11, 1200 features,
+          raw eyes with mounting rotations rectified on the card: 1 + 8 pairs
+          streamed, 4 more through track_stereo; ATE < 0.02 m;
+     each STATE_OK, >= 2 keyframes, 0 relocalization attempts, the band
+     kernel once per extraction call;
+ 10. two-view: initialize_two_view on the card against the CPU on one
+     synthetic correspondence set with the same minimal sets (same model,
+     n_good within 2%, pose within 1e-3); its eigh / svd shapes timed;
+ 11. path 5, mono, 640x480, 1000 features, vocabulary loaded, mapping on:
+     the first 41 frames of the RGB-D sequence's images through
+     track_batch_mono; the map initializes within 6 frames, STATE_OK, >= 3
+     keyframes, Sim3-aligned ATE < 0.06 m.
 
 The second-to-last line is the kernels JSON (each kernel with its launches
-on its own path; the band kernel also with those on path 3); the last line
-is {"ok": true, "device": {...}}.  Imports nothing of JAX.
+on its own path; the band kernel also with those on paths 3, 4 and 5 and its
+times at the stereo shapes); the last line is {"ok": true, "device": {...}}.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -617,6 +641,340 @@ def phase_path3(seq, kernels, vocab):
     return n_extract, fps, ate, reloc_ms
 
 
+def _u8(images) -> np.ndarray:
+    return np.clip(images, 0, 255).astype(np.uint8)
+
+
+def _sensor_config(sensor, width, height, fx, baseline, n_features, vocab, rect_maps=None,
+                   **tracking):
+    from self_commit_orb_slam2_tpu_torch.models.config import (
+        Capacities, SlamConfig, TrackingConfig)
+    from self_commit_orb_slam2_tpu_torch.ops.camera import CameraParams
+    from self_commit_orb_slam2_tpu_torch.ops.orb.extractor import OrbConfig
+
+    cam = CameraParams.create(fx=fx, fy=fx, cx=width / 2, cy=height / 2,
+                              bf=fx * baseline, width=width, height=height)
+    return SlamConfig(
+        camera=cam, orb=OrbConfig(n_features=n_features),
+        caps=Capacities(max_keyframes=64, max_points=16384, local_points=1024),
+        tracking=TrackingConfig(**tracking), sensor=sensor, vocab=vocab, rect_maps=rect_maps)
+
+
+# the stereo operating points (bench.py's --size=kitti and --size=euroc)
+KITTI = dict(width=1241, height=376, fx=718.9, baseline=0.1, n_features=2000)
+EUROC = dict(width=752, height=480, fx=458.7, baseline=0.11, n_features=1200)
+N_KITTI, N_EUROC, N_EUROC_PER_FRAME, N_MONO = 25, 13, 4, 41
+
+
+def phase_band_shapes(kitti, euroc, euroc_maps, band_row):
+    """Kernel B1 at the stereo paths' slab shapes: the [left block; right
+    block] of the first pair (16 slices) and of a chunk of 4 pairs (64), at
+    both geometries; EuRoC's raw eyes rectified on the card first, as the
+    path does.  Bitwise against the plain version, device time from a CUDA
+    graph, the bound recounted from each slab."""
+    import torch
+
+    from self_commit_orb_slam2_tpu_torch.models import frame as frame_mod
+    from self_commit_orb_slam2_tpu_torch.ops.orb import fast_band
+    from self_commit_orb_slam2_tpu_torch.tools import time_fast
+
+    band_row["shapes"] = []
+    for name, seq, geo, maps in (("KITTI", kitti, KITTI, None), ("EuRoC", euroc, EUROC,
+                                                                  euroc_maps)):
+        cfg = _sensor_config("stereo", vocab=None, rect_maps=maps, **geo)
+        for label, sl in (("first pair", slice(0, 1)), ("chunk", slice(1, 1 + CHUNK))):
+            il = torch.from_numpy(_u8(seq.images[sl]).astype(np.float32)).cuda()
+            ir = torch.from_numpy(_u8(seq.right_images[sl]).astype(np.float32)).cuda()
+            both = torch.cat(frame_mod._rectify_pair(cfg, il, ir))
+            slab, H0p, dims = time_fast.frames_slab(both, cfg.orb, band=True)
+            args = (cfg.orb.fast_threshold_hi, cfg.orb.fast_threshold_lo, H0p, dims,
+                    cfg.orb.border, cfg.orb.n_levels)
+            G = slab.shape[0] // H0p
+            shape = [G, H0p, slab.shape[1]]
+            out_k = fast_band.fast_nms_bands_hi_lo(slab, *args)
+            out_p = fast_band.fast_bands_plain(slab, *args)
+            err = _check_kernel("fast_band", f"{name} {label} {shape}", out_k, out_p,
+                                int((out_k[2] > 0).sum()))
+            outs = fast_band.empty_outputs(slab)
+            (bound_ms, bound_by, n_bytes, ops), _ = fast_band_bound_ms(slab, *args)
+            ms = time_fast.graph_time_ms(lambda: fast_band.launch(slab, outs, *args))
+            cold_ms = time_fast.cold_time_ms(lambda: fast_band.launch(slab, outs, *args))
+            plain_ms = _event_time_ms(lambda: fast_band.fast_bands_plain(slab, *args), reps=2)
+            print(f"[kernels] fast_band {name} {label} {shape}: kernel {ms:.4f} ms hot, "
+                  f"{cold_ms:.4f} ms with the L2 flushed; plain {plain_ms:.3f} ms; bound "
+                  f"{bound_ms:.4f} ms ({bound_by}: {n_bytes:.0f} bytes, {ops} fp32 operations): "
+                  f"{ms / bound_ms:.2f} x its bound; 16-byte loads "
+                  f"{'on' if slab.shape[1] % 4 == 0 else 'off (odd width)'}")
+            band_row["shapes"].append(dict(
+                path=f"4 {name} {label}", shape=shape, max_abs_err=err, ms=ms, cold_ms=cold_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by))
+            del out_k, out_p, outs, slab, both
+    torch.cuda.empty_cache()
+
+
+def phase_stereo_matcher(kitti):
+    """match_stereo on the card against the CPU on the first KITTI-geometry
+    pair; depth share and depth error against the rendered depth map; ms per
+    chunk of 4 pairs."""
+    import torch
+
+    from self_commit_orb_slam2_tpu_torch.ops.matching import stereo
+    from self_commit_orb_slam2_tpu_torch.ops.orb import extractor, pyramid
+
+    cfg = _sensor_config("stereo", vocab=None, **KITTI)
+    cam, orb = cfg.camera, cfg.orb
+    dims = pyramid.level_shapes(cam.height, cam.width, orb.n_levels, orb.scale_factor)
+    scales = torch.from_numpy(orb.scale_factors()).cuda()
+
+    def inputs(sl):
+        il = torch.from_numpy(_u8(kitti.images[sl]).astype(np.float32)).cuda()
+        ir = torch.from_numpy(_u8(kitti.right_images[sl]).astype(np.float32)).cuda()
+        B = il.shape[0]
+        feats, slabs = extractor.extract_batch(torch.cat([il, ir]), orb)
+        return ([getattr(feats, f)[:B] for f in ("xy", "level", "desc", "valid")]
+                + [getattr(feats, f)[B:] for f in ("xy", "level", "desc", "valid")]
+                + [slabs[:B], slabs[B:]])
+
+    args = inputs(slice(0, 1))
+    on_card = stereo.match_stereo(*args, cam.bf, cam.baseline, scales, dims)
+    on_cpu = stereo.match_stereo(*(a.cpu() for a in args), cam.bf, cam.baseline,
+                                 scales.cpu(), dims)
+    torch.cuda.synchronize()
+    v_c, v_h = on_card.valid[0].cpu(), on_cpu.valid[0]
+    agree = float((v_c == v_h).float().mean())
+    both = v_c & v_h
+    du = float((on_card.u_right[0].cpu() - on_cpu.u_right[0])[both].abs().max())
+    xy, n_kp = args[0][0].cpu(), int(args[3][0].sum())
+    share = int(v_c.sum()) / n_kp
+    gt = torch.from_numpy(kitti.depths[0])[xy[:, 1].long().clamp(0, cam.height - 1),
+                                           xy[:, 0].long().clamp(0, cam.width - 1)]
+    seen = v_c & (gt > 0)
+    rel = float(((on_card.depth[0].cpu() - gt).abs() / gt)[seen].median())
+    print(f"[stereo] first pair {cam.width}x{cam.height}: {n_kp} left keypoints, "
+          f"{int(v_c.sum())} with a depth (share {share:.3f}); card vs CPU: valid equal on "
+          f"{agree:.4f} of rows, max |u_right difference| {du:.5f} px where both are valid; "
+          f"median relative depth error against the rendered depth map {rel:.5f}")
+    require(agree >= 0.995, f"stereo: valid equal on only {agree:.4f} of rows")
+    require(du <= 0.02, f"stereo: u_right differs by {du} px between card and CPU")
+    require(share > 0.25, f"stereo: only {share:.3f} of the keypoints got a depth")
+    require(rel < 0.02, f"stereo: median relative depth error {rel:.4f} >= 0.02")
+    chunk_args = inputs(slice(1, 1 + CHUNK))
+    torch.cuda.reset_peak_memory_stats()
+    ms = _event_time_ms(lambda: stereo.match_stereo(*chunk_args, cam.bf, cam.baseline,
+                                                    scales, dims))
+    print(f"[stereo] match_stereo on a chunk of {CHUNK} pairs, {chunk_args[0].shape[1]} "
+          f"keypoint rows each: {ms:.3f} ms per call = {ms / CHUNK:.3f} ms per frame (CUDA "
+          f"events, after a warm-up); peak device memory during it "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    return ms, share
+
+
+def phase_path_stereo(label, seq, cfg, n_stream, ate_limit, kernels):
+    """One stereo System: the first n_stream pairs streamed in chunks, the
+    rest one by one through track_stereo."""
+    import torch
+
+    from self_commit_orb_slam2_tpu_torch.models import pipeline, relocalization
+    from self_commit_orb_slam2_tpu_torch.models.system import STATE_OK, System
+    from self_commit_orb_slam2_tpu_torch.utils.evaluation import ate_rmse
+
+    n = len(seq.images)
+    slam = System(cfg, enable_mapping=True, enable_loop_closing=False)
+    require(slam.config.vocab.child_desc.is_cuda, f"{label}: the vocabulary is not on the card")
+    if cfg.rect_maps is not None:
+        require(all(m.is_cuda for m in slam.config.rect_maps),
+                f"{label}: the rectification maps are not on the card")
+    il, ir, ts = _u8(seq.images), _u8(seq.right_images), seq.timestamps
+    with pipeline.timed_mapping_passes() as pass_s:
+        for k in kernels.values():
+            k.launches = 0
+        relocalization.reset_counts()
+        sess = slam.open_stream("stereo", CHUNK)
+        warm = 1 + CHUNK
+        sess.feed((il[:warm], ir[:warm]), ts[:warm])
+        torch.cuda.synchronize()
+        n_warm_passes = len(pass_s)
+        t0 = time.perf_counter()
+        sess.feed((il[warm:n_stream], ir[warm:n_stream]), ts[warm:n_stream])
+        sess.finish()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        map_s = sum(pass_s[n_warm_passes:])
+        per_frame_s = []
+        for i in range(n_stream, n):
+            t0 = time.perf_counter()
+            slam.track_stereo(il[i], ir[i], float(ts[i]))
+            torch.cuda.synchronize()
+            per_frame_s.append(time.perf_counter() - t0)
+            require(slam.state == STATE_OK, f"{label}: lost at per-frame pair {i}")
+        launches = {k.name: k.launches for k in kernels.values()}
+        attempts, _ = relocalization.counts()
+    fps = (n_stream - warm) / dt
+    _, est = slam.get_trajectory()
+    require(len(est) == n and np.all(np.isfinite(est)), f"{label}: bad trajectory")
+    ate = float(ate_rmse(est, seq.poses_gt[:n]))
+    n_kf, n_pt = slam.n_keyframes(), slam.n_points()
+    last = slam.carry.last_frame
+    share = float(last.has_depth().sum() / last.valid.sum())
+    cam = cfg.camera
+    print(f"[{label}] {n} pairs {cam.width}x{cam.height}, {cfg.orb.n_features} features "
+          f"(capacity {cfg.orb.feat_capacity()}), rectified on the card: "
+          f"{cfg.rect_maps is not None}; vocabulary loaded, mapping on, chunk {CHUNK}: state "
+          f"{slam.state}, keyframes {n_kf}, points {n_pt}, ATE {ate:.6f} m, depth on "
+          f"{share:.3f} of the last frame's keypoints, relocalization attempts {attempts}")
+    print(f"[{label}] steady stream: {n_stream - warm} pairs in {dt:.3f} s = {fps:.2f} "
+          f"frames/s (host clock, synced), of which mapping {map_s:.3f} s; mapping passes "
+          f"{len(pass_s)}, mean {np.mean(pass_s) * 1e3:.1f} ms per pass"
+          + (f"; track_stereo per pair: {np.mean(per_frame_s) * 1e3:.1f} ms mean over "
+             f"{len(per_frame_s)} (host clock, synced)" if per_frame_s else ""))
+    print(f"[{label}] launches during the run: {launches}")
+    require(slam.state == STATE_OK, f"{label}: tracking lost (state {slam.state})")
+    require(n_kf >= 2, f"{label}: only {n_kf} keyframes")
+    require(ate < ate_limit, f"{label}: ATE {ate:.6f} m >= {ate_limit} m")
+    require(attempts == 0, f"{label}: {attempts} relocalization attempts in a steady run")
+    require(len(pass_s) == n_kf - 1, f"{label}: {len(pass_s)} mapping passes, want {n_kf - 1}")
+    want = 1 + -(-(n_stream - 1) // CHUNK) + (n - n_stream)
+    require(launches == {"fast_band": want, "fast_nms": 0},
+            f"{label}: launches {launches}, want fast_band {want}, fast_nms 0")
+    return want, fps, ate, float(np.mean(pass_s) * 1e3)
+
+
+def phase_two_view():
+    """initialize_two_view on the card against the CPU on one synthetic
+    correspondence set (a general scene, 0.3 px of noise, 10% outliers) with
+    the same minimal sets; its batched eigh / svd shapes timed."""
+    import torch
+
+    from self_commit_orb_slam2_tpu_torch.ops import se3
+    from self_commit_orb_slam2_tpu_torch.ops.camera import CameraParams
+    from self_commit_orb_slam2_tpu_torch.ops.solvers import two_view
+
+    n = 2048
+    rng = np.random.default_rng(0)
+    cam = CameraParams.create(fx=FX, fy=FX, cx=WIDTH / 2, cy=HEIGHT / 2, width=WIDTH,
+                              height=HEIGHT)
+    pts = rng.uniform(-2, 2, (n, 3))
+    pts[:, 2] += 5.0 + rng.uniform(0, 3, n)
+    T2 = se3.se3_exp(torch.tensor([0.5, 0.05, 0.1, 0.02, -0.04, 0.01])).double().numpy()
+
+    def project(T):
+        pc = pts @ T[:3, :3].T + T[:3, 3]
+        return np.stack([cam.fx * pc[:, 0] / pc[:, 2] + cam.cx,
+                         cam.fy * pc[:, 1] / pc[:, 2] + cam.cy], -1)
+
+    uv1 = torch.from_numpy((project(np.eye(4)) + rng.normal(0, 0.3, (n, 2))).astype(np.float32))
+    uv2 = project(T2) + rng.normal(0, 0.3, (n, 2))
+    bad = rng.choice(n, n // 10, replace=False)
+    uv2[bad] = rng.uniform(0, WIDTH, (len(bad), 2))
+    uv2 = torch.from_numpy(uv2.astype(np.float32))
+    valid = torch.ones(n, dtype=torch.bool)
+    sets = two_view._sample_minimal_sets(valid, 256, torch.Generator().manual_seed(0))
+    on_cpu = two_view.initialize_two_view(cam, uv1, uv2, valid, sets=sets)
+    card = lambda: two_view.initialize_two_view(  # noqa: E731
+        cam, uv1.cuda(), uv2.cuda(), valid.cuda(), sets=sets.cuda())
+    on_card = card()
+    torch.cuda.synchronize()
+    n_c, n_h = int(on_card.n_good), int(on_cpu.n_good)
+    dT = float((on_card.Tcw2.cpu() - on_cpu.Tcw2).abs().max())
+    print(f"[two-view] {n} correspondences, 256 hypotheses: card success "
+          f"{bool(on_card.success)}, homography {bool(on_card.used_homography)}, n_good {n_c}; "
+          f"CPU success {bool(on_cpu.success)}, homography {bool(on_cpu.used_homography)}, "
+          f"n_good {n_h}; max |Tcw2 difference| {dT:.2e}")
+    require(bool(on_card.success) and bool(on_cpu.success), "two-view: did not initialize")
+    require(bool(on_card.used_homography) == bool(on_cpu.used_homography),
+            "two-view: the card and the CPU chose different models")
+    require(abs(n_c - n_h) <= 0.02 * n_h, f"two-view: n_good {n_c} on the card, {n_h} on the CPU")
+    require(dT <= 1e-3, f"two-view: poses differ by {dT}")
+    ms = _event_time_ms(card, reps=3)
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def sym(*shape):
+        a = torch.randn(*shape, device="cuda", generator=g)
+        return a @ a.transpose(-1, -2)
+
+    a9, a4, a3 = sym(256, 9, 9), sym(8 * n, 4, 4), torch.randn(256, 3, 3, device="cuda",
+                                                                generator=g)
+    t9 = _event_time_ms(lambda: torch.linalg.eigh(a9))
+    t4 = _event_time_ms(lambda: torch.linalg.eigh(a4))
+    t3 = _event_time_ms(lambda: torch.linalg.svd(a3))
+    print(f"[two-view] initialize_two_view on the card {ms:.1f} ms per call (CUDA events; host-"
+          f"bound); library {torch.backends.cuda.preferred_linalg_library()}: eigh [256, 9, 9] "
+          f"{t9:.3f} ms (H and F hypotheses), eigh [{8 * n}, 4, 4] {t4:.3f} ms (triangulation "
+          f"under the 8 motions of H), svd [256, 3, 3] {t3:.3f} ms (rank-2 projection)")
+    return ms
+
+
+def phase_path5(seq, kernels, vocab):
+    """Mono: the RGB-D sequence's images through track_batch_mono, in two
+    calls: the first bootstraps on the per-frame path (doubled feature
+    budget) and streams the rest of its 9 frames, the second streams 32."""
+    import torch
+
+    from self_commit_orb_slam2_tpu_torch.models import mono_init, pipeline, relocalization
+    from self_commit_orb_slam2_tpu_torch.models.system import STATE_OK, System
+    from self_commit_orb_slam2_tpu_torch.utils.evaluation import ate_rmse
+
+    label, first = "path 5", 1 + 2 * CHUNK
+    cfg = _sensor_config("mono", WIDTH, HEIGHT, FX, 0.0, N_FEATURES, vocab,
+                         max_frames_between_kf=8, kf_ref_ratio_stereo=0.8)
+    slam = System(cfg, enable_mapping=True, enable_loop_closing=False)
+    images, ts = _u8(seq.images[:N_MONO]), seq.timestamps[:N_MONO]
+    attempt_s = []
+    inner = mono_init.try_initialize
+
+    def timed_try(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = inner(*args, **kw)
+        torch.cuda.synchronize()
+        attempt_s.append(time.perf_counter() - t0)
+        return res
+
+    mono_init.try_initialize = timed_try
+    try:
+        with pipeline.timed_mapping_passes() as pass_s:
+            for k in kernels.values():
+                k.launches = 0
+            relocalization.reset_counts()
+            slam.track_batch_mono(images[:first], ts[:first], chunk=CHUNK)
+            torch.cuda.synchronize()
+            require(slam.state == STATE_OK, f"{label}: no map after {first} frames")
+            t0 = time.perf_counter()
+            slam.track_batch_mono(images[first:], ts[first:], chunk=CHUNK)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = {k.name: k.launches for k in kernels.values()}
+            attempts, _ = relocalization.counts()
+    finally:
+        mono_init.try_initialize = inner
+    fps = (N_MONO - first) / dt
+    _, est = slam.get_trajectory()
+    lag = N_MONO - len(est)
+    require(np.all(np.isfinite(est)), f"{label}: non-finite poses")
+    ate = float(ate_rmse(est, seq.poses_gt[lag:N_MONO], with_scale=True))
+    n_kf, n_pt = slam.n_keyframes(), slam.n_points()
+    print(f"[{label}] {N_MONO} frames {WIDTH}x{HEIGHT} mono, {N_FEATURES} features ("
+          f"{slam._ini_config.orb.n_features} while bootstrapping), vocabulary loaded, mapping "
+          f"on, chunk {CHUNK}: initialized after {lag + 1} frames ({len(attempt_s)} attempts, "
+          f"{np.mean(attempt_s) * 1e3:.1f} ms per attempt, host clock, synced), state "
+          f"{slam.state}, keyframes {n_kf}, points {n_pt}, Sim3-aligned ATE {ate:.6f} m, "
+          f"relocalization attempts {attempts}")
+    print(f"[{label}] steady stream: {N_MONO - first} frames in {dt:.3f} s = {fps:.2f} frames/s "
+          f"(host clock, synced); mapping passes {len(pass_s)}, mean "
+          f"{np.mean(pass_s) * 1e3:.1f} ms; launches {launches}")
+    require(lag <= 6, f"{label}: the map took {lag + 1} frames to initialize")
+    require(slam.state == STATE_OK, f"{label}: tracking lost")
+    require(n_kf >= 3, f"{label}: only {n_kf} keyframes")
+    require(ate < 0.06, f"{label}: Sim3-aligned ATE {ate:.6f} m >= 0.06 m")
+    require(slam.map.kf_xy.shape[1] == cfg.orb.feat_capacity(),
+            f"{label}: map rows carry the bootstrap capacity")
+    n_boot = lag + 1    # frames the bootstrap consumed, one extraction each
+    want = n_boot + -(-(first - n_boot) // CHUNK) + (N_MONO - first) // CHUNK
+    require(launches == {"fast_band": want, "fast_nms": 0},
+            f"{label}: launches {launches}, want fast_band {want}, fast_nms 0")
+    return want, fps, ate, float(np.mean(attempt_s) * 1e3), lag + 1
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     try:
@@ -630,7 +988,8 @@ def main() -> int:
             import self_commit_orb_slam2_tpu_torch  # noqa: F401
         except ImportError as exc:
             raise PhaseError(f"the port's package is missing beside this script ({exc})")
-        from self_commit_orb_slam2_tpu_torch.utils.synthetic import generate_sequence
+        from self_commit_orb_slam2_tpu_torch.utils.synthetic import (
+            euroc_like_sequence, generate_sequence)
 
         kernels = phase_build()
         t0 = time.perf_counter()
@@ -651,11 +1010,47 @@ def main() -> int:
         results["fast_nms"]["launches_path3"] = 0
         summary.append(f"path 3 {fps3:.2f} frames/s, ATE {ate3:.6f} m, BoW of a frame "
                        f"{bow_ms:.3f} ms, one relocalization {reloc_ms:.1f} ms")
+
+        t0 = time.perf_counter()
+        kitti = generate_sequence(n_frames=N_KITTI, width=KITTI["width"],
+                                  height=KITTI["height"], fx=KITTI["fx"], seed=5,
+                                  stereo_baseline=KITTI["baseline"])
+        t1 = time.perf_counter()
+        euroc, euroc_maps = euroc_like_sequence(N_EUROC, EUROC["width"], EUROC["height"],
+                                                EUROC["fx"], EUROC["baseline"])
+        print(f"[data] stereo pairs: {N_KITTI} at {KITTI['width']}x{KITTI['height']} in "
+              f"{t1 - t0:.1f} s, {N_EUROC} raw at {EUROC['width']}x{EUROC['height']} in "
+              f"{time.perf_counter() - t1:.1f} s (host)")
+        band = results["fast_band"]
+        phase_band_shapes(kitti, euroc, euroc_maps, band)
+        match_ms, share = phase_stereo_matcher(kitti)
+        n4a, fps4a, ate4a, pass4a = phase_path_stereo(
+            "path 4a", kitti, _sensor_config("stereo", vocab=vocab, max_frames_between_kf=10,
+                                             **KITTI), N_KITTI, 0.01, kernels)
+        n4b, fps4b, ate4b, _ = phase_path_stereo(
+            "path 4b", euroc, _sensor_config("stereo", vocab=vocab, rect_maps=euroc_maps,
+                                             max_frames_between_kf=10, **EUROC),
+            N_EUROC - N_EUROC_PER_FRAME, 0.02, kernels)
+        summary.append(f"path 4a {fps4a:.2f} frames/s, ATE {ate4a:.6f} m, {pass4a:.1f} ms per "
+                       f"mapping pass, match_stereo {match_ms / CHUNK:.3f} ms per frame, depth "
+                       f"on {share:.3f} of the keypoints; path 4b {fps4b:.2f} frames/s, ATE "
+                       f"{ate4b:.6f} m")
+        two_view_ms = phase_two_view()
+        n5, fps5, ate5, attempt_ms, n_init = phase_path5(seq, kernels, vocab)
+        summary.append(f"two-view {two_view_ms:.1f} ms; path 5 {fps5:.2f} frames/s, Sim3 ATE "
+                       f"{ate5:.6f} m, initialized after {n_init} frames, {attempt_ms:.1f} ms "
+                       f"per bootstrap attempt")
+        for row in results.values():
+            row.setdefault("shapes", [])
+            own = row["name"] == "fast_band"
+            row.update(launches_path4a=n4a if own else 0, launches_path4b=n4b if own else 0,
+                       launches_path5=n5 if own else 0)
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_path3")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_path3",
+            "launches_path4a", "launches_path4b", "launches_path5", "shapes")
     print(f"[summary] {card}: {'; '.join(summary)}")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results.values()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -2,7 +2,7 @@
 
 Counterpart of the JAX package's models/config.py (reference settings file
 + constants, src/Tracking.cc:93-218): the same names and defaults for the
-fields this slice reads; later slices add the rest.
+fields the ported paths read; later slices add the rest.
 """
 
 from __future__ import annotations
@@ -47,6 +47,7 @@ class TrackingConfig(NamedTuple):
     min_frames_between_kf: int = 0
     max_frames_between_kf: int = 30
     kf_ref_ratio_stereo: float = 0.75
+    kf_ref_ratio_mono: float = 0.9
     kf_min_close_points: int = 100
     kf_min_new_close: int = 70
     kf_attrition_ratio: float = 0.6
@@ -61,6 +62,15 @@ class TrackingConfig(NamedTuple):
     min_init_depth_points: int = 100
     # RGB-D u_right information weight (sigma_ur = 1/sqrt(w) px)
     rgbd_ur_weight: float = 25.0
+    # Monocular initialization gates.  The reference demands >= 100 matches
+    # with its doubled init extractor (2x nFeatures, Tracking.cc:121); these
+    # scale to the configured feature budget.
+    mono_init_min_matches: int = 60
+    mono_init_min_points: int = 40
+    mono_init_min_parallax: float = 2.0  # degrees; reject low-baseline inits
+    # mono keyframes must come faster: no depth seeds new points (reference
+    # thRefRatio = 0.9 for mono against 0.75 for stereo, Tracking.cc:1575)
+    kf_attrition_ratio_mono: float = 0.9
     # Keyframe culling: a covisible keyframe whose points are >= this share
     # observed by >= 3 other keyframes is retired (reference
     # LocalMapping::KeyFrameCulling 0.9, src/LocalMapping.cc:952)
@@ -72,11 +82,18 @@ class SlamConfig(NamedTuple):
     orb: OrbConfig = OrbConfig()
     caps: Capacities = Capacities()
     tracking: TrackingConfig = TrackingConfig()
-    sensor: str = "rgbd"       # only "rgbd" is ported
+    sensor: str = "rgbd"       # "mono" | "stereo" | "rgbd"
     depth_map_factor: float = 1.0
     # Trained BoW vocabulary (ops/bow.py) for relocalization; None disables
     # place recognition.  The System moves it to its device at construction.
     vocab: object = None
+    # Stereo undistort-rectify maps (mx_l, my_l, mx_r, my_r), float32 [H, W]
+    # each (numpy or torch), applied on the device to both eyes before
+    # extraction (the reference's EuRoC path remaps with cv::remap before
+    # tracking, Examples/Stereo/stereo_euroc.cc:45-80; maps from
+    # utils/rectify.init_undistort_rectify_map).  None: the input is already
+    # rectified.  The System moves them to its device at construction.
+    rect_maps: object = None
 
     @property
     def ur_weight(self) -> float:

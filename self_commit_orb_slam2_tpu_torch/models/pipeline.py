@@ -1,7 +1,8 @@
-"""Per-frame SLAM step and the chunked RGB-D stream.
+"""Per-frame SLAM step and the chunked stream, for the three sensors.
 
 Counterpart of the JAX package's models/pipeline.py: a chunk of frames is
-built through one batched extraction chain (frames_rgbd_packed), then the
+built through one batched extraction chain (frames_rgbd_packed,
+frames_stereo_packed or frames_mono_packed), then the
 tracking steps run in order over it (batch_steps_frames -> track_step):
 dual-hypothesis motion tracking, local-map tracking, the keyframe decision,
 keyframe insertion and, with run_mapping, the local-mapping pass.  The JAX
@@ -116,7 +117,9 @@ def _need_keyframe(config: SlamConfig, m: MapState, carry: TrackCarry,
     c1 = frames_since >= cfg.max_frames_between_kf
     c2 = overlap < cfg.kf_ref_ratio_stereo
     c3 = (n_close_tracked < cfg.kf_min_close_points) & (n_close_new > cfg.kf_min_new_close)
-    c4 = n_inl < (cfg.kf_attrition_ratio * carry.prev_inliers.to(torch.float32))
+    attrition = (cfg.kf_attrition_ratio_mono if config.sensor == "mono"
+                 else cfg.kf_attrition_ratio)
+    c4 = n_inl < (attrition * carry.prev_inliers.to(torch.float32))
     capacity_ok = ~torch.all(m.kf_valid)  # a free slot exists
     need = (c1 | c2 | c3 | c4) & (n_inl >= 15) & capacity_ok
     return need & (frames_since >= cfg.min_frames_between_kf)
@@ -330,17 +333,25 @@ def unpack_infos(arr: np.ndarray) -> StepInfo:
     )
 
 
+def _pack(planes: list, ts_f32, valid_b) -> np.ndarray:
+    """[B, bytes] uint8: the byte planes, then [4 ts f32][4 valid u8]."""
+    B = planes[0].shape[0]
+    return np.concatenate(
+        [p.reshape(B, -1) for p in planes]
+        + [np.asarray(ts_f32, "<f4").view(np.uint8).reshape(B, 4),
+           np.repeat(valid_b.astype(np.uint8)[:, None], 4, axis=1)], axis=1)
+
+
+def _unpack_tail(buf: torch.Tensor, offset: int):
+    """(ts [B] float32, valid [B] bool) stored at `offset` of a packed chunk."""
+    ts = buf[:, offset: offset + 4].contiguous().view(torch.float32)[:, 0]
+    return ts, buf[:, offset + 4] > 0
+
+
 def pack_rgbd_chunk(images_u8, depths_mm_u16, ts_f32, valid_b) -> np.ndarray:
     """Host-side packer: per frame [H*W image u8][H*W*2 depth u16 LE]
     [4 ts f32][4 valid u8] (the JAX package's layout)."""
-    B = images_u8.shape[0]
-    parts = [
-        images_u8.reshape(B, -1),
-        depths_mm_u16.astype("<u2").view(np.uint8).reshape(B, -1),
-        np.asarray(ts_f32, "<f4").view(np.uint8).reshape(B, 4),
-        np.repeat(valid_b.astype(np.uint8)[:, None], 4, axis=1),
-    ]
-    return np.concatenate(parts, axis=1)
+    return _pack([images_u8, depths_mm_u16.astype("<u2").view(np.uint8)], ts_f32, valid_b)
 
 
 def frames_rgbd_packed(config: SlamConfig, buf: torch.Tensor):
@@ -353,12 +364,41 @@ def frames_rgbd_packed(config: SlamConfig, buf: torch.Tensor):
     images = buf[:, : H * W].reshape(B, H, W).to(torch.float32)
     d = buf[:, H * W: 3 * H * W].reshape(B, H, W, 2).to(torch.int32)
     depth_mm = d[..., 0] | (d[..., 1] << 8)
-    ts = buf[:, 3 * H * W: 3 * H * W + 4].contiguous().view(torch.float32)[:, 0]
-    valid = buf[:, 3 * H * W + 4] > 0
+    ts, valid = _unpack_tail(buf, 3 * H * W)
     frames = frame_mod.make_frames_rgbd_batch(
         config, images, depth_mm.to(torch.float32) * torch.tensor(
             1e-3, dtype=torch.float32, device=buf.device))
     return frames, ts, valid
+
+
+def pack_stereo_chunk(il_u8, ir_u8, ts_f32, valid_b) -> np.ndarray:
+    """Host-side packer: per frame [H*W left u8][H*W right u8][4 ts f32]
+    [4 valid u8] (the JAX package's layout)."""
+    return _pack([il_u8, ir_u8], ts_f32, valid_b)
+
+
+def frames_stereo_packed(config: SlamConfig, buf: torch.Tensor):
+    """Stereo variant of frames_rgbd_packed (layout of pack_stereo_chunk)."""
+    H, W = int(config.camera.height), int(config.camera.width)
+    B = buf.shape[0]
+    il = buf[:, : H * W].reshape(B, H, W).to(torch.float32)
+    ir = buf[:, H * W: 2 * H * W].reshape(B, H, W).to(torch.float32)
+    ts, valid = _unpack_tail(buf, 2 * H * W)
+    return frame_mod.make_frames_stereo_batch(config, il, ir), ts, valid
+
+
+def pack_mono_chunk(images_u8, ts_f32, valid_b) -> np.ndarray:
+    """Host-side packer: per frame [H*W image u8][4 ts f32][4 valid u8]."""
+    return _pack([images_u8], ts_f32, valid_b)
+
+
+def frames_mono_packed(config: SlamConfig, buf: torch.Tensor):
+    """Mono variant of frames_rgbd_packed (layout of pack_mono_chunk)."""
+    H, W = int(config.camera.height), int(config.camera.width)
+    B = buf.shape[0]
+    images = buf[:, : H * W].reshape(B, H, W).to(torch.float32)
+    ts, valid = _unpack_tail(buf, H * W)
+    return frame_mod.make_frames_mono_batch(config, images), ts, valid
 
 
 def batch_steps_frames(config: SlamConfig, m: MapState, carry: TrackCarry,
@@ -382,10 +422,53 @@ def batch_steps_frames(config: SlamConfig, m: MapState, carry: TrackCarry,
     return m, carry, pack_infos(infos)
 
 
+def batch_steps_rgbd_packed(config: SlamConfig, m: MapState, carry: TrackCarry,
+                            buf: torch.Tensor, run_mapping: bool = True, **kw):
+    """A packed RGB-D chunk through the frame phase and the tracking steps
+    (the JAX package keeps a single-graph variant under this name; eager
+    torch has no second form to keep apart)."""
+    frames, ts, valid = frames_rgbd_packed(config, buf)
+    return batch_steps_frames(config, m, carry, frames, ts, valid, run_mapping, **kw)
+
+
+def batch_steps_stereo_packed(config: SlamConfig, m: MapState, carry: TrackCarry,
+                              buf: torch.Tensor, run_mapping: bool = True, **kw):
+    """Stereo variant of batch_steps_rgbd_packed."""
+    frames, ts, valid = frames_stereo_packed(config, buf)
+    return batch_steps_frames(config, m, carry, frames, ts, valid, run_mapping, **kw)
+
+
+def step_stereo(config: SlamConfig, m: MapState, carry: TrackCarry,
+                image_l: torch.Tensor, image_r: torch.Tensor, timestamp,
+                run_mapping: bool = True, **kw):
+    """One stereo frame built and tracked; keywords as track_step's."""
+    frame = frame_mod.make_frame_stereo(config, image_l.to(torch.float32),
+                                        image_r.to(torch.float32))
+    return track_step(config, m, carry, frame, timestamp, run_mapping, **kw)
+
+
+def step_mono(config: SlamConfig, m: MapState, carry: TrackCarry,
+              image: torch.Tensor, timestamp, run_mapping: bool = True, **kw):
+    """One monocular frame built and tracked; keywords as track_step's."""
+    frame = frame_mod.make_frame_mono(config, image.to(torch.float32))
+    return track_step(config, m, carry, frame, timestamp, run_mapping, **kw)
+
+
 def init_rgbd(config: SlamConfig, m: MapState, image: torch.Tensor,
               depth: torch.Tensor, timestamp):
     """First-frame initialization -> (map, carry, number of depth features)."""
-    frame = frame_mod.make_frame_rgbd(config, image, depth)
+    return _init_depth(config, m, frame_mod.make_frame_rgbd(config, image, depth),
+                       timestamp)
+
+
+def init_stereo(config: SlamConfig, m: MapState, image_l: torch.Tensor,
+                image_r: torch.Tensor, timestamp):
+    """First stereo pair -> (map, carry, number of matched features)."""
+    return _init_depth(config, m, frame_mod.make_frame_stereo(config, image_l, image_r),
+                       timestamp)
+
+
+def _init_depth(config: SlamConfig, m: MapState, frame: FrameData, timestamp):
     dev = frame.xy.device
     m, kf_id = tracking.initialize_depth(config, m, frame,
                                          _scalar(0, torch.int32, dev), timestamp)

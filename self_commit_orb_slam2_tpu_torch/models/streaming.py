@@ -1,10 +1,13 @@
 """Persistent chunked streaming session over a live System.
 
 Counterpart of the JAX package's models/streaming.py::StreamSession for the
-RGB-D sensor with the loop closer off (local mapping, the vocabulary and
-localization mode as the System says): feed() frames for the lifetime of a run; every full chunk goes to the device as one packed buffer, is built
+three sensors with the loop closer off (local mapping, the vocabulary and
+localization mode as the System says): feed() frames for the lifetime of a
+run; every full chunk goes to the device as one packed buffer, is built
 through one extraction chain and tracked frame by frame; finish() flushes the
-padded tail and records the trajectory.  (The reference analogue is the
+padded tail and records the trajectory.  Before the map exists the leading
+frames go through the per-frame path: one for RGB-D and stereo, as many as
+the two-view bootstrap takes for mono.  (The reference analogue is the
 standing Tracking thread and its queues, src/System.cc:116-145.)
 """
 
@@ -21,16 +24,24 @@ STATE_NOT_INITIALIZED = 0
 STATE_OK = 1
 STATE_LOST = 2
 
+# sensor -> (host-side chunk packer, device-side frame phase)
+_SENSORS = {
+    "rgbd": (pipeline.pack_rgbd_chunk, pipeline.frames_rgbd_packed),
+    "stereo": (pipeline.pack_stereo_chunk, pipeline.frames_stereo_packed),
+    "mono": (pipeline.pack_mono_chunk, pipeline.frames_mono_packed),
+}
+
 
 class StreamSession:
-    """One live stream of RGB-D frames into a System.  Not thread-safe; at
-    most one session may be active per System (chunks update its map)."""
+    """One live stream of frames into a System.  Not thread-safe; at most
+    one session may be active per System (chunks update its map)."""
 
     def __init__(self, system, sensor: str, chunk: Optional[int] = None):
-        if sensor != "rgbd":
-            raise NotImplementedError(f"sensor {sensor!r}: only 'rgbd' is ported")
+        if sensor not in _SENSORS:
+            raise ValueError(f"unknown sensor {sensor!r}")
         self.sys = system
         self.sensor = sensor
+        self.pack, self.frame_fn = _SENSORS[sensor]
         self.C = int(chunk or system._batch_chunk)
         self.loc = system.localization_only  # frozen at open
         self._tail: list | None = None    # frames that do not yet fill a chunk
@@ -40,21 +51,28 @@ class StreamSession:
         self.n_fed = 0
 
     def feed(self, arrays: tuple, timestamps) -> None:
-        """Queue frames: (images [B, H, W] uint8, depths [B, H, W] uint16 mm)
-        and [B] timestamps.  Dispatches every full chunk; the first frame of
-        a new map initializes it."""
+        """Queue frames and [B] timestamps.  `arrays` holds [B, H, W] host
+        arrays: (images uint8, depths uint16 mm) for rgbd, (left, right)
+        uint8 for stereo, (images,) uint8 for mono.  Dispatches every full
+        chunk; the leading frames of a new map initialize it."""
         ts = np.asarray(timestamps, np.float64).reshape(-1)
         arrays = tuple(np.asarray(a) for a in arrays)
         i0 = 0
         if (self.sys.state == STATE_NOT_INITIALIZED and self.n_fed == 0
-                and self._tail is None and len(ts)):
-            image = torch.from_numpy(arrays[0][0].astype(np.float32))
-            depth = torch.from_numpy(arrays[1][0].astype(np.float32)
-                                     * np.float32(1e-3))
-            self.sys._track(image, depth, float(ts[0]))
+                and self._tail is None):
+            # bootstrap through the per-frame path: one frame for stereo and
+            # RGB-D, possibly several for the monocular two-view
+            # initialization (which restarts until the parallax suffices)
+            while self.sys.state == STATE_NOT_INITIALIZED and i0 < len(ts):
+                first = tuple(
+                    torch.from_numpy(a[i0].astype(np.float32) * np.float32(
+                        1e-3 if a.dtype == np.uint16 else 1.0)) for a in arrays)
+                self.sys._track(self.sensor, first, float(ts[i0]))
+                i0 += 1
+                if self.sensor != "mono" and self.sys.state == STATE_NOT_INITIALIZED:
+                    raise RuntimeError("initialization failed on first frame")
             if self.sys.state == STATE_NOT_INITIALIZED:
-                raise RuntimeError("initialization failed on first frame")
-            i0 = 1
+                return  # mono: keep bootstrapping on the next feed
         if i0 >= len(ts):
             return
         if self._tail is None:
@@ -80,12 +98,12 @@ class StreamSession:
             ts = list(ts) + [ts[-1]] * pad
         valid = np.zeros(self.C, bool)
         valid[:n_live] = True
-        buf = pipeline.pack_rgbd_chunk(*arrs, np.asarray(ts, np.float32), valid)
+        buf = self.pack(*arrs, np.asarray(ts, np.float32), valid)
         return torch.from_numpy(buf).to(self.sys.device)
 
     def _dispatch(self, buf: torch.Tensor, ts_live: list) -> None:
         cfg = self.sys.config
-        frames, ts, valid = pipeline.frames_rgbd_packed(cfg, buf)
+        frames, ts, valid = self.frame_fn(cfg, buf)
         self.sys.map, self.sys.carry, packed = pipeline.batch_steps_frames(
             cfg, self.sys.map, self.sys.carry, frames, ts, valid,
             self.sys.enable_mapping, localization_only=self.loc,

@@ -1,10 +1,11 @@
-"""Public API + host-side state machine, RGB-D surface.
+"""Public API + host-side state machine for the three sensors.
 
 Counterpart of the JAX package's models/system.py (reference System,
 src/System.cc, and the NOT_INITIALIZED/OK/LOST machine of Tracking,
 Tracking.cc:419-786).  The ported configurations run loop closing off,
 local mapping on or off and the vocabulary loaded or not:
-System(cfg, enable_mapping=..., enable_loop_closing=False).  With
+System(cfg, enable_mapping=..., enable_loop_closing=False), with
+cfg.sensor "rgbd", "stereo" (cfg.rect_maps optional) or "mono".  With
 cfg.vocab = bow.load_vocabulary(bow.default_vocab_path()) keyframes carry
 BoW rows, a lost tracker relocalizes (inside a streamed chunk, and after a
 per-frame step) and localization mode is available.
@@ -22,11 +23,12 @@ import torch
 
 from ..utils import trajectory as traj_io
 from . import checkpoint
+from . import frame as frame_mod
 from . import map_state as ms
+from . import mono_init
 from . import pipeline
 from . import relocalization
 from .config import SlamConfig
-from .frame import make_frame_rgbd
 from .streaming import STATE_LOST, STATE_NOT_INITIALIZED, STATE_OK, StreamSession
 
 __all__ = ["System", "resolve_device", "STATE_NOT_INITIALIZED", "STATE_OK",
@@ -45,9 +47,23 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def _f32(image) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(image, np.float32))
+
+
+def _u8(images) -> np.ndarray:
+    return np.clip(images, 0, 255).astype(np.uint8)
+
+
+_FRAME_BUILDERS = {"rgbd": frame_mod.make_frame_rgbd,
+                   "stereo": frame_mod.make_frame_stereo,
+                   "mono": frame_mod.make_frame_mono}
+
+
 class System:
-    """RGB-D SLAM engine (reference System.h: TrackRGBD, Reset, trajectory
-    savers) with the chunked streaming API."""
+    """SLAM engine (reference System.h: TrackMonocular / TrackStereo /
+    TrackRGBD, localization-mode switch, Reset, trajectory savers) with the
+    chunked streaming API."""
 
     def __init__(self, config: SlamConfig, enable_mapping: bool = True,
                  enable_loop_closing: bool = True, device=None):
@@ -55,11 +71,20 @@ class System:
         if enable_loop_closing:
             raise NotImplementedError(
                 "loop closing is not ported yet: pass enable_loop_closing=False")
-        if config.sensor != "rgbd":
-            raise NotImplementedError(f"sensor {config.sensor!r}: only 'rgbd' is ported")
+        if config.sensor not in ("rgbd", "stereo", "mono"):
+            raise ValueError(f"unknown sensor {config.sensor!r}")
         if config.vocab is not None:  # the whole tree lives on the engine's device
             config = config._replace(vocab=config.vocab.to(self.device))
+        if config.rect_maps is not None:  # so do the rectification maps
+            config = config._replace(rect_maps=tuple(
+                torch.as_tensor(a, dtype=torch.float32).to(self.device)
+                for a in config.rect_maps))
         self.config = config
+        # Doubled feature budget before the monocular map exists (reference
+        # mpIniORBextractor = 2x nFeatures, src/Tracking.cc:121-124):
+        # bootstrap frames carry 2N candidates, try_initialize keeps the N best.
+        self._ini_config = config._replace(orb=config.orb._replace(
+            n_features=2 * config.orb.n_features))
         self.enable_mapping = enable_mapping
         self.localization_only = False
         # localization-mode "tracking on VO points, map support lost" flag
@@ -69,6 +94,8 @@ class System:
         # track_step, one for the host-side attempt after a LOST per-frame step
         self._stream_gen = torch.Generator(device=self.device).manual_seed(23)
         self._reloc_gen = torch.Generator(device=self.device).manual_seed(0)
+        # and one for the two-view RANSAC of the monocular bootstrap
+        self._mono_gen = torch.Generator(device=self.device).manual_seed(11)
         self._batch_chunk = 4  # frames per streamed chunk (the JAX package's default)
         self.reset()
 
@@ -76,8 +103,20 @@ class System:
 
     def track_rgbd(self, image: np.ndarray, depth: np.ndarray, timestamp: float) -> np.ndarray:
         """One frame: [H, W] grayscale (0..255) and depth in metres."""
-        return self._track(torch.as_tensor(np.asarray(image, np.float32)),
-                           torch.as_tensor(np.asarray(depth, np.float32)), timestamp)
+        return self._track("rgbd", (_f32(image), _f32(depth)), timestamp)
+
+    def track_stereo(self, image_l: np.ndarray, image_r: np.ndarray,
+                     timestamp: float) -> np.ndarray:
+        """One stereo pair of [H, W] grayscale images (reference
+        System::TrackStereo); raw eyes when config.rect_maps is set."""
+        return self._track("stereo", (_f32(image_l), _f32(image_r)), timestamp)
+
+    def track_monocular(self, image: np.ndarray, timestamp: float) -> np.ndarray:
+        """One [H, W] grayscale image (reference System::TrackMonocular,
+        src/System.cc:292).  Until the two-view bootstrap succeeds the pose
+        returned is the identity and no trajectory entry is kept for
+        get_trajectory()."""
+        return self._track("mono", (_f32(image),), timestamp)
 
     def track_batch_rgbd(self, images: np.ndarray, depths: np.ndarray,
                          timestamps: np.ndarray,
@@ -85,8 +124,26 @@ class System:
         """Throughput mode: stream a frame batch in fixed-size chunks (the
         first frame initializes the map if needed).  Returns [B, 4, 4] poses."""
         depths_mm = np.clip(np.asarray(depths) * 1e3, 0, 65535).astype(np.uint16)
-        sess = self.open_stream("rgbd", chunk)
-        sess.feed((np.clip(images, 0, 255).astype(np.uint8), depths_mm), timestamps)
+        return self._track_batch("rgbd", (_u8(images), depths_mm), timestamps, chunk)
+
+    def track_batch_stereo(self, images_l: np.ndarray, images_r: np.ndarray,
+                           timestamps: np.ndarray,
+                           chunk: Optional[int] = None) -> np.ndarray:
+        """Stereo throughput mode (see track_batch_rgbd)."""
+        return self._track_batch("stereo", (_u8(images_l), _u8(images_r)), timestamps, chunk)
+
+    def track_batch_mono(self, images: np.ndarray, timestamps: np.ndarray,
+                         chunk: Optional[int] = None) -> np.ndarray:
+        """Monocular throughput mode (see track_batch_rgbd).  The two-view
+        bootstrap runs through the per-frame path until the map initializes
+        (possibly consuming several leading frames); the rest stream in
+        chunks, and only their poses are returned."""
+        return self._track_batch("mono", (_u8(images),), timestamps, chunk)
+
+    def _track_batch(self, sensor: str, arrays: tuple, timestamps,
+                     chunk: Optional[int]) -> np.ndarray:
+        sess = self.open_stream(sensor, chunk)
+        sess.feed(arrays, timestamps)
         poses = sess.finish()
         return poses if len(poses) else np.asarray(self.Tcw)[None]
 
@@ -124,6 +181,8 @@ class System:
         # keyframes' current poses at save time (reference SaveTrajectoryTUM)
         self._rel_trajectory: list[tuple[float, int, np.ndarray]] = []
         self.Tcw = np.eye(4, dtype=np.float32)
+        self._mono_first: Optional[frame_mod.FrameData] = None  # awaiting a second view
+        self._mono_first_ts = 0.0
 
     def get_trajectory(self) -> tuple[np.ndarray, np.ndarray]:
         """(timestamps, poses_cw): each frame's T_cr composed with its
@@ -196,12 +255,16 @@ class System:
         self.Tcw = reloc.Tcw.cpu().numpy()
         self.state = STATE_OK
 
-    def _track(self, image: torch.Tensor, depth: torch.Tensor, timestamp: float) -> np.ndarray:
-        image = image.to(self.device)
-        depth = depth.to(self.device)
+    def _track(self, sensor: str, images: tuple, timestamp: float) -> np.ndarray:
+        """One frame of `sensor`: images is (image, depth in metres) for
+        rgbd, (left, right) for stereo, (image,) for mono, float32 [H, W]."""
+        images = tuple(a.to(self.device) for a in images)
         ts = torch.tensor(timestamp, dtype=torch.float32, device=self.device)
+        if self.state == STATE_NOT_INITIALIZED and sensor == "mono":
+            return self._mono_initialize(images[0], timestamp)
         if self.state == STATE_NOT_INITIALIZED:
-            m, carry, n_depth = pipeline.init_rgbd(self.config, self.map, image, depth, ts)
+            init = pipeline.init_rgbd if sensor == "rgbd" else pipeline.init_stereo
+            m, carry, n_depth = init(self.config, self.map, *images, ts)
             if int(n_depth) >= self.config.tracking.min_init_depth_points:
                 self.map, self.carry = m, carry
                 self.state = STATE_OK
@@ -211,7 +274,7 @@ class System:
                 self.map = ms.empty_map(self.config, self.device)
                 self.carry = None
         else:
-            frame = make_frame_rgbd(self.config, image, depth)
+            frame = _FRAME_BUILDERS[sensor](self.config, *images)
             self.map, self.carry, info = pipeline.track_step(
                 self.config, self.map, self.carry, frame, ts, self.enable_mapping,
                 localization_only=self.localization_only, generator=self._stream_gen)
@@ -222,5 +285,33 @@ class System:
                 self._relocalize_last_frame()
             Tcr = self.Tcw @ np.linalg.inv(info.ref_kf_Tcw.cpu().numpy())
             self._rel_trajectory.append((timestamp, int(info.ref_kf_seq), Tcr))
+        self.trajectory.append((timestamp, self.Tcw))
+        return self.Tcw
+
+    def _mono_initialize(self, image: torch.Tensor, timestamp: float) -> np.ndarray:
+        """Two-frame monocular bootstrap (reference
+        Tracking::MonocularInitialization, src/Tracking.cc:886).  Host reads:
+        the feature count, then (success, matches) in one transfer."""
+        frame = frame_mod.make_frame_mono(self._ini_config, image)
+        enough = int(torch.sum(frame.valid)) >= 100
+        if self._mono_first is None or not enough:
+            self._mono_first = frame if enough else None
+            self._mono_first_ts = timestamp
+        else:
+            res = mono_init.try_initialize(
+                self.config, self.map, self._mono_first, frame, self._mono_first_ts,
+                timestamp, len(self.trajectory), self._mono_gen)
+            if res.success:
+                self.map, self.carry = res.m, res.carry
+                self.state = STATE_OK
+                self.Tcw = res.carry.Tcw.cpu().numpy()
+                kf2_Tcw = self.map.kf_Tcw[1].cpu().numpy()
+                self._rel_trajectory.append((timestamp, 1, self.Tcw @ np.linalg.inv(kf2_Tcw)))
+                self._mono_first = None
+            elif res.n_matches < self.config.tracking.mono_init_min_matches:
+                # too few matches: restart from the current frame (reference
+                # Tracking.cc:938-946)
+                self._mono_first = frame
+                self._mono_first_ts = timestamp
         self.trajectory.append((timestamp, self.Tcw))
         return self.Tcw

@@ -133,3 +133,13 @@ def extract_batch(images: torch.Tensor, config: OrbConfig):
         valid=rs(kps.valid),
     )
     return feats, slab
+
+
+def extract_pair(image_l: torch.Tensor, image_r: torch.Tensor, config: OrbConfig):
+    """ORB extraction for both stereo eyes ([H, W] each) through one kernel
+    chain: extract_batch at B = 2 on the stacked eyes.  Returns (feats_l,
+    feats_r, slab_l, slab_r) with no batch dim: features [N, ...] and slabs
+    [L, H0, W0], which feed the stereo SAD matcher."""
+    feats, slabs = extract_batch(torch.stack([image_l, image_r]), config)
+    return (OrbFeatures(*(x[0] for x in feats)), OrbFeatures(*(x[1] for x in feats)),
+            slabs[0], slabs[1])

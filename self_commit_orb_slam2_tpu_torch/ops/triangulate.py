@@ -4,7 +4,8 @@ Counterpart of the JAX package's ops/triangulate.py (reference
 Initializer::Triangulate, src/Initializer.cc:1461-1499, and the gates of
 LocalMapping::CreateNewMapPoints, src/LocalMapping.cc:312-626).  Local
 mapping uses the inhomogeneous form (w = 1, closed-form 3x3 normal
-equations); the eigen-solver form waits for the monocular slice.
+equations); the monocular bootstrap uses the homogeneous form (null vector
+of the 4x4 system through eigh).
 """
 
 from __future__ import annotations
@@ -33,6 +34,21 @@ def _dlt_rows(uv1, uv2, P1, P2) -> torch.Tensor:
         uv2[..., 0, None] * P2[..., 2, :] - P2[..., 0, :],
         uv2[..., 1, None] * P2[..., 2, :] - P2[..., 1, :],
     ], dim=-2)                                           # [..., 4, 4]
+
+
+def triangulate_linear(uv1: torch.Tensor, uv2: torch.Tensor,
+                       P1: torch.Tensor, P2: torch.Tensor) -> torch.Tensor:
+    """Homogeneous DLT of pixel pairs [..., 2] under projections [..., 3, 4]
+    (reference src/Initializer.cc:1461): the null vector of the 4x4 system is
+    the eigenvector of A^T A with the smallest eigenvalue, dehomogenized.
+    Returns world points [..., 3]."""
+    rows = _dlt_rows(uv1, uv2, P1, P2)
+    AtA = torch.einsum("...ki,...kj->...ij", rows, rows)
+    _, vecs = torch.linalg.eigh(AtA)
+    x = vecs[..., :, 0]  # eigh sorts ascending
+    w = x[..., 3]
+    w = torch.where(torch.abs(w) < 1e-12, 1e-12, w)
+    return x[..., :3] / w[..., None]
 
 
 def triangulate_linear_fast(uv1: torch.Tensor, uv2: torch.Tensor,

@@ -38,11 +38,13 @@ WIDTH, HEIGHT, FX, CHUNK = 640, 480, 520.0, 4
 L2_FLUSH_BYTES = 256 << 20  # several times the H100's 50 MB L2
 
 
-def frames_slab(images_u8: np.ndarray, cfg: OrbConfig, band: bool):
+def frames_slab(images, cfg: OrbConfig, band: bool):
     """The [G*H0p, W0] slab (slices padded to 16 rows for the band kernel,
     [G*H0, W0] for the NMS kernel), H0p and the level dims extract_batch
-    gives the kernel for these frames."""
-    imgs = torch.from_numpy(images_u8.astype(np.float32)).cuda()
+    gives the kernel for these frames: [B, H, W] uint8 numpy images, or
+    float32 images already on the card."""
+    imgs = (images if isinstance(images, torch.Tensor)
+            else torch.from_numpy(images.astype(np.float32)).cuda())
     levels = pyramid.build_pyramid(imgs, cfg.n_levels, cfg.scale_factor)
     dims = tuple(tuple(l.shape[-2:]) for l in levels)
     slab = pyramid.stack_slab_batch(levels)

@@ -336,3 +336,52 @@ def generate_sequence(
         timestamps=np.arange(n_frames, dtype=np.float64) / 30.0,
         right_images=np.stack(rights) if rights else None,
     )
+
+
+def _rotvec(v) -> np.ndarray:
+    """Rotation matrix of a rotation vector (Rodrigues)."""
+    th = np.linalg.norm(v)
+    if th < 1e-12:
+        return np.eye(3)
+    k = np.asarray(v) / th
+    Kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(th) * Kx + (1 - np.cos(th)) * Kx @ Kx
+
+
+def euroc_like_sequence(n_frames: int, width: int, height: int, fx: float,
+                        baseline: float, seed: int = 5,
+                        rot_l=(0.004, -0.009, 0.003), rot_r=(-0.006, 0.007, -0.002)):
+    """Synthetic EuRoC-style stereo: each raw eye is rendered with a small
+    camera-frame rotation (the misalignment real rigs have, ~0.5 degrees by
+    default), and the returned undistort-rectify maps rotate both eyes back
+    into the ideal row-aligned pair, so a run on it pays the two remaps per
+    frame of the reference's EuRoC preprocessing
+    (Examples/Stereo/stereo_euroc.cc:45-80) with exact geometry.  Distortion
+    coefficients are zero; the rotation is what makes the remap
+    load-bearing.  Returns (SyntheticSequence of raw eyes at 20 fps,
+    (mx_l, my_l, mx_r, my_r))."""
+    from .rectify import init_undistort_rectify_map
+
+    scene = make_room(np.random.default_rng(seed))
+    K = np.array([[fx, 0, width / 2], [0, fx, height / 2], [0, 0, 1.0]])
+    poses = lookat_trajectory(n_frames)
+    R_l, R_r = _rotvec(rot_l), _rotvec(rot_r)
+    T_l, T_r, T_rl = np.eye(4), np.eye(4), np.eye(4)
+    T_l[:3, :3], T_r[:3, :3], T_rl[0, 3] = R_l, R_r, -baseline
+    imgs_l = [scene.render(K, T_l @ poses[i], width, height)[0] for i in range(n_frames)]
+    imgs_r = [scene.render(K, T_r @ T_rl @ poses[i], width, height)[0]
+              for i in range(n_frames)]
+    # the rectifying rotation maps raw camera coordinates to rectified ones:
+    # x_raw = R_eye x_rect  =>  R = R_eye^T
+    D = np.zeros(4)
+    mxl, myl = init_undistort_rectify_map(K, D, R_l.T, K, width, height)
+    mxr, myr = init_undistort_rectify_map(K, D, R_r.T, K, width, height)
+    seq = SyntheticSequence(
+        images=np.stack(imgs_l),
+        depths=np.zeros((n_frames, height, width), np.float32),
+        poses_gt=np.asarray(poses, np.float32),
+        K=K.astype(np.float32),
+        timestamps=np.arange(n_frames, dtype=np.float64) / 20.0,
+        right_images=np.stack(imgs_r),
+    )
+    return seq, (mxl, myl, mxr, myr)

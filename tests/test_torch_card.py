@@ -60,6 +60,20 @@ def test_fast_band_kernel_bitwise_equals_plain(cuda, G, H0p, W0, L):
     _assert_band_kernel_equals_plain(cuda, _image("blobs", G * H0p, W0), H0p, dims)
 
 
+@pytest.mark.parametrize("kind", ["blobs", "noise", "plateaus"])
+@pytest.mark.parametrize("H0,W0", [(376, 1241), (480, 752)])
+def test_fast_band_kernel_bitwise_at_stereo_shapes(cuda, kind, H0, W0):
+    """The stereo paths' slabs: both eyes of a pair, 16 slices.  376 rows
+    are padded to 384 (the pad repeats the last row, as the extractor's
+    does), and no row of a 1241-wide slab after the first is 16-byte
+    aligned, so the kernel takes its scalar loads."""
+    L, H0p = 8, H0 + (-H0) % 16
+    dims = tuple((round(H0 / 1.2**l), round(W0 / 1.2**l)) for l in range(L))
+    img = _image(kind, 2 * L * H0, W0).reshape(2 * L, H0, W0)
+    img = img[:, np.minimum(np.arange(H0p), H0 - 1)].reshape(2 * L * H0p, W0)
+    _assert_band_kernel_equals_plain(cuda, np.ascontiguousarray(img), H0p, dims)
+
+
 @pytest.mark.parametrize("kind,min_corners", [("noise", 100), ("constant", 0),
                                               ("plateaus", 100), ("signed zeros", 100)])
 def test_fast_band_kernel_bitwise_on_hard_images(cuda, kind, min_corners):
@@ -321,3 +335,116 @@ def test_relocalize_on_card(cuda):
                                           np.zeros_like(seq.depths[0])), gen)
     torch.cuda.synchronize()
     assert not bool(res.success) and int(res.n_inliers) == 0
+
+
+def _stereo_inputs(device):
+    """Both eyes of one 640x360 pair through the extractor on `device`."""
+    from self_commit_orb_slam2_tpu_torch.ops.orb import extractor, pyramid
+    from self_commit_orb_slam2_tpu_torch.utils.synthetic import generate_sequence
+
+    seq = generate_sequence(n_frames=1, width=641, height=360, fx=400.0, seed=7,
+                            stereo_baseline=0.1)
+    cfg = extractor.OrbConfig(n_features=1000)
+    eyes = np.stack([seq.images[0], seq.right_images[0]])
+    eyes = torch.from_numpy(np.clip(eyes, 0, 255).astype(np.uint8).astype(np.float32))
+    feats, slabs = extractor.extract_batch(eyes.to(device), cfg)
+    args = ([getattr(feats, f)[:1] for f in ("xy", "level", "desc", "valid")]
+            + [getattr(feats, f)[1:] for f in ("xy", "level", "desc", "valid")]
+            + [slabs[:1], slabs[1:]])
+    dims = pyramid.level_shapes(360, 641, cfg.n_levels, cfg.scale_factor)
+    return args, torch.from_numpy(cfg.scale_factors()), dims
+
+
+def test_match_stereo_on_card_matches_cpu(cuda):
+    """The same keypoints and slabs through match_stereo on both devices:
+    the coarse search is integer work, level-0 SADs are exact, above it the
+    sums run in another order (valid equal on >= 99.5%, u_right within
+    0.02 px, depth within 1e-3 relative)."""
+    from self_commit_orb_slam2_tpu_torch.ops.matching import stereo
+
+    args, scales, dims = _stereo_inputs(cuda)
+    bf, b = 40.0, 0.1
+    got = stereo.match_stereo(*args, bf, b, scales.to(cuda), dims)
+    ref = stereo.match_stereo(*(a.cpu() for a in args), bf, b, scales, dims)
+    v_g, v_r = got.valid[0].cpu(), ref.valid[0]
+    assert float((v_g == v_r).float().mean()) >= 0.995
+    both = v_g & v_r
+    assert int(both.sum()) > 200
+    assert float((got.u_right[0].cpu() - ref.u_right[0])[both].abs().max()) <= 0.02
+    torch.testing.assert_close(got.depth[0].cpu()[both], ref.depth[0][both], rtol=1e-3, atol=0)
+    lvl0 = both & (args[1][0].cpu() == 0)
+    assert torch.equal(got.u_right[0].cpu()[lvl0], ref.u_right[0][lvl0])
+
+
+def test_initialize_two_view_on_card_matches_cpu(cuda):
+    """The same correspondences and minimal sets on both devices: the same
+    model and verdict, n_good within 2%, pose within 1e-3; a degenerate set
+    and an empty problem lose on the card too, and do not raise."""
+    from self_commit_orb_slam2_tpu_torch.ops import se3
+    from self_commit_orb_slam2_tpu_torch.ops.camera import CameraParams
+    from self_commit_orb_slam2_tpu_torch.ops.solvers import two_view
+
+    n = 600
+    rng = np.random.default_rng(0)
+    cam = CameraParams.create(fx=400.0, fy=400.0, cx=320.0, cy=240.0)
+    T2 = se3.se3_exp(torch.tensor([0.5, 0.05, 0.1, 0.02, -0.04, 0.01])).double().numpy()
+    for planar in (False, True):
+        pts = rng.uniform(-2, 2, (n, 3))
+        pts[:, 2] = (4.0 + 0.1 * pts[:, 0] + 0.05 * pts[:, 1] if planar
+                     else pts[:, 2] + 5.0 + rng.uniform(0, 3, n))
+        pc2 = pts @ T2[:3, :3].T + T2[:3, 3]
+        uv1 = 400.0 * pts[:, :2] / pts[:, 2:] + [320.0, 240.0] + rng.normal(0, 0.3, (n, 2))
+        uv2 = 400.0 * pc2[:, :2] / pc2[:, 2:] + [320.0, 240.0] + rng.normal(0, 0.3, (n, 2))
+        uv1 = torch.from_numpy(uv1.astype(np.float32))
+        uv2 = torch.from_numpy(uv2.astype(np.float32))
+        valid = torch.ones(n, dtype=torch.bool)
+        sets = two_view._sample_minimal_sets(valid, 256, torch.Generator().manual_seed(1))
+        sets[0] = 17                                  # a repeated-point set
+        ref = two_view.initialize_two_view(cam, uv1, uv2, valid, sets=sets)
+        got = two_view.initialize_two_view(cam, uv1.to(cuda), uv2.to(cuda), valid.to(cuda),
+                                           sets=sets.to(cuda))
+        assert bool(got.success) and bool(ref.success)
+        assert bool(got.used_homography) == bool(ref.used_homography) == planar
+        assert abs(int(got.n_good) - int(ref.n_good)) <= 0.02 * int(ref.n_good)
+        torch.testing.assert_close(got.Tcw2.cpu(), ref.Tcw2, atol=1e-3, rtol=0)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    none = two_view.initialize_two_view(cam, uv1.to(cuda), uv2.to(cuda),
+                                        torch.zeros(n, dtype=torch.bool, device=cuda), gen)
+    assert not bool(none.success) and int(none.n_good) == 0
+
+
+@pytest.mark.parametrize("sensor", ["stereo", "mono"])
+def test_stereo_and_mono_systems_stream_on_card(cuda, sensor):
+    """A short stereo and a short mono run at 320x240 on the card: the band
+    kernel once per extraction call, STATE_OK, a sane trajectory."""
+    from self_commit_orb_slam2_tpu_torch.models import config
+    from self_commit_orb_slam2_tpu_torch.models.system import STATE_OK, System
+    from self_commit_orb_slam2_tpu_torch.ops.camera import CameraParams
+    from self_commit_orb_slam2_tpu_torch.ops.orb.extractor import OrbConfig
+    from self_commit_orb_slam2_tpu_torch.utils.evaluation import ate_rmse
+    from self_commit_orb_slam2_tpu_torch.utils.synthetic import generate_sequence
+
+    n = 13
+    stereo = sensor == "stereo"
+    seq = generate_sequence(n_frames=n, width=320, height=240, seed=5,
+                            stereo_baseline=0.1 if stereo else 0.0)
+    cam = CameraParams.create(fx=260.0, fy=260.0, cx=160.0, cy=120.0,
+                              bf=26.0 if stereo else 0.0, width=320, height=240)
+    cfg = config.SlamConfig(
+        camera=cam, orb=OrbConfig(n_features=700),
+        caps=config.Capacities(max_keyframes=32, max_points=8192, local_points=1024),
+        tracking=config.TrackingConfig(max_frames_between_kf=8, kf_ref_ratio_stereo=0.8),
+        sensor=sensor)
+    slam = System(cfg, enable_loop_closing=False)
+    before = fast_band.kernel.launches
+    if stereo:
+        poses = slam.track_batch_stereo(seq.images, seq.right_images, seq.timestamps)
+    else:
+        poses = slam.track_batch_mono(seq.images, seq.timestamps)
+    _, est = slam.get_trajectory()
+    lag = n - len(est)
+    assert slam.map.kf_Tcw.device.type == cuda.type
+    assert slam.state == STATE_OK and lag <= (0 if stereo else 6)
+    assert len(poses) == len(est) - 1
+    assert fast_band.kernel.launches - before == (lag + 1) + -(-len(poses) // 4)
+    assert ate_rmse(est, seq.poses_gt[lag:], with_scale=not stereo) < 0.05

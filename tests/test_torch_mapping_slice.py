@@ -12,6 +12,7 @@ initialization.
 
 import numpy as np
 import pytest
+import torch
 
 from self_commit_orb_slam2_tpu.models import config as jconfig
 from self_commit_orb_slam2_tpu.models import system as jsystem
@@ -23,6 +24,11 @@ from self_commit_orb_slam2_tpu_torch.ops.camera import CameraParams
 from self_commit_orb_slam2_tpu_torch.ops.orb.extractor import OrbConfig
 from self_commit_orb_slam2_tpu_torch.utils.evaluation import ate_rmse
 from self_commit_orb_slam2_tpu_torch.utils.synthetic import generate_sequence
+
+# Eager torch on the CPU is thousands of tiny ops: with several test workers
+# on one machine, full-width intra-op thread pools only spin against each
+# other (these files took 5 to 10 times longer in a 6-worker run).
+torch.set_num_threads(2)
 
 W, H, FX, N_FEAT, N_FRAMES = 320, 240, 260.0, 500, 21
 CAPS = dict(max_keyframes=64, max_points=16384, local_points=1024)  # bench.py:116

@@ -42,6 +42,11 @@ from self_commit_orb_slam2_tpu_torch.ops.camera import CameraParams
 from self_commit_orb_slam2_tpu_torch.ops.orb.extractor import OrbConfig
 from self_commit_orb_slam2_tpu_torch.utils.synthetic import generate_sequence
 
+# Eager torch on the CPU is thousands of tiny ops: with several test workers
+# on one machine, full-width intra-op thread pools only spin against each
+# other (these files took 5 to 10 times longer in a 6-worker run).
+torch.set_num_threads(2)
+
 CAM = dict(fx=260.0, fy=260.0, cx=160.0, cy=120.0, bf=26.0, width=320, height=240)
 CAPS = dict(max_keyframes=32, max_points=8192, local_points=1024)
 N_MAPPED = 14

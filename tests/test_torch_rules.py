@@ -8,12 +8,14 @@ port reads it by path (ops/bow.default_vocab_path).  The import scan stays as
 strict as it was."""
 
 import ast
+import importlib.util
 import pathlib
 
 import numpy as np
 import pytest
 import torch
 
+from self_commit_orb_slam2_tpu.models import config as jconfig
 from self_commit_orb_slam2_tpu.ops import bow as jbow
 from self_commit_orb_slam2_tpu.ops.orb import brief_pattern as jbrief
 from self_commit_orb_slam2_tpu.ops.orb import fast as jfast
@@ -66,8 +68,9 @@ def test_no_silent_cpu_fallback():
 @pytest.mark.parametrize("kwargs", [dict(enable_mapping=True, enable_loop_closing=True),
                                     dict(enable_mapping=False, enable_loop_closing=True)])
 def test_unported_phases_refused(kwargs):
-    """Loop closing is still refused, with or without a vocabulary, and so
-    are the sensors that are not ported; a vocabulary alone is accepted."""
+    """Loop closing is still refused, with or without a vocabulary; the
+    three sensors and a vocabulary alone are accepted, an unknown sensor is
+    an error."""
     tiny = bow.from_arrays(np.zeros((3, 8), np.uint32), np.array([[1, 2], [-1, -1], [-1, -1]]),
                            np.array([-1, 0, 1]), np.ones(2, np.float32), 2, 1, 2, 0)
     with pytest.raises(NotImplementedError, match="loop closing"):
@@ -75,13 +78,62 @@ def test_unported_phases_refused(kwargs):
     with pytest.raises(NotImplementedError, match="loop closing"):
         System(_cfg()._replace(vocab=tiny), device="cpu", **kwargs)
     for sensor in ("stereo", "mono"):
-        with pytest.raises(NotImplementedError, match=sensor):
-            System(_cfg()._replace(sensor=sensor), enable_mapping=False,
-                   enable_loop_closing=False, device="cpu")
+        with pytest.raises(NotImplementedError, match="loop closing"):
+            System(_cfg()._replace(sensor=sensor), device="cpu", **kwargs)
+        ok = System(_cfg()._replace(sensor=sensor), enable_mapping=kwargs["enable_mapping"],
+                    enable_loop_closing=False, device="cpu")
+        assert ok.config.sensor == sensor and ok.open_stream(sensor).sensor == sensor
+    with pytest.raises(ValueError, match="lidar"):
+        System(_cfg()._replace(sensor="lidar"), enable_loop_closing=False, device="cpu")
+    with pytest.raises(ValueError, match="lidar"):
+        ok.open_stream("lidar")
     slam = System(_cfg()._replace(vocab=tiny), enable_loop_closing=False, device="cpu",
                   enable_mapping=kwargs["enable_mapping"])
     assert slam.config.vocab.node_desc.device.type == "cpu"
     assert slam.map.kf_bow_ids.shape[1] == slam.config.bow_top == 512
+
+
+@pytest.mark.parametrize("sensor", ["rgbd", "stereo", "mono"])
+def test_no_silent_cpu_fallback_for_any_sensor(sensor):
+    """Every sensor's engine asks for the card unless told otherwise."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        System(_cfg()._replace(sensor=sensor), enable_loop_closing=False)
+
+
+@pytest.mark.parametrize("name", ["Capacities", "TrackingConfig", "SlamConfig"])
+def test_shared_config_defaults_equal(name):
+    """Every field the port's configuration shares with the JAX package's
+    has the same default; the port adds none of its own."""
+    ours, theirs = getattr(config, name), getattr(jconfig, name)
+    assert set(ours._fields) <= set(theirs._fields)
+    for f in ours._fields:
+        if f in ours._field_defaults:
+            a, b = ours._field_defaults[f], theirs._field_defaults[f]
+            if hasattr(a, "_asdict"):   # a nested config: its shared fields
+                b = {k: v for k, v in b._asdict().items() if k in a._fields}
+                a = a._asdict()
+            assert a == b, f
+    if name == "TrackingConfig":     # the fields the stereo and mono paths read
+        assert {"kf_ref_ratio_mono", "mono_init_min_matches", "mono_init_min_points",
+                "mono_init_min_parallax", "kf_attrition_ratio_mono"} <= set(ours._fields)
+    if name == "SlamConfig":
+        assert "rect_maps" in ours._fields and ours._field_defaults["rect_maps"] is None
+
+
+def test_euroc_like_sequence_copy_identical():
+    """The port's copy of bench.py's EuRoC-style generator: the same raw
+    eyes, poses, timestamps and rectification maps."""
+    spec = importlib.util.spec_from_file_location("_bench_for_rules", ROOT / "bench.py")
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    a, maps_a = bench._euroc_synthetic(2, 96, 72, 80.0, 0.11)
+    b, maps_b = synthetic.euroc_like_sequence(2, 96, 72, 80.0, 0.11)
+    for f in ("images", "right_images", "depths", "poses_gt", "K", "timestamps"):
+        np.testing.assert_array_equal(getattr(b, f), getattr(a, f), err_msg=f)
+    for x, y in zip(maps_a, maps_b):
+        np.testing.assert_array_equal(y, x)
 
 
 def test_generate_sequence_copy_identical():
