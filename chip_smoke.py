@@ -61,21 +61,42 @@ Phases (any failure exits non-zero and prints no result):
  11. path 5, mono, 640x480, 1000 features, vocabulary loaded, mapping on:
      the first 41 frames of the RGB-D sequence's images through
      track_batch_mono; the map initializes within 6 frames, STATE_OK, >= 3
-     keyframes, Sim3-aligned ATE < 0.06 m.
+     keyframes, Sim3-aligned ATE < 0.06 m;
+ 12. path 6, bench.py's default RGB-D operating point with loop closing on
+     (System(cfg): the bundled vocabulary, 16-px cells, mapping on, global BA
+     on, consistency 3): 184 frames of a 120-frame circle revolution
+     (generate_sequence(seed=5, circle_trajectory)) streamed in chunks of 4
+     through open_stream / feed / poll, with drift injected between feeds
+     (utils/drift, one increment of bench.py's per-frame twist per frame,
+     frames 9 to 120); requires STATE_OK, >= 1 closure, map_changed() once,
+     a global BA merged, the corrected ATE (get_trajectory) below the raw
+     per-frame poses' ATE, 0 relocalization attempts, the band kernel once
+     per chunk and the first frame; prints each closure's detection,
+     correction, GBA-slice and merge ms and the stall it cost the stream.
+     Then the whole map torn rigidly, the tracker re-initialized on it at the
+     revolution's first frame and its next frames per frame through
+     track_rgbd until a per-frame closure joins the branches; then
+     detect_and_verify (the same minimal sets), correct_loop and
+     optimize_pose_graph on the card against the CPU from the first
+     closure's state: the same candidate and found, poses within 1e-3.
 
-The second-to-last line is the kernels JSON (each kernel with its launches
-on its own path; the band kernel also with those on paths 3, 4 and 5 and its
-times at the stereo shapes); the last line is {"ok": true, "device": {...}}.
-Imports nothing of JAX.
+Frame rendering (numpy, host) runs in a pool of worker processes started
+first, beside the card work.  The second-to-last line is the kernels JSON
+(each kernel with its launches on its own path; the band kernel also with
+those on paths 3 to 6 and its times at the stereo shapes); the last line is
+{"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 
@@ -97,6 +118,36 @@ class PhaseError(RuntimeError):
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise PhaseError(msg)
+
+
+def _render(kind: str, kw: dict):
+    """One rendering job in a worker process (host numpy)."""
+    from self_commit_orb_slam2_tpu_torch.utils import synthetic
+
+    if kind == "euroc":
+        return synthetic.euroc_like_sequence(**kw)
+    return synthetic.generate_sequence(**kw)
+
+
+def _submit_frames(pool, traj, n_parts: int, **kw) -> list:
+    """generate_sequence of `traj` rendered in n_parts slices (the scene
+    comes from the seed, so the frames equal one sequential rendering)."""
+    bounds = np.linspace(0, len(traj), n_parts + 1).astype(int)
+    return [pool.submit(_render, "frames", dict(kw, n_frames=b - a, trajectory=traj[a:b]))
+            for a, b in zip(bounds[:-1], bounds[1:]) if b > a]
+
+
+def _join_frames(futures):
+    from self_commit_orb_slam2_tpu_torch.utils.synthetic import SyntheticSequence
+
+    parts = [f.result() for f in futures]
+    cat = {f: np.concatenate([getattr(p, f) for p in parts])
+           for f in ("images", "depths", "poses_gt")}
+    n = len(cat["images"])
+    right = (np.concatenate([p.right_images for p in parts])
+             if parts[0].right_images is not None else None)
+    return SyntheticSequence(K=parts[0].K, timestamps=np.arange(n, dtype=np.float64) / 30.0,
+                             right_images=right, **cat)
 
 
 def phase_device():
@@ -975,6 +1026,264 @@ def phase_path5(seq, kernels, vocab):
     return want, fps, ate, float(np.mean(attempt_s) * 1e3), lag + 1
 
 
+# path 6: a circle revolution of 120 frames, 184 streamed (the JAX package
+# closes its first loop at frame 153 to 157 of this scenario on the CPU,
+# scripts/jax_loop_scenario.py), drift from
+# frame 9 to 120 (bench.py's twist per frame, composed over each chunk)
+LOOP_REV, N_LOOP, DRIFT_FROM, DRIFT_TO = 120, 184, 9, 120
+DRIFT_TWIST = [0.0011, 0.00028, -0.00055, 0.0, 0.0009, 0.0]   # bench.py:451-452
+TEAR_TWIST = [0.15, 0.03, -0.05, 0.0, 0.14, 0.0]              # per-frame closure
+N_PER_FRAME_MAX = 40
+
+
+def _to(m, device):
+    return type(m)(*(x.to(device) for x in m))
+
+
+def phase_path6(seq6, kernels, vocab):
+    """The default operating point with loop closing on, streamed; then one
+    per-frame closure; then the loop stages on the card against the CPU."""
+    import torch
+
+    from self_commit_orb_slam2_tpu_torch.models import loop_closing, pipeline, relocalization
+    from self_commit_orb_slam2_tpu_torch.models.system import (
+        STATE_NOT_INITIALIZED, STATE_OK, System)
+    from self_commit_orb_slam2_tpu_torch.ops.orb import fast_band
+    from self_commit_orb_slam2_tpu_torch.tools.time_fast import frames_slab
+    from self_commit_orb_slam2_tpu_torch.utils.drift import (
+        displace_old_content, make_injector, se3_increment)
+    from self_commit_orb_slam2_tpu_torch.utils.evaluation import ate_rmse
+
+    label = "path 6"
+    cfg = _bench_config(vocab)
+    slam = System(cfg)
+    lc = slam._loop_closer
+    require(lc is not None and lc.enabled and cfg.tracking.enable_loop_gba
+            and cfg.tracking.loop_consistency_th == 3, f"{label}: System(cfg) built no closer")
+    images, depths = _u8(seq6.images), np.clip(seq6.depths * 1e3, 0, 65535).astype(np.uint16)
+    ts = seq6.timestamps
+    inject = make_injector(keep_recent=6)
+    dD = torch.linalg.matrix_power(se3_increment(DRIFT_TWIST).double(), CHUNK).float().cuda()
+    # B1 on this path's own first frame and its chunk at the closure, bitwise
+    orb = cfg.orb
+    for what, frames in (("first frame", images[:1]), ("chunk at frame 113", images[113:117])):
+        slab, H0p, dims = frames_slab(frames, orb, band=True)
+        args = (orb.fast_threshold_hi, orb.fast_threshold_lo, H0p, dims, orb.border, orb.n_levels)
+        out_k = fast_band.fast_nms_bands_hi_lo(slab, *args)
+        _check_kernel("fast_band", f"{label} {what}", out_k,
+                      fast_band.fast_bands_plain(slab, *args), int((out_k[2] > 0).sum()))
+
+    # the first correction's inputs and its pose graph's, for the card / CPU check
+    captured = {}
+    orig_correct, orig_graph = loop_closing.correct_loop, loop_closing.optimize_pose_graph
+
+    def spy_correct(config, m, kf_id, det):
+        captured.setdefault("correct", (_to(m, "cpu"), kf_id.cpu(), _to(det, "cpu")))
+        return orig_correct(config, m, kf_id, det)
+
+    def spy_graph(*args, **kw):
+        captured.setdefault("graph", ([a.cpu() for a in args], kw))
+        return orig_graph(*args, **kw)
+
+    loop_closing.correct_loop, loop_closing.optimize_pose_graph = spy_correct, spy_graph
+    try:
+        with loop_closing.timed_phases() as ph, pipeline.timed_mapping_passes() as pass_s:
+            for k in kernels.values():
+                k.launches = 0
+            relocalization.reset_counts()
+            sess = slam.open_stream("rgbd", CHUNK)
+            t_start = time.perf_counter()
+            sess.feed((images[:1 + CHUNK], depths[:1 + CHUNK]), ts[:1 + CHUNK])
+            torch.cuda.synchronize()
+            done, chunk_ms, events = 1 + CHUNK, [], []
+            while done < N_LOOP:
+                t0 = time.perf_counter()
+                sl = slice(done, min(done + CHUNK, N_LOOP))
+                sess.feed((images[sl], depths[sl]), ts[sl])
+                done = sl.stop
+                if DRIFT_FROM <= done <= DRIFT_TO:
+                    slam.map = inject(slam.map, dD, 1.0)
+                sess.poll()
+                torch.cuda.synchronize()
+                chunk_ms.append((time.perf_counter() - t0) * 1e3)
+                if lc.n_big_changes > len(events):
+                    events.append((len(chunk_ms) - 1, done, {k: len(v) for k, v in ph.items()}))
+            t0 = time.perf_counter()
+            sess.finish()
+            torch.cuda.synchronize()
+            chunk_ms.append((time.perf_counter() - t0) * 1e3)
+            stream_s = time.perf_counter() - t_start
+            launches = {k.name: k.launches for k in kernels.values()}
+            attempts, _ = relocalization.counts()
+            n_stream_closures = lc.n_big_changes
+            gba_info = dict(lc.last_gba_info)
+            stream_ph = {k: list(v) for k, v in ph.items()}
+            changed = [slam.map_changed(), slam.map_changed()]
+            _, est = slam.get_trajectory()
+            raw = np.stack([T for _, T in slam.trajectory])
+            gt = seq6.poses_gt[:N_LOOP]
+            require(len(est) == N_LOOP and np.all(np.isfinite(est)), f"{label}: bad trajectory")
+            ate, ate_raw = float(ate_rmse(est, gt)), float(ate_rmse(raw, gt))
+            n_kf, n_pt, n_live = slam.n_keyframes(), slam.n_points(), int(slam.map.kf_valid.sum())
+
+            # one per-frame closure: the whole map torn rigidly, the tracker
+            # re-initialized on it at the revolution's first frame (a second
+            # branch with no shared observation, the construction of the loop
+            # tests), then its next frames per frame until the closer joins the
+            # branches
+            slam.map = displace_old_content(slam.map, se3_increment(TEAR_TWIST).cuda(), 1.0,
+                                            keep_recent=-1)
+            slam.carry, slam.state = None, STATE_NOT_INITIALIZED
+            per_frame_s = []
+            for j in range(N_PER_FRAME_MAX):
+                t0 = time.perf_counter()
+                slam.track_rgbd(seq6.images[j], seq6.depths[j], float(N_LOOP + j) / 30.0)
+                torch.cuda.synchronize()
+                per_frame_s.append(time.perf_counter() - t0)
+                require(slam.state == STATE_OK, f"{label}: lost at per-frame frame {j}")
+                if lc.n_big_changes > n_stream_closures:
+                    break
+            launches_all = {k.name: k.launches for k in kernels.values()}
+            attempts_all, _ = relocalization.counts()
+    finally:
+        loop_closing.correct_loop, loop_closing.optimize_pose_graph = orig_correct, orig_graph
+
+    n_timed = N_LOOP - 1 - CHUNK
+    fps = N_LOOP / stream_s
+    med = float(np.median(chunk_ms[4:]))
+    print(f"[{label}] {N_LOOP} frames {WIDTH}x{HEIGHT} of a {LOOP_REV}-frame circle revolution, "
+          f"System(cfg) defaults (loop closing, global BA, consistency 3), chunk {CHUNK}, drift "
+          f"frames {DRIFT_FROM} to {DRIFT_TO}: state {slam.state}, keyframes {n_kf} ({n_live} live "
+          f"of {cfg.caps.max_keyframes}), points {n_pt}, closures {n_stream_closures}, map_changed "
+          f"{changed}, last GBA {gba_info}; ATE corrected {ate:.6f} m, raw per-frame "
+          f"{ate_raw:.6f} m; relocalization attempts {attempts}; launches {launches}")
+    print(f"[{label}] stream {stream_s:.3f} s = {fps:.2f} frames/s (host clock, synced per chunk); "
+          f"median chunk {med:.1f} ms; mapping passes {len(pass_s)}, mean "
+          f"{np.mean(pass_s) * 1e3:.1f} ms; {n_timed} frames after the first chunk")
+    for name, v in stream_ph.items():
+        print(f"[{label}] {name}: {len(v)} calls, mean {np.mean(v):.1f} ms, max "
+              f"{np.max(v):.1f} ms, all {[round(x, 1) for x in v]} (host clock, synced)")
+    for c, frame, before in events:
+        w = np.asarray(chunk_ms[max(c - 1, 0): c + 3])
+        print(f"[{label}] closure landed in chunk {c} (frame {frame}): stall "
+              f"{w.max() - med:.1f} ms over the median chunk (worst chunk of the 4 around it, "
+              f"bench.py's measure); phase calls before it {before}")
+    n_pf = len(per_frame_s)
+    pf_ph = {k: [round(x, 1) for x in v[len(stream_ph.get(k, [])):]] for k, v in ph.items()}
+    print(f"[{label}] per frame after a tear and a re-initialization: closure "
+          f"{lc.n_big_changes > n_stream_closures} after {n_pf} track_rgbd calls, "
+          f"{np.mean(per_frame_s) * 1e3:.1f} ms per call, the closing call "
+          f"{per_frame_s[-1] * 1e3:.1f} ms (detection, correction and the whole GBA synchronous; "
+          f"phases {pf_ph} ms, host clock, synced); state {slam.state}")
+    require(slam.state == STATE_OK, f"{label}: tracking lost")
+    require(n_stream_closures >= 1, f"{label}: no loop closed in the stream")
+    require(changed == [True, False], f"{label}: map_changed() gave {changed}")
+    require(gba_info.get("gba_path") == "dense", f"{label}: no global BA merged")
+    require(ate < ate_raw, f"{label}: corrected ATE {ate:.6f} m not below raw {ate_raw:.6f} m")
+    require(attempts_all == 0, f"{label}: {attempts_all} relocalization attempts")
+    want = 1 + -(-(N_LOOP - 1) // CHUNK)
+    require(launches == {"fast_band": want, "fast_nms": 0},
+            f"{label}: launches {launches}, want fast_band {want}, fast_nms 0")
+    require(launches_all == {"fast_band": want + n_pf, "fast_nms": 0},
+            f"{label}: launches with the per-frame part {launches_all}, want {want + n_pf}")
+    require(lc.n_big_changes > n_stream_closures, f"{label}: no per-frame closure in "
+            f"{N_PER_FRAME_MAX} frames")
+    require("correct" in captured and "graph" in captured, f"{label}: no correction captured")
+    stages = phase_loop_stages(cfg, captured)
+    return want, fps, ate, ate_raw, n_stream_closures, stream_ph, stages
+
+
+def _count_syncs(fn):
+    """fn() with the card's sync debug mode on: (result, Counter of the
+    Python lines whose op made the host wait for the device)."""
+    import collections
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return out, collections.Counter(
+        f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+
+
+def phase_loop_stages(cfg, captured):
+    """The first closure's detection, correction and pose graph, from its
+    captured inputs, on the card and on the CPU: the same minimal sets (drawn
+    once on the CPU), the same candidate and found; poses within 1e-3 (the
+    parity tests' bound), points within 2e-3 m + 1e-3 relative, observations
+    equal on >= 99.9%."""
+    import torch
+
+    from self_commit_orb_slam2_tpu_torch.models import loop_closing
+    from self_commit_orb_slam2_tpu_torch.ops.optim.pose_graph import optimize_pose_graph
+
+    label = "path 6 stages"
+    m, kf, det0 = captured["correct"]
+    slots, active, _ = loop_closing.loop_candidates(cfg, m, kf)
+    sets = loop_closing.draw_hypotheses(loop_closing.bow_matches(m, kf, slots, active).valid,
+                                        torch.Generator().manual_seed(0))
+    m_c, kf_c = _to(m, "cuda"), kf.cuda()
+    t0 = time.perf_counter()
+    d_cpu = loop_closing.detect_and_verify(cfg, m, kf, sets=sets)
+    cpu_detect_ms = (time.perf_counter() - t0) * 1e3
+    d_card, det_syncs = _count_syncs(
+        lambda: loop_closing.detect_and_verify(cfg, m_c, kf_c, sets=sets.cuda()))
+    torch.cuda.synchronize()
+    dS = float((d_card.S_cur_cand.cpu() - d_cpu.S_cur_cand).abs().max())
+    print(f"[{label}] detect_and_verify from the first closure's state (keyframe {int(kf)}): card "
+          f"found {bool(d_card.found)} cand {int(d_card.cand_kf)} inliers {int(d_card.n_inliers)} "
+          f"proj {int(d_card.n_proj)}; CPU found {bool(d_cpu.found)} cand {int(d_cpu.cand_kf)} "
+          f"inliers {int(d_cpu.n_inliers)} proj {int(d_cpu.n_proj)} ({cpu_detect_ms:.0f} ms); "
+          f"stream's own draws: found {bool(det0.found)} cand {int(det0.cand_kf)}; "
+          f"max |S difference| {dS:.2e}")
+    require(bool(d_card.found) == bool(d_cpu.found) and int(d_card.cand_kf) == int(d_cpu.cand_kf),
+            f"{label}: detection differs between card and CPU")
+    require(abs(int(d_card.n_inliers) - int(d_cpu.n_inliers)) <= 2
+            and abs(int(d_card.n_proj) - int(d_cpu.n_proj)) <= 3 and dS <= 2e-3,
+            f"{label}: detection counts or Sim3 differ between card and CPU")
+
+    ref = loop_closing.correct_loop(cfg, m, kf, det0)
+    det_c = _to(det0, "cuda")
+    got, corr_syncs = _count_syncs(lambda: loop_closing.correct_loop(cfg, m_c, kf_c, det_c))
+    torch.cuda.synchronize()
+    dT = float((got.kf_Tcw.cpu() - ref.kf_Tcw).abs().max())
+    dp = (got.pt_pos.cpu() - ref.pt_pos).abs()
+    p_ok = bool((dp <= 2e-3 + 1e-3 * ref.pt_pos.abs()).all())
+    obs = float((got.kf_obs_pt.cpu() == ref.kf_obs_pt).float().mean())
+    print(f"[{label}] correct_loop card vs CPU: max |pose difference| {dT:.2e}, max |point "
+          f"difference| {float(dp.max()):.2e} m, observations equal on {obs:.5f}")
+    print(f"[{label}] host syncs (cuda sync debug mode): detect_and_verify "
+          f"{sum(det_syncs.values())} {dict(det_syncs)}; correct_loop "
+          f"{sum(corr_syncs.values())} {dict(corr_syncs)}")
+    require(dT <= 1e-3 and p_ok and obs >= 0.999, f"{label}: correct_loop differs")
+
+    args, kw = captured["graph"]
+    ref_g = optimize_pose_graph(*args, **kw)
+    t_ms = _event_time_ms(lambda: optimize_pose_graph(*(a.cuda() for a in args), **kw), reps=2)
+    t0 = time.perf_counter()
+    got_g = optimize_pose_graph(*(a.cuda() for a in args), **kw)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    dG = float((got_g.kf_sim3.cpu() - ref_g.kf_sim3).abs().max())
+    K = args[0].shape[0]
+    print(f"[{label}] optimize_pose_graph [{7 * K} x {7 * K}], {args[1].shape[0]} edges "
+          f"({int(args[4].sum())} live), 20 iterations: card vs CPU max |Sim3 difference| "
+          f"{dG:.2e}, mean residual {float(got_g.mean_residual):.3e} / "
+          f"{float(ref_g.mean_residual):.3e}; {t_ms:.1f} ms per call on the card (CUDA events), "
+          f"{host_ms:.1f} ms (host clock, synced)")
+    require(dG <= 1e-3, f"{label}: optimize_pose_graph differs by {dG}")
+    return dict(pose_graph_ms=t_ms, d_pose_graph=dG, d_correct=dT,
+                syncs=(sum(det_syncs.values()), sum(corr_syncs.values())))
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     try:
@@ -982,21 +1291,35 @@ def main() -> int:
     except ImportError:
         print("chip_smoke: torch is not installed", file=sys.stderr)
         return 1
+    stack = contextlib.ExitStack()
     try:
         name, count, card = phase_device()
         try:
             import self_commit_orb_slam2_tpu_torch  # noqa: F401
         except ImportError as exc:
             raise PhaseError(f"the port's package is missing beside this script ({exc})")
-        from self_commit_orb_slam2_tpu_torch.utils.synthetic import (
-            euroc_like_sequence, generate_sequence)
 
+        from self_commit_orb_slam2_tpu_torch.utils.synthetic import (
+            circle_trajectory, lookat_trajectory)
+
+        t_data = time.perf_counter()
+        pool = ProcessPoolExecutor(6, mp_context=multiprocessing.get_context("spawn"))
+        stack.callback(pool.shutdown, cancel_futures=True)
+        geo = dict(width=WIDTH, height=HEIGHT, fx=FX, seed=5)
+        seq_jobs = _submit_frames(pool, lookat_trajectory(N_FRAMES), 4, **geo)
+        kitti_jobs = _submit_frames(
+            pool, lookat_trajectory(N_KITTI), 2, width=KITTI["width"], height=KITTI["height"],
+            fx=KITTI["fx"], seed=5, stereo_baseline=KITTI["baseline"])
+        euroc_job = pool.submit(_render, "euroc", dict(
+            n_frames=N_EUROC, width=EUROC["width"], height=EUROC["height"], fx=EUROC["fx"],
+            baseline=EUROC["baseline"]))
+        loop_jobs = _submit_frames(pool, circle_trajectory(N_LOOP, frames_per_rev=LOOP_REV), 6,
+                                   **geo)
         kernels = phase_build()
-        t0 = time.perf_counter()
-        seq = generate_sequence(n_frames=N_FRAMES, width=WIDTH, height=HEIGHT,
-                                fx=FX, seed=5)
-        print(f"[data] generate_sequence: {N_FRAMES} frames in "
-              f"{time.perf_counter() - t0:.1f} s (host)")
+        seq = _join_frames(seq_jobs)
+        print(f"[data] generate_sequence: {N_FRAMES} frames ready "
+              f"{time.perf_counter() - t_data:.1f} s after the render pool started (6 worker "
+              f"processes, host)")
         results = phase_kernels(seq)
         summary = []
         for label, cell, mapping, own in (("path 1", 16, False, "fast_band"),
@@ -1012,15 +1335,11 @@ def main() -> int:
                        f"{bow_ms:.3f} ms, one relocalization {reloc_ms:.1f} ms")
 
         t0 = time.perf_counter()
-        kitti = generate_sequence(n_frames=N_KITTI, width=KITTI["width"],
-                                  height=KITTI["height"], fx=KITTI["fx"], seed=5,
-                                  stereo_baseline=KITTI["baseline"])
-        t1 = time.perf_counter()
-        euroc, euroc_maps = euroc_like_sequence(N_EUROC, EUROC["width"], EUROC["height"],
-                                                EUROC["fx"], EUROC["baseline"])
-        print(f"[data] stereo pairs: {N_KITTI} at {KITTI['width']}x{KITTI['height']} in "
-              f"{t1 - t0:.1f} s, {N_EUROC} raw at {EUROC['width']}x{EUROC['height']} in "
-              f"{time.perf_counter() - t1:.1f} s (host)")
+        kitti = _join_frames(kitti_jobs)
+        euroc, euroc_maps = euroc_job.result()
+        print(f"[data] stereo pairs: {N_KITTI} at {KITTI['width']}x{KITTI['height']} and "
+              f"{N_EUROC} raw at {EUROC['width']}x{EUROC['height']}: waited "
+              f"{time.perf_counter() - t0:.1f} s for the render pool (host)")
         band = results["fast_band"]
         phase_band_shapes(kitti, euroc, euroc_maps, band)
         match_ms, share = phase_stereo_matcher(kitti)
@@ -1040,17 +1359,31 @@ def main() -> int:
         summary.append(f"two-view {two_view_ms:.1f} ms; path 5 {fps5:.2f} frames/s, Sim3 ATE "
                        f"{ate5:.6f} m, initialized after {n_init} frames, {attempt_ms:.1f} ms "
                        f"per bootstrap attempt")
+        t0 = time.perf_counter()
+        seq6 = _join_frames(loop_jobs)
+        print(f"[data] path 6: {N_LOOP} frames; waited {time.perf_counter() - t0:.1f} s for the "
+              f"render pool (host)")
+        n6, fps6, ate6, raw6, n_closures, ph6, stages = phase_path6(seq6, kernels, vocab)
+        mean6 = {k: float(np.mean(ph6.get(k, [np.nan])))
+                 for k in ("detect", "correct", "gba_slice", "merge")}
+        summary.append(f"path 6 {fps6:.2f} frames/s, {n_closures} closures, ATE {ate6:.6f} m "
+                       f"(raw {raw6:.6f} m), detection {mean6['detect']:.1f} ms per keyframe, "
+                       f"correction {mean6['correct']:.1f} ms, GBA slice "
+                       f"{mean6['gba_slice']:.1f} ms, merge {mean6['merge']:.1f} ms, pose graph "
+                       f"on the card {stages['pose_graph_ms']:.1f} ms")
         for row in results.values():
             row.setdefault("shapes", [])
             own = row["name"] == "fast_band"
             row.update(launches_path4a=n4a if own else 0, launches_path4b=n4b if own else 0,
-                       launches_path5=n5 if own else 0)
+                       launches_path5=n5 if own else 0, launches_path6=n6 if own else 0)
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
+    finally:
+        stack.close()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_path3",
-            "launches_path4a", "launches_path4b", "launches_path5", "shapes")
+            "launches_path4a", "launches_path4b", "launches_path5", "launches_path6", "shapes")
     print(f"[summary] {card}: {'; '.join(summary)}")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results.values()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

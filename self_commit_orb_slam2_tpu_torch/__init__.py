@@ -7,17 +7,20 @@ an obvious counterpart, and the state keeps the JAX field names (`MapState`,
 `TrackCarry`, `FrameData`, `StepInfo`) so `convert.py` can move a map between
 the two packages field by field.
 
-It covers RGB-D SLAM with loop closing off: ORB
-extraction (with the two FAST kernels as hand-written CUDA: the band kernel
+It covers the three sensors (RGB-D, stereo, monocular): ORB extraction
+(with the two FAST kernels as hand-written CUDA: the band kernel
 `csrc/fast_band.cu` for 16-px cells, the NMS kernel `csrc/fast_nms.cu` for
-any other cell size), depth association, dual-hypothesis motion tracking,
-local-map tracking, the keyframe decision, keyframe insertion and, when
-enabled, local mapping (triangulation, fusion, local bundle adjustment,
-point and keyframe culling).  With a vocabulary (`ops/bow.py`; the bundled
-one is read in place from the JAX package's assets directory) keyframes
-carry BoW rows, a lost tracker relocalizes (`models/relocalization.py`,
-`ops/solvers/`), localization mode tracks against a fixed map, and maps are
-saved and loaded as checkpoints either package reads.
+any other cell size), depth association or stereo matching, the monocular
+two-view bootstrap, dual-hypothesis motion tracking, local-map tracking, the
+keyframe decision, keyframe insertion and, when enabled, local mapping
+(triangulation, fusion, local bundle adjustment, point and keyframe
+culling).  With a vocabulary (`ops/bow.py`; the bundled one is read in place
+from the JAX package's assets directory) keyframes carry BoW rows, a lost
+tracker relocalizes (`models/relocalization.py`, `ops/solvers/`),
+localization mode tracks against a fixed map, maps are saved and loaded as
+checkpoints either package reads, and loops close (`models/loop_closing.py`:
+BoW detection, Sim3 RANSAC and polish, the essential-graph pose graph, the
+loop fuse, the global BA in slices).
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`.  On the
 CPU every kernel wrapper takes its plain PyTorch version; on the card it

@@ -1,8 +1,8 @@
 """Static configuration of the SLAM engine.
 
 Counterpart of the JAX package's models/config.py (reference settings file
-+ constants, src/Tracking.cc:93-218): the same names and defaults for the
-fields the ported paths read; later slices add the rest.
++ constants, src/Tracking.cc:93-218): the same names and defaults; a
+configuration built for the JAX package builds here too.
 """
 
 from __future__ import annotations
@@ -40,8 +40,9 @@ class Capacities(NamedTuple):
 
 
 class TrackingConfig(NamedTuple):
-    """The fields of the JAX package's TrackingConfig that the ported paths
-    read (tracking and local mapping)."""
+    """The JAX package's TrackingConfig (tracking, local mapping, loop
+    closing).  min_motion_matches, min_inliers_motion and nn_ratio are read
+    by neither package; they are kept so that the same configurations build."""
 
     # Keyframe policy (reference Tracking::NeedNewKeyFrame, Tracking.cc:1509-1648)
     min_frames_between_kf: int = 0
@@ -55,10 +56,13 @@ class TrackingConfig(NamedTuple):
     motion_search_radius: float = 15.0
     motion_search_radius_wide: float = 30.0
     local_search_radius: float = 3.0
+    min_motion_matches: int = 20
+    min_inliers_motion: int = 10
     min_inliers_local: int = 30
     # Depth handling
     depth_threshold_factor: float = 35.0     # close = depth < 35 * baseline
     max_new_points_per_kf: int = 100
+    nn_ratio: float = 0.9
     min_init_depth_points: int = 100
     # RGB-D u_right information weight (sigma_ur = 1/sqrt(w) px)
     rgbd_ur_weight: float = 25.0
@@ -71,10 +75,16 @@ class TrackingConfig(NamedTuple):
     # mono keyframes must come faster: no depth seeds new points (reference
     # thRefRatio = 0.9 for mono against 0.75 for stereo, Tracking.cc:1575)
     kf_attrition_ratio_mono: float = 0.9
+    # Global BA after each loop closure (reference RunGlobalBundleAdjustment)
+    enable_loop_gba: bool = True
     # Keyframe culling: a covisible keyframe whose points are >= this share
     # observed by >= 3 other keyframes is retired (reference
     # LocalMapping::KeyFrameCulling 0.9, src/LocalMapping.cc:952)
     kf_cull_redundancy: float = 0.9
+    # Covisibility-consistency chaining: a loop candidate's group must be
+    # re-detected by this many consecutive keyframes before the correction
+    # (reference mnCovisibilityConsistencyTh = 3, LoopClosing.cc:56, :229-305)
+    loop_consistency_th: int = 3
 
 
 class SlamConfig(NamedTuple):

@@ -1,14 +1,24 @@
 """Persistent chunked streaming session over a live System.
 
 Counterpart of the JAX package's models/streaming.py::StreamSession for the
-three sensors with the loop closer off (local mapping, the vocabulary and
-localization mode as the System says): feed() frames for the lifetime of a
-run; every full chunk goes to the device as one packed buffer, is built
-through one extraction chain and tracked frame by frame; finish() flushes the
-padded tail and records the trajectory.  Before the map exists the leading
-frames go through the per-frame path: one for RGB-D and stereo, as many as
-the two-view bootstrap takes for mono.  (The reference analogue is the
-standing Tracking thread and its queues, src/System.cc:116-145.)
+three sensors: feed() frames for the lifetime of a run; every full chunk
+goes to the device as one packed buffer, is built through one extraction
+chain and tracked frame by frame; finish() flushes the padded tail and
+records the trajectory.  Before the map exists the leading frames go through
+the per-frame path: one for RGB-D and stereo, as many as the two-view
+bootstrap takes for mono.  (The reference analogue is the standing Tracking
+thread and its queues, src/System.cc:116-145.)
+
+With the loop closer on, every LOOP_CHUNK_STRIDE chunks the group's step
+infos are read back (with the map's keyframe seqs, one transfer), loop
+detection is dispatched for the keyframes created in it, and the closer
+resolves: see models/loop_closing.py.  Each chunk is followed by exactly one
+drain; what a drain consumes is fixed by the chunk count, never by whether
+a device-to-host copy has finished (the JAX session polls is_ready), so the
+poses, keyframes and closures do not depend on timing, on how the frames
+are split between feed() calls, or on poll().  finish() drains with block:
+the last group is consumed, a pending global BA runs its remaining slices
+and is merged.
 """
 
 from __future__ import annotations
@@ -23,6 +33,9 @@ from . import pipeline
 STATE_NOT_INITIALIZED = 0
 STATE_OK = 1
 STATE_LOST = 2
+
+# chunks per loop-detection group (the JAX session's SLAM_LOOP_CHUNK_STRIDE default)
+LOOP_CHUNK_STRIDE = 4
 
 # sensor -> (host-side chunk packer, device-side frame phase)
 _SENSORS = {
@@ -44,9 +57,13 @@ class StreamSession:
         self.pack, self.frame_fn = _SENSORS[sensor]
         self.C = int(chunk or system._batch_chunk)
         self.loc = system.localization_only  # frozen at open
+        lc = system._loop_closer
+        self.per_chunk_loops = lc is not None and lc.enabled
+        self.stride = LOOP_CHUNK_STRIDE
         self._tail: list | None = None    # frames that do not yet fill a chunk
         self._tail_ts: list = []
-        self._packed_parts: list = []     # per-chunk packed StepInfo (device)
+        self._pending: list = []          # packed StepInfo of the group being filled
+        self._packed_parts: list = []     # per-chunk packed StepInfo (device or host)
         self._all_ts: list = []           # timestamps of every dispatched frame
         self.n_fed = 0
 
@@ -109,22 +126,60 @@ class StreamSession:
             self.sys.enable_mapping, localization_only=self.loc,
             generator=self.sys._stream_gen)
         n_live = len(ts_live)
-        self._packed_parts.append(packed[:n_live])
         self._all_ts.extend(ts_live)
         self.n_fed += n_live
+        if self.per_chunk_loops:
+            self._pending.append(packed[:n_live])
+            self._drain(force=False)
+        else:
+            self._packed_parts.append(packed[:n_live])
+
+    def _drain(self, force: bool) -> None:
+        """The drain after a chunk (force: the last one): a full group of
+        step infos (any group, with force) is read back with the map's
+        keyframe seqs in one transfer and its keyframes dispatched for
+        detection; then the closer resolves and every re-base payload it
+        fired moves the tracking carry once."""
+        if len(self._pending) >= self.stride or (force and self._pending):
+            cat = torch.cat(self._pending)
+            self._pending = []
+            m = self.sys.map
+            host = torch.cat([cat.reshape(-1), m.kf_seq.to(torch.float32),
+                              m.kf_valid.to(torch.float32)]).cpu().numpy()
+            K = m.max_kf
+            arr = host[:cat.numel()].reshape(cat.shape)
+            self._packed_parts.append(self.sys._consume_chunk_infos(
+                arr, host[cat.numel():cat.numel() + K].astype(np.int32),
+                host[cat.numel() + K:] > 0.5))
+        lc = self.sys._loop_closer
+        if lc.pending():
+            self.sys.map, fired = lc.resolve(self.sys.map, block=force)
+            for payload in fired:
+                self.sys._apply_correction_to_carry(*payload)
+
+    def poll(self) -> None:
+        """The JAX session's opportunistic drain.  Here every chunk's drain
+        runs when the chunk is dispatched, so nothing is left for a poll to
+        land: a stream gives the same result whether and when it polls."""
 
     def finish(self) -> np.ndarray:
-        """Flush the tail (padded final chunk), record the trajectory, and
-        return [B, 4, 4] poses of every frame dispatched since the session
-        opened (the initializing frame excluded)."""
+        """Flush the tail (padded final chunk), drain the loop closer with
+        block, record the trajectory, and return [B, 4, 4] poses of every
+        frame dispatched since the session opened (the initializing frame
+        excluded)."""
         if self._tail is not None and self._tail_ts:
             ts_live = self._tail_ts
             self._dispatch(self._upload(self._tail, ts_live), ts_live)
         self._tail, self._tail_ts = None, []
+        if self.per_chunk_loops:
+            self._drain(force=True)
         if not self._packed_parts:
             return np.zeros((0, 4, 4), np.float32)
-        packed_all = torch.cat(self._packed_parts).cpu().numpy()
+        parts = self._packed_parts   # device tensors, or host arrays when read per group
+        packed_all = (torch.cat(parts).cpu().numpy() if torch.is_tensor(parts[0])
+                      else np.concatenate(parts))
         self._packed_parts = []
+        assert packed_all.shape[0] == len(self._all_ts)
         infos = pipeline.unpack_infos(packed_all)
         sysm = self.sys
         for b in range(packed_all.shape[0]):

@@ -2,13 +2,15 @@
 
 Counterpart of the JAX package's models/system.py (reference System,
 src/System.cc, and the NOT_INITIALIZED/OK/LOST machine of Tracking,
-Tracking.cc:419-786).  The ported configurations run loop closing off,
-local mapping on or off and the vocabulary loaded or not:
-System(cfg, enable_mapping=..., enable_loop_closing=False), with
-cfg.sensor "rgbd", "stereo" (cfg.rect_maps optional) or "mono".  With
+Tracking.cc:419-786).  System(cfg) builds what the JAX System builds:
+local mapping and, with cfg.vocab set, the loop closer
+(models/loop_closing.py) after every keyframe: in the per-frame API after
+the step, in a stream per group of chunks (models/streaming.py).  With
 cfg.vocab = bow.load_vocabulary(bow.default_vocab_path()) keyframes carry
 BoW rows, a lost tracker relocalizes (inside a streamed chunk, and after a
-per-frame step) and localization mode is available.
+per-frame step) and localization mode is available; without a vocabulary
+the closer stays idle, as in the JAX package.  cfg.sensor is "rgbd",
+"stereo" (cfg.rect_maps optional) or "mono".
 
 The engine runs on `cuda` unless the caller passes device="cpu"; with no
 card and no explicit device it raises instead of falling back to the CPU.
@@ -21,9 +23,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops.indexing import row
 from ..utils import trajectory as traj_io
 from . import checkpoint
 from . import frame as frame_mod
+from . import loop_closing
 from . import map_state as ms
 from . import mono_init
 from . import pipeline
@@ -68,9 +72,6 @@ class System:
     def __init__(self, config: SlamConfig, enable_mapping: bool = True,
                  enable_loop_closing: bool = True, device=None):
         self.device = resolve_device(device)
-        if enable_loop_closing:
-            raise NotImplementedError(
-                "loop closing is not ported yet: pass enable_loop_closing=False")
         if config.sensor not in ("rgbd", "stereo", "mono"):
             raise ValueError(f"unknown sensor {config.sensor!r}")
         if config.vocab is not None:  # the whole tree lives on the engine's device
@@ -94,9 +95,14 @@ class System:
         # track_step, one for the host-side attempt after a LOST per-frame step
         self._stream_gen = torch.Generator(device=self.device).manual_seed(23)
         self._reloc_gen = torch.Generator(device=self.device).manual_seed(0)
-        # and one for the two-view RANSAC of the monocular bootstrap
+        # one for the two-view RANSAC of the monocular bootstrap
         self._mono_gen = torch.Generator(device=self.device).manual_seed(11)
+        # and one for the loop closer's Sim3 RANSAC
+        self._loop_gen = torch.Generator(device=self.device).manual_seed(7)
         self._batch_chunk = 4  # frames per streamed chunk (the JAX package's default)
+        self._loop_closer = (loop_closing.LoopCloser(config, self._loop_gen)
+                             if enable_loop_closing else None)
+        self._last_big_change = 0
         self.reset()
 
     # ------------------------------------------------------------- public API
@@ -159,6 +165,19 @@ class System:
 
     def deactivate_localization_mode(self) -> None:
         self.localization_only = False
+
+    def map_changed(self) -> bool:
+        """True once per big map change, a loop closure (reference
+        System::MapChanged, src/System.cc:362-374, via
+        Map::InformNewBigChange)."""
+        idx = self._loop_closer.n_big_changes if self._loop_closer else 0
+        changed = idx != self._last_big_change
+        self._last_big_change = idx
+        return changed
+
+    def shutdown(self) -> None:
+        """Parity with reference System::Shutdown: nothing runs in the
+        background, so nothing is stopped."""
 
     def save_map(self, path: str) -> None:
         """Persist the map (models/checkpoint.py)."""
@@ -228,6 +247,45 @@ class System:
     def n_points(self) -> int:
         return int(torch.sum(self.map.pt_valid))
 
+    # ------------------------------------------------------------ loop closing
+
+    def _consume_chunk_infos(self, arr: np.ndarray, kf_seq: np.ndarray,
+                             kf_valid: np.ndarray) -> np.ndarray:
+        """One chunk group's packed StepInfo (host copy) -> loop detection
+        dispatched for every keyframe created in it.  Keyframes are known by
+        seq: a slot culled and reused since its step is re-resolved against
+        the map's (kf_seq, kf_valid) read with the infos, and a seq no longer
+        live is skipped."""
+        infos = pipeline.unpack_infos(arr)
+        slots = []
+        for b in np.nonzero(infos.created_kf)[0]:
+            seq, slot = int(infos.ref_kf_seq[b]), int(infos.ref_kf[b])
+            if not (0 <= slot < len(kf_seq)) or kf_seq[slot] != seq or not kf_valid[slot]:
+                live = np.nonzero((kf_seq == seq) & kf_valid)[0]
+                if len(live) == 0:
+                    continue  # culled before loop processing could run
+                slot = int(live[0])
+            slots.append(slot)
+        if slots:
+            self._loop_closer.dispatch_group(self.map, slots)
+        return arr
+
+    def _apply_correction_to_carry(self, kf_slot, kf_Tcw_before,
+                                   kf_Tcw_after=None) -> None:
+        """Re-base the live tracking state by one keyframe's pose change
+        (reference CorrectLoop also moves the keyframe Tracking hangs off):
+        new Tcw = Tcw . Tkw_before^-1 . Tkw_after, the camera-to-keyframe
+        pose kept.  kf_Tcw_after None: the keyframe's current pose."""
+        if self.carry is None:
+            return
+        dev = self.device
+        before = torch.as_tensor(kf_Tcw_before, dtype=torch.float32, device=dev)
+        after = (row(self.map.kf_Tcw, torch.as_tensor(kf_slot, device=dev))
+                 if kf_Tcw_after is None else kf_Tcw_after)
+        new_Tcw = self.carry.Tcw @ torch.linalg.inv_ex(before)[0] @ after
+        self.carry = self.carry._replace(Tcw=new_Tcw)
+        self.Tcw = new_Tcw.cpu().numpy()
+
     # ------------------------------------------------------------ state machine
 
     def _relocalize_last_frame(self) -> None:
@@ -283,8 +341,14 @@ class System:
             self.vo_mode = bool(info.vo)
             if self.state == STATE_LOST and self.config.vocab is not None:
                 self._relocalize_last_frame()
-            Tcr = self.Tcw @ np.linalg.inv(info.ref_kf_Tcw.cpu().numpy())
+            ref_kf_Tcw = info.ref_kf_Tcw.cpu().numpy()
+            Tcr = self.Tcw @ np.linalg.inv(ref_kf_Tcw)
             self._rel_trajectory.append((timestamp, int(info.ref_kf_seq), Tcr))
+            if self._loop_closer is not None and bool(info.created_kf):
+                before = self._loop_closer.n_big_changes
+                self.map = self._loop_closer.process(self.map, int(info.ref_kf))
+                if self._loop_closer.n_big_changes != before:
+                    self._apply_correction_to_carry(int(info.ref_kf), ref_kf_Tcw)
         self.trajectory.append((timestamp, self.Tcw))
         return self.Tcw
 

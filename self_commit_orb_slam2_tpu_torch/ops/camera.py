@@ -1,8 +1,8 @@
-"""Pinhole camera model: projection, back-projection, undistortion, frustum.
+"""Pinhole camera model: projection, distortion, stereo, frustum.
 
 Counterpart of the JAX package's ops/camera.py (reference Frame::isInFrustum,
-UndistortKeyPoints and UnprojectStereo, src/Frame.cc:608-706, :899-965,
-:1464).  Everything is batched over points.
+UndistortKeyPoints, ComputeImageBounds and UnprojectStereo,
+src/Frame.cc:608-706, :899-1023, :1464).  Everything is batched over points.
 """
 
 from __future__ import annotations
@@ -42,6 +42,12 @@ class CameraParams(NamedTuple):
         return self.bf / self.fx
 
     @property
+    def K(self) -> torch.Tensor:
+        """[3, 3] float32 intrinsic matrix (on the CPU)."""
+        return torch.tensor([[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy],
+                             [0.0, 0.0, 1.0]], dtype=torch.float32)
+
+    @property
     def has_distortion(self) -> bool:
         return abs(self.k1) + abs(self.k2) + abs(self.p1) + abs(self.p2) + abs(self.k3) > 0
 
@@ -56,11 +62,31 @@ def project(cam: CameraParams, pts_cam: torch.Tensor):
     return torch.stack([u, v], dim=-1), z
 
 
+def project_stereo(cam: CameraParams, pts_cam: torch.Tensor):
+    """Camera-frame points [..., 3] -> ((u, v, u_right) [..., 3], depth [...])
+    with u_right = u - bf / z (the stereo observation model of g2o's
+    EdgeStereoSE3ProjectXYZ)."""
+    uv, z = project(cam, pts_cam)
+    inv_z = 1.0 / torch.where(torch.abs(z) < 1e-9, 1e-9, z)
+    ur = uv[..., 0] - cam.bf * inv_z
+    return torch.cat([uv, ur[..., None]], dim=-1), z
+
+
 def backproject(cam: CameraParams, uv: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
     """Pixels [..., 2] + depth [...] -> camera-frame points [..., 3]."""
     x = (uv[..., 0] - cam.cx) / cam.fx * depth
     y = (uv[..., 1] - cam.cy) / cam.fy * depth
     return torch.stack([x, y, depth], dim=-1)
+
+
+def distort_normalized(cam: CameraParams, xn: torch.Tensor) -> torch.Tensor:
+    """Radial-tangential distortion of normalized coords [..., 2]."""
+    x, y = xn[..., 0], xn[..., 1]
+    r2 = x * x + y * y
+    radial = 1.0 + cam.k1 * r2 + cam.k2 * r2 * r2 + cam.k3 * r2 * r2 * r2
+    xd = x * radial + 2.0 * cam.p1 * x * y + cam.p2 * (r2 + 2.0 * x * x)
+    yd = y * radial + cam.p1 * (r2 + 2.0 * y * y) + 2.0 * cam.p2 * x * y
+    return torch.stack([xd, yd], dim=-1)
 
 
 def undistort_points(cam: CameraParams, uv: torch.Tensor, iters: int = 8) -> torch.Tensor:
@@ -78,6 +104,17 @@ def undistort_points(cam: CameraParams, uv: torch.Tensor, iters: int = 8) -> tor
         inv_r = 1.0 / torch.clamp_min(radial, 1e-6)
         xn = torch.stack([(xd[..., 0] - dx) * inv_r, (xd[..., 1] - dy) * inv_r], dim=-1)
     return torch.stack([cam.fx * xn[..., 0] + cam.cx, cam.fy * xn[..., 1] + cam.cy], dim=-1)
+
+
+def compute_image_bounds(cam: CameraParams) -> tuple[float, float, float, float]:
+    """Undistorted image bounds (min_x, max_x, min_y, max_y) from the four
+    undistorted corners (reference Frame::ComputeImageBounds,
+    src/Frame.cc:967-1023); host floats."""
+    corners = torch.tensor([[0.0, 0.0], [cam.width, 0.0], [0.0, cam.height],
+                            [cam.width, cam.height]], dtype=torch.float32)
+    und = undistort_points(cam, corners)
+    return (float(torch.minimum(und[0, 0], und[2, 0])), float(torch.maximum(und[1, 0], und[3, 0])),
+            float(torch.minimum(und[0, 1], und[1, 1])), float(torch.maximum(und[2, 1], und[3, 1])))
 
 
 def in_frustum(cam: CameraParams, Tcw: torch.Tensor, pts_w: torch.Tensor,

@@ -448,3 +448,104 @@ def test_stereo_and_mono_systems_stream_on_card(cuda, sensor):
     assert len(poses) == len(est) - 1
     assert fast_band.kernel.launches - before == (lag + 1) + -(-len(poses) // 4)
     assert ate_rmse(est, seq.poses_gt[lag:], with_scale=not stereo) < 0.05
+
+
+# ------------------------------------------------------------------ loop closing
+
+
+def _loop_config(**track):
+    from self_commit_orb_slam2_tpu_torch.models.config import (
+        Capacities, SlamConfig, TrackingConfig)
+    from self_commit_orb_slam2_tpu_torch.ops import bow
+    from self_commit_orb_slam2_tpu_torch.ops.camera import CameraParams
+    from self_commit_orb_slam2_tpu_torch.ops.orb.extractor import OrbConfig
+
+    return SlamConfig(camera=CameraParams.create(fx=260.0, fy=260.0, cx=160.0, cy=120.0,
+                                                 bf=26.0, width=320, height=240),
+                      orb=OrbConfig(n_features=500),
+                      caps=Capacities(max_keyframes=24, max_points=4096, local_points=512),
+                      tracking=TrackingConfig(max_frames_between_kf=3, **track),
+                      vocab=bow.load_vocabulary(bow.default_vocab_path()))
+
+
+def _loop_world(device, **track):
+    """A System on `device` (the bundled vocabulary, mapping on, loop
+    closing on) that streamed 36 frames of a spin, whose map then drifted
+    along the chain (15 increments, 15 cm and 8 degrees at the start), and
+    that re-initialized at frame 0 on that map and streamed 8 frames: a
+    second branch revisiting the first keyframes, i.e. a loop (the
+    construction of tests/test_torch_loop_closing.py, in the port alone)."""
+    from self_commit_orb_slam2_tpu_torch.models.system import STATE_NOT_INITIALIZED, System
+    from self_commit_orb_slam2_tpu_torch.utils.drift import displace_old_content, se3_increment
+    from self_commit_orb_slam2_tpu_torch.utils.synthetic import generate_sequence, spin_trajectory
+
+    seq = generate_sequence(n_frames=36, width=320, height=240, seed=9,
+                            trajectory=spin_trajectory(36, frames_per_rev=72))
+    slam = System(_loop_config(**track), device=device)
+    slam.track_batch_rgbd(seq.images, seq.depths, seq.timestamps, chunk=4)
+    newest = int(slam.map.n_kf) - 1
+    D = se3_increment([0.01, 0.002, -0.0033, 0.0, 0.0093, 0.0])
+    for j in range(15):
+        slam.map = displace_old_content(slam.map, D, 1.0, keep_recent=newest - j)
+    slam.carry, slam.state = None, STATE_NOT_INITIALIZED
+    slam.track_batch_rgbd(seq.images[:8], seq.depths[:8], seq.timestamps[:8] + 10.0, chunk=4)
+    return slam
+
+
+def test_loop_stages_on_card_match_cpu(cuda):
+    """detect_and_verify (the same minimal sets), correct_loop and
+    optimize_pose_graph from one loop state on the card and on the CPU: the
+    same candidate and found, counts within 2 / 3, poses within 1e-3 (the
+    parity tests' bounds)."""
+    from self_commit_orb_slam2_tpu_torch.models import loop_closing
+    from self_commit_orb_slam2_tpu_torch.models import map_state as ms
+    from self_commit_orb_slam2_tpu_torch.ops.optim.pose_graph import optimize_pose_graph
+
+    slam = _loop_world("cpu")
+    cfg, m = slam.config, slam.map
+    kf = ms.latest_kf(m)
+    slots, active, _ = loop_closing.loop_candidates(cfg, m, kf)
+    sets = loop_closing.draw_hypotheses(loop_closing.bow_matches(m, kf, slots, active).valid,
+                                        torch.Generator().manual_seed(0))
+    m_c = type(m)(*(t.to(cuda) for t in m))
+    ref = loop_closing.detect_and_verify(cfg, m, kf, sets=sets)
+    got = loop_closing.detect_and_verify(cfg, m_c, kf.to(cuda), sets=sets.to(cuda))
+    assert bool(ref.found) and bool(got.found) and int(got.cand_kf) == int(ref.cand_kf)
+    assert abs(int(got.n_inliers) - int(ref.n_inliers)) <= 2
+    assert abs(int(got.n_proj) - int(ref.n_proj)) <= 3
+    assert torch.allclose(got.S_cur_cand.cpu(), ref.S_cur_cand, atol=2e-3)
+
+    det_c = loop_closing.LoopDetection(*(x.to(cuda) for x in ref))
+    want = loop_closing.correct_loop(cfg, m, kf, ref)
+    corr = loop_closing.correct_loop(cfg, m_c, kf.to(cuda), det_c)
+    assert torch.allclose(corr.kf_Tcw.cpu(), want.kf_Tcw, atol=1e-3)
+    assert torch.allclose(corr.pt_pos.cpu(), want.pt_pos, atol=2e-3, rtol=1e-3)
+    assert (corr.kf_obs_pt.cpu() == want.kf_obs_pt).float().mean() >= 0.999
+
+    from self_commit_orb_slam2_tpu_torch.ops import sim3
+    K = m.max_kf
+    S0 = sim3.from_se3(m.kf_Tcw)
+    i = torch.arange(1, K)
+    args = (S0, torch.cat([i, torch.tensor([K - 1])]), torch.cat([i - 1, torch.tensor([0])]),
+            torch.cat([sim3.compose(S0[1:], sim3.inverse(S0[:-1])), ref.S_cur_cand[None]]),
+            torch.cat([m.kf_valid[1:] & m.kf_valid[:-1], torch.tensor([True])]),
+            ~m.kf_valid | (torch.arange(K) == 0))
+    g_ref = optimize_pose_graph(*args)
+    g_got = optimize_pose_graph(*(a.to(cuda) for a in args))
+    assert torch.allclose(g_got.kf_sim3.cpu(), g_ref.kf_sim3, atol=1e-3)
+
+
+def test_streamed_loop_closure_on_card(cuda):
+    """A System on the card with loop closing on (consistency 1) closes the
+    loop of the revisiting branch inside a stream, runs its global BA and
+    merges it, and keeps tracking."""
+    from self_commit_orb_slam2_tpu_torch.models.system import STATE_OK
+
+    slam = _loop_world(cuda, loop_consistency_th=1)
+    assert slam.map.kf_Tcw.is_cuda
+    lc = slam._loop_closer
+    assert lc.n_big_changes >= 1 and slam.map_changed()
+    assert lc.last_gba_info.get("gba_path") == "dense" and lc.pending() == 0
+    assert slam.state == STATE_OK
+    _, est = slam.get_trajectory()
+    assert np.all(np.isfinite(est)) and len(est) == 36 + 8

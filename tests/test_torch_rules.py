@@ -10,6 +10,7 @@ strict as it was."""
 import ast
 import importlib.util
 import pathlib
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -68,27 +69,34 @@ def test_no_silent_cpu_fallback():
 @pytest.mark.parametrize("kwargs", [dict(enable_mapping=True, enable_loop_closing=True),
                                     dict(enable_mapping=False, enable_loop_closing=True)])
 def test_unported_phases_refused(kwargs):
-    """Loop closing is still refused, with or without a vocabulary; the
-    three sensors and a vocabulary alone are accepted, an unknown sensor is
-    an error."""
+    """Nothing of the public API is refused any more: System(cfg) builds the
+    loop closer for every sensor (idle without a vocabulary, as in the JAX
+    package); the one refusal left is the sharded global BA, which names
+    the slice that ports it.  An unknown sensor is an error."""
+    from self_commit_orb_slam2_tpu_torch.models import loop_closing
+
     tiny = bow.from_arrays(np.zeros((3, 8), np.uint32), np.array([[1, 2], [-1, -1], [-1, -1]]),
                            np.array([-1, 0, 1]), np.ones(2, np.float32), 2, 1, 2, 0)
-    with pytest.raises(NotImplementedError, match="loop closing"):
-        System(_cfg(), device="cpu", **kwargs)
-    with pytest.raises(NotImplementedError, match="loop closing"):
-        System(_cfg()._replace(vocab=tiny), device="cpu", **kwargs)
-    for sensor in ("stereo", "mono"):
-        with pytest.raises(NotImplementedError, match="loop closing"):
-            System(_cfg()._replace(sensor=sensor), device="cpu", **kwargs)
-        ok = System(_cfg()._replace(sensor=sensor), enable_mapping=kwargs["enable_mapping"],
-                    enable_loop_closing=False, device="cpu")
-        assert ok.config.sensor == sensor and ok.open_stream(sensor).sensor == sensor
+    for sensor in ("rgbd", "stereo", "mono"):
+        plain = System(_cfg()._replace(sensor=sensor), device="cpu", **kwargs)
+        assert plain._loop_closer is not None and not plain._loop_closer.enabled
+        slam = System(_cfg()._replace(sensor=sensor, vocab=tiny), device="cpu", **kwargs)
+        assert slam._loop_closer.enabled and slam.open_stream(sensor).per_chunk_loops
+        assert not slam.map_changed()
+        off = System(_cfg()._replace(sensor=sensor), enable_mapping=kwargs["enable_mapping"],
+                     enable_loop_closing=False, device="cpu")
+        assert off._loop_closer is None and off.open_stream(sensor).sensor == sensor
+    with pytest.raises(NotImplementedError, match="slice 8"):
+        loop_closing.run_sharded_gba(slam.config, slam.map, 0)
+    # the dense path up to 4 Mi keyframe-point pairs: the bench's 64 and 96
+    # keyframes x 16384 points; the default capacities (256 x 65536) need slice 8
+    for (K, P), sharded in (((64, 16384), False), ((96, 16384), False), ((256, 65536), True)):
+        assert loop_closing._needs_sharded_gba(slam.config, SimpleNamespace(
+            max_kf=K, max_pt=P)) == sharded
     with pytest.raises(ValueError, match="lidar"):
-        System(_cfg()._replace(sensor="lidar"), enable_loop_closing=False, device="cpu")
+        System(_cfg()._replace(sensor="lidar"), device="cpu")
     with pytest.raises(ValueError, match="lidar"):
-        ok.open_stream("lidar")
-    slam = System(_cfg()._replace(vocab=tiny), enable_loop_closing=False, device="cpu",
-                  enable_mapping=kwargs["enable_mapping"])
+        off.open_stream("lidar")
     assert slam.config.vocab.node_desc.device.type == "cpu"
     assert slam.map.kf_bow_ids.shape[1] == slam.config.bow_top == 512
 
@@ -115,9 +123,8 @@ def test_shared_config_defaults_equal(name):
                 b = {k: v for k, v in b._asdict().items() if k in a._fields}
                 a = a._asdict()
             assert a == b, f
-    if name == "TrackingConfig":     # the fields the stereo and mono paths read
-        assert {"kf_ref_ratio_mono", "mono_init_min_matches", "mono_init_min_points",
-                "mono_init_min_parallax", "kf_attrition_ratio_mono"} <= set(ours._fields)
+    if name == "TrackingConfig":     # every field: a JAX configuration builds in the port
+        assert set(ours._fields) == set(theirs._fields)
     if name == "SlamConfig":
         assert "rect_maps" in ours._fields and ours._field_defaults["rect_maps"] is None
 
