@@ -80,10 +80,36 @@ Phases (any failure exits non-zero and prints no result):
      optimize_pose_graph on the card against the CPU from the first
      closure's state: the same candidate and found, poses within 1e-3.
 
+ 13. path 7, the drivers, on frames of the paths above written to disk in
+     each dataset's layout (stdlib PNG writer), decoded by the native decoder
+     (required; which decoder ran, and whether PIL, PyYAML and g++ are
+     present, is printed first):
+       a. TUM RGB-D layout (1 + 40 frames of path 1, 16-bit depth at
+          DepthMapFactor 5000, a TUM1-style settings file):
+          run_slam.main --dataset tum --batch 4 (the bundled vocabulary,
+          System(cfg) with the closer), then --batch 0 on 13 frames; ATE of
+          the written TUM file < 0.01 m, STATE_OK, >= 2 keyframes (batch run),
+          B1 bitwise on the decoded frames;
+       b. KITTI layout (1 + 16 pairs of path 4 (a)): --dataset kitti --batch
+          4, run_slam's own configuration (2000 features, 256 / 131072 /
+          4096); ATE < 0.01 m;
+       c. EuRoC layout (1 + 8 raw pairs of path 4 (b), a settings file with
+          the LEFT.* / RIGHT.* blocks): --dataset euroc --batch 4, rectified
+          on the host; ATE < 0.02 m;
+       d. stream_slam.serve: 20 frames as SLFR records through an os.pipe
+          into a System primed by warm_start; 20 SLPO records, STATE_OK,
+          poses within 1e-3 of a track_rgbd loop on the card;
+       e. warm_start at bench.py's configuration with the vocabulary, in a
+          fresh process, against an unprimed one: its seconds, the first
+          chunk's ms against the median chunk's;
+     each driver run's frames/s, ms per frame and decode share (host clock,
+     synchronized with the card), and B1's launches (once per extraction
+     call; B2 never).
+
 Frame rendering (numpy, host) runs in a pool of worker processes started
 first, beside the card work.  The second-to-last line is the kernels JSON
 (each kernel with its launches on its own path; the band kernel also with
-those on paths 3 to 6 and its times at the stereo shapes); the last line is
+those on paths 3 to 7 and its times at the stereo shapes); the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -95,6 +121,7 @@ import multiprocessing
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ProcessPoolExecutor
 
@@ -1284,6 +1311,398 @@ def phase_loop_stages(cfg, captured):
                 syncs=(sum(det_syncs.values()), sum(corr_syncs.values())))
 
 
+# ---------------------------------------------------------------- path 7
+# The drivers on the card: run_slam on each dataset layout written to disk,
+# stream_slam.serve over a pipe, and warm_start.  Frames come from the paths
+# above (no real frames are in the repository); PNGs are written with the
+# standard library (utils/viewer.save_png) and read back by the native decoder.
+N_TUM, N_TUM_PER_FRAME, N_KITTI7, N_EUROC7, N_SERVE, N_WARM = 41, 13, 17, 9, 20, 25
+TUM_DEPTH_FACTOR = 5000.0
+
+
+def _installations():
+    """Step 0: what the host offers the drivers; the native decoder is required."""
+    import importlib.util
+    import shutil
+
+    from self_commit_orb_slam2_tpu_torch.utils import native_io
+
+    have = {m: importlib.util.find_spec(m) is not None for m in ("PIL", "yaml")}
+    have["g++"] = shutil.which("g++") is not None
+    ok = native_io.available()
+    print(f"[path 7] installations: PIL {have['PIL']}, PyYAML {have['yaml']}, g++ {have['g++']}, "
+          f"zlib.h and libz {'found (the native decoder built)' if ok else 'not usable'}; "
+          f"native decoder {native_io.library_path or native_io.build_error}")
+    require(have["yaml"], "path 7: PyYAML is missing, so load_settings cannot read a settings file")
+    require(ok, f"path 7: the native decoder did not build: {native_io.build_error}")
+
+
+def _yaml_matrix(name, M):
+    M = np.atleast_2d(np.asarray(M, np.float64))
+    data = ", ".join(f"{v:.17e}" for v in M.reshape(-1))   # YAML 1.1 floats
+    return (f"{name}: !!opencv-matrix\n   rows: {M.shape[0]}\n   cols: {M.shape[1]}\n"
+            f"   dt: d\n   data: [{data}]\n")
+
+
+def _settings(path, width, height, fx, baseline, n_features, fps, depth_factor=None,
+              rect=None):
+    """A reference-style OpenCV-YAML settings file (TUM1.yaml, EuRoC.yaml)."""
+    lines = ["%YAML:1.0", f"Camera.fx: {fx}", f"Camera.fy: {fx}", f"Camera.cx: {width / 2}",
+             f"Camera.cy: {height / 2}", "Camera.k1: 0.0", "Camera.k2: 0.0", "Camera.p1: 0.0",
+             "Camera.p2: 0.0", f"Camera.width: {width}", f"Camera.height: {height}",
+             f"Camera.fps: {fps}", f"Camera.bf: {fx * baseline}", "ThDepth: 35.0",
+             f"ORBextractor.nFeatures: {n_features}", "ORBextractor.scaleFactor: 1.2",
+             "ORBextractor.nLevels: 8", "ORBextractor.iniThFAST: 20",
+             "ORBextractor.minThFAST: 7"]
+    if depth_factor:
+        lines.append(f"DepthMapFactor: {depth_factor}")
+    text = "\n".join(lines) + "\n"
+    if rect is not None:
+        for eye, (K, D, R, P) in rect.items():
+            text += f"{eye}.height: {height}\n{eye}.width: {width}\n"
+            for key, M in (("D", D), ("K", K), ("R", R), ("P", P)):
+                text += _yaml_matrix(f"{eye}.{key}", M)
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def _write_tum(root, seq, n):
+    """TUM RGB-D layout: rgb/ (8-bit gray), depth/ (16-bit, DepthMapFactor
+    5000), rgb.txt and depth.txt."""
+    from self_commit_orb_slam2_tpu_torch.utils.viewer import save_png
+
+    for sub in ("rgb", "depth"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    rows = []
+    for i in range(n):
+        name = f"{seq.timestamps[i]:.6f}.png"
+        save_png(os.path.join(root, "rgb", name), _u8(seq.images[i]))
+        save_png(os.path.join(root, "depth", name), np.clip(
+            np.round(seq.depths[i] * TUM_DEPTH_FACTOR), 0, 65535).astype(np.uint16))
+        rows.append((seq.timestamps[i], name))
+    for sub in ("rgb", "depth"):
+        with open(os.path.join(root, f"{sub}.txt"), "w") as f:
+            f.write(f"# {sub} maps\n# timestamp filename\n")
+            f.writelines(f"{t:.6f} {sub}/{name}\n" for t, name in rows)
+    return root
+
+
+def _write_kitti(root, seq, n, fx, baseline):
+    """KITTI odometry layout: image_0/, image_1/, times.txt, calib.txt."""
+    from self_commit_orb_slam2_tpu_torch.utils.viewer import save_png
+
+    for sub in ("image_0", "image_1"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    h, w = seq.images.shape[1:]
+    for i in range(n):
+        save_png(os.path.join(root, "image_0", f"{i:06d}.png"), _u8(seq.images[i]))
+        save_png(os.path.join(root, "image_1", f"{i:06d}.png"), _u8(seq.right_images[i]))
+    with open(os.path.join(root, "times.txt"), "w") as f:
+        f.writelines(f"{t:.6e}\n" for t in seq.timestamps[:n])
+    P0 = np.array([[fx, 0, w / 2, 0], [0, fx, h / 2, 0], [0, 0, 1, 0]])
+    P1 = P0.copy()
+    P1[0, 3] = -fx * baseline
+    with open(os.path.join(root, "calib.txt"), "w") as f:
+        for k, P in (("P0", P0), ("P1", P1), ("P2", P0), ("P3", P1)):
+            f.write(f"{k}: " + " ".join(f"{v:.12e}" for v in P.reshape(-1)) + "\n")
+    return root
+
+
+def _write_euroc(root, seq, n):
+    """EuRoC MAV layout: mav0/cam{0,1}/data/<ns>.png and data.csv."""
+    from self_commit_orb_slam2_tpu_torch.utils.viewer import save_png
+
+    for cam, imgs in (("cam0", seq.images), ("cam1", seq.right_images)):
+        d = os.path.join(root, "mav0", cam, "data")
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(root, "mav0", cam, "data.csv"), "w") as f:
+            f.write("#timestamp [ns],filename\n")
+            for i in range(n):
+                ns = int(round(seq.timestamps[i] * 1e9))
+                save_png(os.path.join(d, f"{ns}.png"), _u8(imgs[i]))
+                f.write(f"{ns},{ns}.png\n")
+    return root
+
+
+def _euroc_rect_blocks(geo):
+    """The LEFT.* / RIGHT.* blocks that describe euroc_like_sequence's raw
+    eyes (its default mounting rotations, zero distortion)."""
+    import inspect
+
+    from self_commit_orb_slam2_tpu_torch.utils import synthetic
+
+    defaults = inspect.signature(synthetic.euroc_like_sequence).parameters
+    K = np.array([[geo["fx"], 0, geo["width"] / 2], [0, geo["fx"], geo["height"] / 2], [0, 0, 1]])
+    P = np.concatenate([K, np.zeros((3, 1))], axis=1)
+    return {eye: (K, np.zeros((1, 5)), synthetic._rotvec(defaults[arg].default).T, P)
+            for eye, arg in (("LEFT", "rot_l"), ("RIGHT", "rot_r"))}
+
+
+def _run_driver(label, argv, kernels):
+    """run_slam.main(argv) in this process with the launch counts set to 0
+    before it; returns (its printed report as a dict, launches)."""
+    import contextlib
+    import io
+    import re
+
+    from self_commit_orb_slam2_tpu_torch import run_slam
+    from self_commit_orb_slam2_tpu_torch.utils import datasets
+
+    for k in kernels.values():
+        k.launches = 0
+    decodes = dict(datasets.DECODES)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = run_slam.main(argv)
+    text = out.getvalue()
+    launches = {k.name: k.launches for k in kernels.values()}
+    require(rc == 0, f"{label}: run_slam returned {rc}:\n{text}")
+    nums = dict(
+        frames=int(re.search(r"frames: (\d+)", text).group(1)),
+        keyframes=int(re.search(r"keyframes: (\d+)", text).group(1)),
+        points=int(re.search(r"map points: (\d+)", text).group(1)),
+        decode_s=float(re.search(r"decode: ([\d.]+)s", text).group(1)),
+        track_s=float(re.search(r"tracking: ([\d.]+)s", text).group(1)),
+        state=int(re.search(r"state: (\d+)", text).group(1)),
+        median_ms=float(re.search(r"median tracking time: ([\d.]+) ms", text).group(1)))
+    nums["native"] = datasets.DECODES["native"] - decodes["native"]
+    nums["pil"] = datasets.DECODES["pil"] - decodes["pil"]
+    for line in text.strip().splitlines():
+        print(f"[{label}]   {line}")
+    return nums, launches
+
+
+def _driver_ate(path, gt, label, limit):
+    """ATE of the TUM file a driver wrote against the known ground truth."""
+    from self_commit_orb_slam2_tpu_torch.utils.evaluation import ate_rmse
+    from self_commit_orb_slam2_tpu_torch.utils.trajectory import load_tum
+
+    _, Twc = load_tum(path)
+    require(len(Twc) == len(gt) and np.all(np.isfinite(Twc)),
+            f"{label}: the trajectory file holds {len(Twc)} poses, want {len(gt)}")
+    ate = float(ate_rmse(np.linalg.inv(Twc), gt))
+    require(ate < limit, f"{label}: ATE {ate:.6f} m >= {limit} m")
+    return ate
+
+
+def _batch_launches(n, batch):
+    """FAST launches of run_slam --batch: one track_batch call per `batch`
+    frames, each one (padded) chunk, plus the initializing frame."""
+    return 1 + sum(1 for s in range(0, n, batch) if min(s + batch, n) - max(s, 1) > 0)
+
+
+def _report(label, nums, launches, ate, want_b1, min_kf=1, sync_note="synced"):
+    fps = nums["frames"] / nums["track_s"]
+    share = nums["decode_s"] / (nums["decode_s"] + nums["track_s"])
+    print(f"[{label}] {nums['frames']} frames: {fps:.2f} frames/s, "
+          f"{nums['track_s'] / nums['frames'] * 1e3:.1f} ms per frame tracking, decode "
+          f"{nums['decode_s'] / nums['frames'] * 1e3:.1f} ms per frame ({share:.3f} of the "
+          f"run; host clock, {sync_note}); state {nums['state']}, keyframes "
+          f"{nums['keyframes']}, points {nums['points']}, ATE {ate:.6f} m; decoded natively "
+          f"{nums['native']}, by PIL {nums['pil']}; launches {launches}")
+    require(nums["state"] == 1, f"{label}: tracking lost (state {nums['state']})")
+    require(nums["keyframes"] >= min_kf, f"{label}: only {nums['keyframes']} keyframes")
+    require(nums["native"] > 0 and nums["pil"] == 0,
+            f"{label}: {nums['pil']} images decoded by PIL, {nums['native']} natively")
+    require(launches == {"fast_band": want_b1, "fast_nms": 0},
+            f"{label}: launches {launches}, want fast_band {want_b1}, fast_nms 0")
+    return fps, share
+
+
+def _b1_on_decoded(label, images_u8, orb):
+    """B1 bitwise against its plain version on frames the driver decoded."""
+    from self_commit_orb_slam2_tpu_torch.ops.orb import fast_band
+    from self_commit_orb_slam2_tpu_torch.tools.time_fast import frames_slab
+
+    slab, H0p, dims = frames_slab(images_u8, orb, band=True)
+    args = (orb.fast_threshold_hi, orb.fast_threshold_lo, H0p, dims, orb.border, orb.n_levels)
+    out_k = fast_band.fast_nms_bands_hi_lo(slab, *args)
+    return _check_kernel("fast_band", label, out_k, fast_band.fast_bands_plain(slab, *args),
+                         int((out_k[2] > 0).sum()))
+
+
+def _warm_probe(primed: bool, images, depths, ts):
+    """In a fresh process: System(cfg) at bench.py's configuration with the
+    bundled vocabulary, warm_start or not, then 1 + 24 frames streamed in
+    chunks of 4; seconds of warm_start and ms of each chunk (host clock,
+    synced)."""
+    sys.path.insert(0, HERE)
+    import torch
+
+    from self_commit_orb_slam2_tpu_torch.models.system import System
+    from self_commit_orb_slam2_tpu_torch.ops import bow
+
+    slam = System(_bench_config(bow.load_vocabulary(bow.default_vocab_path())))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if primed:
+        slam.warm_start()
+        torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    sess = slam.open_stream("rgbd", CHUNK)
+    edges = [0, 1, *range(1 + CHUNK, len(ts) + 1, CHUNK)]   # the initializing frame, chunks
+    chunk_ms = []
+    for a, b in zip(edges[:-1], edges[1:]):
+        t0 = time.perf_counter()
+        sess.feed((images[a:b], depths[a:b]), ts[a:b])
+        torch.cuda.synchronize()
+        chunk_ms.append((time.perf_counter() - t0) * 1e3)
+    sess.finish()
+    return warm_s, chunk_ms, slam.state
+
+
+def phase_path7(seq, kitti, euroc, kernels, vocab, workdir):
+    """The drivers on the card: (a) to (c) run_slam on TUM, KITTI and EuRoC
+    directories, (d) stream_slam.serve over a pipe, (e) warm_start."""
+    import threading
+
+    import torch
+
+    from self_commit_orb_slam2_tpu_torch import stream_slam
+    from self_commit_orb_slam2_tpu_torch.models.system import STATE_OK, System
+    from self_commit_orb_slam2_tpu_torch.ops.orb.extractor import OrbConfig
+    from self_commit_orb_slam2_tpu_torch.utils import datasets
+    from self_commit_orb_slam2_tpu_torch.utils.config_io import load_settings
+
+    _installations()
+    t0 = time.perf_counter()
+    tum = _write_tum(os.path.join(workdir, "tum"), seq, N_TUM)
+    tum13 = _write_tum(os.path.join(workdir, "tum13"), seq, N_TUM_PER_FRAME)
+    # Camera.fps 10: max_frames_between_kf 10, as bench.py's configuration
+    tum_yaml = _settings(os.path.join(workdir, "TUM1.yaml"), WIDTH, HEIGHT, FX, 0.1, N_FEATURES,
+                         10.0, depth_factor=TUM_DEPTH_FACTOR)
+    kdir = _write_kitti(os.path.join(workdir, "kitti"), kitti, N_KITTI7, KITTI["fx"],
+                        KITTI["baseline"])
+    edir = _write_euroc(os.path.join(workdir, "euroc"), euroc, N_EUROC7)
+    euroc_yaml = _settings(os.path.join(workdir, "EuRoC.yaml"), EUROC["width"], EUROC["height"],
+                           EUROC["fx"], EUROC["baseline"], EUROC["n_features"], 20.0,
+                           rect=_euroc_rect_blocks(EUROC))
+    print(f"[path 7] datasets written in {time.perf_counter() - t0:.1f} s (host, stdlib PNG "
+          f"writer): TUM {N_TUM} and {N_TUM_PER_FRAME} frames, KITTI {N_KITTI7} pairs, EuRoC "
+          f"{N_EUROC7} raw pairs")
+    rows, b1 = {}, 0
+
+    # (a) TUM: --batch 4 as bench.py builds System(cfg), then per frame
+    label = "path 7a"
+    out = os.path.join(workdir, "tum_traj.txt")
+    nums, launches = _run_driver(label, ["--dataset", "tum", "--path", tum, "--settings",
+                                         tum_yaml, "--batch", str(CHUNK), "--output", out],
+                                 kernels)
+    ate = _driver_ate(out, seq.poses_gt[:N_TUM], label, ATE_LIMIT_M)
+    rows["tum"] = _report(label, nums, launches, ate, _batch_launches(N_TUM, CHUNK),
+                          min_kf=2) + (ate,)
+    b1 += launches["fast_band"]
+    ds = datasets.TumRgbdDataset(tum)
+    decoded = np.stack([_u8(ds[i].image) for i in range(1 + CHUNK)])
+    require(np.array_equal(decoded, _u8(seq.images[:1 + CHUNK])),
+            f"{label}: the decoded frames differ from the frames written")
+    _b1_on_decoded(f"{label} decoded first frame", decoded[:1], OrbConfig(n_features=N_FEATURES))
+    _b1_on_decoded(f"{label} decoded chunk", decoded[1:], OrbConfig(n_features=N_FEATURES))
+    label = "path 7a per frame"
+    out13 = os.path.join(workdir, "tum13_traj.txt")
+    nums, launches = _run_driver(label, ["--dataset", "tum", "--path", tum13, "--settings",
+                                         tum_yaml, "--batch", "0", "--output", out13], kernels)
+    ate = _driver_ate(out13, seq.poses_gt[:N_TUM_PER_FRAME], label, ATE_LIMIT_M)
+    rows["tum per frame"] = _report(label, nums, launches, ate, N_TUM_PER_FRAME) + (ate,)
+    b1 += launches["fast_band"]
+
+    # (b) KITTI: run_slam's own configuration (2000 features, 256 / 131072 / 4096)
+    label = "path 7b"
+    out = os.path.join(workdir, "kitti_traj.txt")
+    nums, launches = _run_driver(label, ["--dataset", "kitti", "--path", kdir, "--batch",
+                                         str(CHUNK), "--output", out,
+                                         "--kitti-output", out + ".kitti"], kernels)
+    ate = _driver_ate(out, kitti.poses_gt[:N_KITTI7], label, 0.01)
+    rows["kitti"] = _report(label, nums, launches, ate, _batch_launches(N_KITTI7, CHUNK)) + (ate,)
+    b1 += launches["fast_band"]
+
+    # (c) EuRoC: raw eyes rectified on the host from the settings' blocks
+    label = "path 7c"
+    out = os.path.join(workdir, "euroc_traj.txt")
+    nums, launches = _run_driver(label, ["--dataset", "euroc", "--path", edir, "--settings",
+                                         euroc_yaml, "--batch", str(CHUNK), "--output", out],
+                                 kernels)
+    ate = _driver_ate(out, euroc.poses_gt[:N_EUROC7], label, 0.02)
+    rows["euroc"] = _report(label, nums, launches, ate, _batch_launches(N_EUROC7, CHUNK)) + (ate,)
+    b1 += launches["fast_band"]
+
+    # (d) stream_slam.serve: SLFR records through a pipe into a primed System
+    label = "path 7d"
+    cfg = load_settings(tum_yaml, sensor="rgbd", vocab=vocab)._replace(depth_map_factor=1.0)
+    slam = System(cfg)
+    slam.warm_start()
+    r_fd, w_fd = os.pipe()
+
+    def send():
+        with os.fdopen(w_fd, "wb") as w:
+            for i in range(N_SERVE):
+                stream_slam.write_frame(w, "rgbd", float(seq.timestamps[i]), seq.images[i],
+                                        seq.depths[i])
+
+    for k in kernels.values():
+        k.launches = 0
+    sender = threading.Thread(target=send)
+    sender.start()
+    import io
+
+    poses_out = io.BytesIO()
+    t0 = time.perf_counter()
+    with os.fdopen(r_fd, "rb") as r:
+        n_served = stream_slam.serve(slam, r, poses_out)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    sender.join(timeout=60)
+    launches = {k.name: k.launches for k in kernels.values()}
+    b1 += launches["fast_band"]
+    poses_out.seek(0)
+    recs = []
+    while (rec := stream_slam.read_pose(poses_out)) is not None:
+        recs.append(rec)
+    # the same frames as the wire carries them, through track_rgbd on the card
+    ref = System(cfg)
+    buf = io.BytesIO()
+    want = []
+    for i in range(N_SERVE):
+        stream_slam.write_frame(buf, "rgbd", float(seq.timestamps[i]), seq.images[i],
+                                seq.depths[i])
+    buf.seek(0)
+    while (fr := stream_slam.read_frame(buf)) is not None:
+        want.append(ref.track_rgbd(*fr[2], fr[1]))
+    err = max(float(np.abs(p - w).max()) for (_, _, p), w in zip(recs, want)) if recs else np.inf
+    print(f"[{label}] serve: {n_served} SLFR records in, {len(recs)} SLPO records out in "
+          f"{serve_s:.3f} s = {n_served / serve_s:.2f} frames/s (host clock, synced; the "
+          f"sender thread writes the pipe meanwhile); final state {slam.state}, "
+          f"keyframes {slam.n_keyframes()}; poses against a track_rgbd loop on the card: "
+          f"max |difference| {err:.3e}; launches {launches}")
+    require(n_served == N_SERVE and len(recs) == N_SERVE,
+            f"{label}: {n_served} frames served, {len(recs)} poses back, want {N_SERVE}")
+    require(slam.state == STATE_OK and recs[-1][1] == STATE_OK, f"{label}: tracking lost")
+    require(err <= 1e-3, f"{label}: served poses differ from track_rgbd's by {err:.3e}")
+    require(launches == {"fast_band": N_SERVE, "fast_nms": 0},
+            f"{label}: launches {launches}, want fast_band {N_SERVE}")
+    rows["serve"] = (n_served / serve_s, err)
+
+    # (e) warm_start: a fresh process each, unprimed first, at bench.py's configuration
+    label = "path 7e"
+    images = _u8(seq.images[:N_WARM])
+    depths = np.clip(seq.depths[:N_WARM] * 1e3, 0, 65535).astype(np.uint16)
+    probes = {}
+    for primed in (False, True):
+        with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
+            probes[primed] = pool.submit(_warm_probe, primed, images, depths,
+                                         seq.timestamps[:N_WARM]).result()
+    for primed, (warm_s, chunk_ms, state) in probes.items():
+        first, med = chunk_ms[1], float(np.median(chunk_ms[2:]))
+        print(f"[{label}] {'primed' if primed else 'unprimed'} (fresh process): warm_start "
+              f"{warm_s:.3f} s; initializing frame {chunk_ms[0]:.1f} ms, first chunk "
+              f"{first:.1f} ms, median of the other {len(chunk_ms) - 2} chunks {med:.1f} ms "
+              f"(host clock, synced); state {state}")
+        require(state == STATE_OK, f"{label}: tracking lost ({'primed' if primed else 'unprimed'})")
+    rows["warm"] = {p: (w, c[0], c[1], float(np.median(c[2:]))) for p, (w, c, _) in probes.items()}
+    return b1, rows
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     try:
@@ -1371,11 +1790,22 @@ def main() -> int:
                        f"correction {mean6['correct']:.1f} ms, GBA slice "
                        f"{mean6['gba_slice']:.1f} ms, merge {mean6['merge']:.1f} ms, pose graph "
                        f"on the card {stages['pose_graph_ms']:.1f} ms")
+        with tempfile.TemporaryDirectory() as workdir:
+            n7, rows7 = phase_path7(seq, kitti, euroc, kernels, vocab, workdir)
+        summary.append("path 7 " + ", ".join(
+            f"{k} {rows7[k][0]:.2f} frames/s (decode {rows7[k][1]:.3f} of the run), ATE "
+            f"{rows7[k][2]:.6f} m" for k in ("tum", "tum per frame", "kitti", "euroc"))
+            + f", serve {rows7['serve'][0]:.2f} frames/s within {rows7['serve'][1]:.1e} of "
+            f"track_rgbd, warm_start {rows7['warm'][True][0]:.2f} s; primed against unprimed: "
+            "initializing frame {:.0f} / {:.0f} ms, first chunk {:.0f} / {:.0f} ms, median "
+            "chunk {:.0f} / {:.0f} ms".format(*(rows7["warm"][p][i] for i in (1, 2, 3)
+                                               for p in (True, False))))
         for row in results.values():
             row.setdefault("shapes", [])
             own = row["name"] == "fast_band"
             row.update(launches_path4a=n4a if own else 0, launches_path4b=n4b if own else 0,
-                       launches_path5=n5 if own else 0, launches_path6=n6 if own else 0)
+                       launches_path5=n5 if own else 0, launches_path6=n6 if own else 0,
+                       launches_path7=n7 if own else 0)
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -1383,7 +1813,8 @@ def main() -> int:
         stack.close()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_path3",
-            "launches_path4a", "launches_path4b", "launches_path5", "launches_path6", "shapes")
+            "launches_path4a", "launches_path4b", "launches_path5", "launches_path6",
+            "launches_path7", "shapes")
     print(f"[summary] {card}: {'; '.join(summary)}")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results.values()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -42,7 +42,12 @@ def save_map(path: str, m: MapState) -> None:
     np.savez_compressed(path, **arrays)
 
 
-def load_map(path: str, device="cpu") -> MapState:
+def load_map(path: str, device=None) -> MapState:
+    """The map on `device`: the card unless the caller asks for the CPU
+    (models/system.resolve_device)."""
+    from .system import resolve_device  # system imports this module
+
+    device = resolve_device(device)
     with np.load(path) as z:
         if _VERSION_KEY not in z.files:
             raise ValueError(f"{path}: not a name-keyed map checkpoint (no schema "

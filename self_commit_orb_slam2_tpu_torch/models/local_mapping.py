@@ -463,6 +463,18 @@ def cull_keyframes(config: SlamConfig, m: MapState, kf_id: torch.Tensor,
     )
 
 
+class LocalMapper:
+    """The mapping pass bound to one configuration (the JAX package's
+    LocalMapper jit-compiles _process; eager torch runs it as it is)."""
+
+    def __init__(self, config: SlamConfig):
+        self.config = config
+
+    def process(self, m: MapState, kf_id) -> MapState:
+        kf_id = torch.as_tensor(kf_id, dtype=torch.int32, device=m.kf_valid.device)
+        return _process(self.config, m, kf_id)
+
+
 def _process(config: SlamConfig, m: MapState, kf_id: torch.Tensor) -> MapState:
     """One mapping pass (reference LocalMapping::Run body).  The covisibility
     row (from the incidence cache) and the observation counts are computed

@@ -438,6 +438,49 @@ def batch_steps_stereo_packed(config: SlamConfig, m: MapState, carry: TrackCarry
     return batch_steps_frames(config, m, carry, frames, ts, valid, run_mapping, **kw)
 
 
+def _depth_metres(depth: torch.Tensor) -> torch.Tensor:
+    """Depth as float32 metres: uint16 input is millimetres (the JAX
+    package's step_rgbd casts on the device alike)."""
+    if depth.is_floating_point():
+        return depth.to(torch.float32)
+    return depth.to(torch.int32).to(torch.float32) * torch.tensor(
+        1e-3, dtype=torch.float32, device=depth.device)
+
+
+def step_rgbd(config: SlamConfig, m: MapState, carry: TrackCarry,
+              image: torch.Tensor, depth: torch.Tensor, timestamp,
+              run_mapping: bool = True, **kw):
+    """One RGB-D frame built and tracked: image [H, W] (uint8 or float,
+    0..255), depth [H, W] in metres, or uint16 millimetres; keywords as
+    track_step's."""
+    frame = frame_mod.make_frame_rgbd(config, image.to(torch.float32), _depth_metres(depth))
+    return track_step(config, m, carry, frame, timestamp, run_mapping, **kw)
+
+
+def batch_steps_rgbd(config: SlamConfig, m: MapState, carry: TrackCarry,
+                     images: torch.Tensor, depths: torch.Tensor,
+                     timestamps: torch.Tensor, valid: torch.Tensor,
+                     run_mapping: bool = True, **kw):
+    """A chunk of unpacked RGB-D frames ([B, H, W] images and depths as in
+    step_rgbd, [B] timestamps and valid flags) -> (map, carry, packed
+    StepInfo [B, 40]).  The JAX package builds each frame inside its scan;
+    here the chunk goes through one extraction chain, as the packed path
+    does, and the same tracking steps follow."""
+    frames = frame_mod.make_frames_rgbd_batch(config, images.to(torch.float32),
+                                              _depth_metres(depths))
+    return batch_steps_frames(config, m, carry, frames, timestamps, valid, run_mapping, **kw)
+
+
+def batch_steps_stereo(config: SlamConfig, m: MapState, carry: TrackCarry,
+                       images_l: torch.Tensor, images_r: torch.Tensor,
+                       timestamps: torch.Tensor, valid: torch.Tensor,
+                       run_mapping: bool = True, **kw):
+    """Stereo variant of batch_steps_rgbd ([B, H, W] per eye)."""
+    frames = frame_mod.make_frames_stereo_batch(config, images_l.to(torch.float32),
+                                                images_r.to(torch.float32))
+    return batch_steps_frames(config, m, carry, frames, timestamps, valid, run_mapping, **kw)
+
+
 def step_stereo(config: SlamConfig, m: MapState, carry: TrackCarry,
                 image_l: torch.Tensor, image_r: torch.Tensor, timestamp,
                 run_mapping: bool = True, **kw):

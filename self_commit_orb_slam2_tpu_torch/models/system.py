@@ -18,6 +18,7 @@ card and no explicit device it raises instead of falling back to the CPU.
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
@@ -33,7 +34,8 @@ from . import mono_init
 from . import pipeline
 from . import relocalization
 from .config import SlamConfig
-from .streaming import STATE_LOST, STATE_NOT_INITIALIZED, STATE_OK, StreamSession
+from .streaming import (_SENSORS, STATE_LOST, STATE_NOT_INITIALIZED, STATE_OK,
+                        StreamSession)
 
 __all__ = ["System", "resolve_device", "STATE_NOT_INITIALIZED", "STATE_OK",
            "STATE_LOST"]
@@ -58,6 +60,9 @@ def _f32(image) -> torch.Tensor:
 def _u8(images) -> np.ndarray:
     return np.clip(images, 0, 255).astype(np.uint8)
 
+
+# dummy chunks _prime_stream pushes through the frame phase and the steps
+PRIME_CHUNKS = 2
 
 _FRAME_BUILDERS = {"rgbd": frame_mod.make_frame_rgbd,
                    "stereo": frame_mod.make_frame_stereo,
@@ -103,26 +108,73 @@ class System:
         self._loop_closer = (loop_closing.LoopCloser(config, self._loop_gen)
                              if enable_loop_closing else None)
         self._last_big_change = 0
+        # seconds per tracked frame: one entry per track_* call, and a chunked
+        # batch's time spread evenly over its frames (kept across reset())
+        self.timings: list[float] = []
         self.reset()
+
+    def warm_start(self) -> None:
+        """Warm the loop closer's device libraries (LoopCloser.warmup, with
+        the closer on) and prime the streaming pipeline, before the first
+        real frame: the runtime analogue of the reference's seconds-long
+        ORBvoc load at startup (src/System.cc:77-89).  Optional; without it
+        the first chunk and the first closure pay the kernel builds and the
+        libraries' start-up.  Touches neither the map, the carry, the
+        trajectory nor the engine's random streams."""
+        if self._loop_closer is not None and self._loop_closer.enabled:
+            self._loop_closer.warmup(self.map)
+        self._prime_stream()
+
+    def _prime_stream(self) -> None:
+        """Build the kernels and push PRIME_CHUNKS dummy packed chunks (valid
+        False: the steps take only their pass-through branch) through upload,
+        the streamed frame phase and batch_steps_frames, on a scratch map and
+        carry with a generator of their own."""
+        cfg = self.config
+        sensor = cfg.sensor
+        H, W = int(cfg.camera.height), int(cfg.camera.width)
+        C = self._batch_chunk
+        pack, frame_fn = _SENSORS[sensor]
+        planes = [np.zeros((C, H, W), np.uint8)]
+        if sensor != "mono":
+            planes.append(np.zeros((C, H, W), np.uint16 if sensor == "rgbd" else np.uint8))
+        host_buf = pack(*planes, np.zeros(C, np.float32), np.zeros(C, bool))
+        m = ms.empty_map(cfg, self.device)
+        gen = torch.Generator(device=self.device).manual_seed(0)
+        carry = None
+        for _ in range(PRIME_CHUNKS):
+            frames, ts, valid = frame_fn(cfg, torch.from_numpy(host_buf).to(self.device))
+            if carry is None:
+                carry = pipeline.init_carry(cfg, frames.select(0))
+            m, carry, packed = pipeline.batch_steps_frames(
+                cfg, m, carry, frames, ts, valid, self.enable_mapping,
+                localization_only=self.localization_only, generator=gen)
+        packed.cpu()  # waits for the device
 
     # ------------------------------------------------------------- public API
 
     def track_rgbd(self, image: np.ndarray, depth: np.ndarray, timestamp: float) -> np.ndarray:
         """One frame: [H, W] grayscale (0..255) and depth in metres."""
-        return self._track("rgbd", (_f32(image), _f32(depth)), timestamp)
+        return self._timed_track("rgbd", (_f32(image), _f32(depth)), timestamp)
 
     def track_stereo(self, image_l: np.ndarray, image_r: np.ndarray,
                      timestamp: float) -> np.ndarray:
         """One stereo pair of [H, W] grayscale images (reference
         System::TrackStereo); raw eyes when config.rect_maps is set."""
-        return self._track("stereo", (_f32(image_l), _f32(image_r)), timestamp)
+        return self._timed_track("stereo", (_f32(image_l), _f32(image_r)), timestamp)
 
     def track_monocular(self, image: np.ndarray, timestamp: float) -> np.ndarray:
         """One [H, W] grayscale image (reference System::TrackMonocular,
         src/System.cc:292).  Until the two-view bootstrap succeeds the pose
         returned is the identity and no trajectory entry is kept for
         get_trajectory()."""
-        return self._track("mono", (_f32(image),), timestamp)
+        return self._timed_track("mono", (_f32(image),), timestamp)
+
+    def _timed_track(self, sensor: str, images: tuple, timestamp: float) -> np.ndarray:
+        t0 = time.perf_counter()
+        out = self._track(sensor, images, timestamp)  # ends in a host read of the pose
+        self.timings.append(time.perf_counter() - t0)
+        return out
 
     def track_batch_rgbd(self, images: np.ndarray, depths: np.ndarray,
                          timestamps: np.ndarray,
@@ -148,10 +200,14 @@ class System:
 
     def _track_batch(self, sensor: str, arrays: tuple, timestamps,
                      chunk: Optional[int]) -> np.ndarray:
+        t0 = time.perf_counter()
         sess = self.open_stream(sensor, chunk)
         sess.feed(arrays, timestamps)
         poses = sess.finish()
-        return poses if len(poses) else np.asarray(self.Tcw)[None]
+        if len(poses) == 0:
+            return np.asarray(self.Tcw)[None]
+        self.timings.extend([(time.perf_counter() - t0) / len(poses)] * len(poses))
+        return poses
 
     def open_stream(self, sensor: str, chunk: Optional[int] = None) -> StreamSession:
         """A persistent streaming session: feed() chunks for the lifetime of a
@@ -241,11 +297,32 @@ class System:
         ts, poses = self.get_trajectory()
         traj_io.save_tum(path, ts, poses)
 
+    def save_trajectory_kitti(self, path: str) -> None:
+        _, poses = self.get_trajectory()
+        traj_io.save_kitti(path, poses)
+
+    def save_keyframe_trajectory_tum(self, path: str) -> None:
+        """Keyframe-only trajectory (reference System::SaveKeyFrameTrajectoryTUM,
+        src/System.cc:505-549): the live keyframes' optimized poses."""
+        m = self.map
+        valid = m.kf_valid.cpu().numpy()
+        traj_io.save_tum(path, m.kf_timestamp.cpu().numpy()[valid],
+                         m.kf_Tcw.cpu().numpy()[valid])
+
     def n_keyframes(self) -> int:
         return int(self.map.n_kf)
 
     def n_points(self) -> int:
         return int(torch.sum(self.map.pt_valid))
+
+    @property
+    def last_obs_pt(self) -> Optional[torch.Tensor]:
+        """[N] map point matched to each feature of the last frame (-1: none)."""
+        return self.carry.last_obs_pt if self.carry is not None else None
+
+    @property
+    def last_frame(self) -> Optional[frame_mod.FrameData]:
+        return self.carry.last_frame if self.carry is not None else None
 
     # ------------------------------------------------------------ loop closing
 

@@ -21,6 +21,12 @@ import torch
 from ..indexing import top_k
 
 
+class LevelKeypoints(NamedTuple):
+    xy: torch.Tensor        # [N, 2] float32 (x, y) in level-local pixel coords
+    response: torch.Tensor  # [N] float32
+    valid: torch.Tensor     # [N] bool
+
+
 class SlabKeypoints(NamedTuple):
     """All slices' keypoints concatenated in per-slice budget order."""
 
@@ -107,6 +113,16 @@ def select_keypoints_slab(score_hi: torch.Tensor, score_lo: torch.Tensor,
     y_all = ((ci // ncx) * cell + arg // cell).to(torch.float32)
     x_all = ((ci % ncx) * cell + arg % cell).to(torch.float32)
     return _top_cells(best, x_all, y_all, budgets)
+
+
+def select_keypoints(score_hi: torch.Tensor, score_lo: torch.Tensor, n_keep: int,
+                     cell: int = 16, border: int = 16) -> LevelKeypoints:
+    """Up to n_keep spatially spread corners from one level's [H, W] NMS'd
+    responses at thresholds 20 / 7 (reference iniThFAST / minThFAST,
+    src/ORBextractor.cc:1104-1157): select_keypoints_slab on one slice."""
+    kps = select_keypoints_slab(score_hi[None], score_lo[None], [n_keep],
+                                [tuple(score_hi.shape)], cell=cell, border=border)
+    return LevelKeypoints(xy=kps.xy, response=kps.response, valid=kps.valid)
 
 
 def select_keypoints_bands(

@@ -6,18 +6,21 @@ ORBextractor::operator(), src/ORBextractor.cc:1544-1668), with its two
 kernel branches: the FAST band kernel and band selection for the default
 16-px cells, the FAST NMS kernel and slab selection for any other cell size.
 A whole frame batch stacks into one [B*L, H0, W0] slab, so the FAST kernel
-runs once per batch.  Keypoint xy is scaled back to level-0 pixels; `level`
-is the pyramid octave.
+runs once per batch; extract is that chain at B = 1.  Orientation and BRIEF
+come from 48-px patches, or, for images smaller than a patch, from the dense
+forms (orientation.py, brief.py on the blurred slab).  Keypoint xy is scaled
+back to level-0 pixels; `level` is the pyramid octave.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from . import detect, fast_band, fast_nms, pyramid, sample
+from . import brief, detect, fast_band, fast_nms, orientation, pyramid, sample
 
 
 class OrbConfig(NamedTuple):
@@ -65,6 +68,10 @@ class OrbFeatures(NamedTuple):
     desc: torch.Tensor      # [B, N, 8] int32 (bits of the 256-bit descriptor)
     valid: torch.Tensor     # [B, N] bool
 
+    @property
+    def capacity(self) -> int:
+        return self.xy.shape[-2]
+
 
 def _stacked_features(slab: torch.Tensor, budgets_g: list[int],
                       dims: list[tuple[int, int]], config: OrbConfig):
@@ -80,8 +87,7 @@ def _stacked_features(slab: torch.Tensor, budgets_g: list[int],
         kps = detect.select_keypoints_slab(hi.reshape(G, H0, W0), lo.reshape(G, H0, W0),
                                            budgets_g, dims, cell=config.cell_size,
                                            border=config.border)
-        ang, desc = sample.orient_and_describe(slab, kps.xy, kps.level)
-        return kps, ang, desc
+        return kps, *_orient_and_describe(slab, kps, dims)
     # slices padded to a 16-multiple height so bands never straddle slices
     H0p = H0 + (-H0) % 16
     if H0p != H0:
@@ -94,8 +100,18 @@ def _stacked_features(slab: torch.Tensor, budgets_g: list[int],
     )
     kps = detect.select_keypoints_bands(hi_max, hi_arg, lo_max, lo_arg,
                                         budgets_g, G, H0p)
-    ang, desc = sample.orient_and_describe(slab, kps.xy, kps.level)
-    return kps, ang, desc
+    return kps, *_orient_and_describe(slab, kps, dims)
+
+
+def _orient_and_describe(slab: torch.Tensor, kps: detect.SlabKeypoints, dims):
+    """Angles and descriptors: from patches, or for an image smaller than a
+    patch (level 0 of dims) from the dense forms on the whole (blurred) slab."""
+    H0, W0 = dims[0]
+    if H0 >= sample.PATCH and W0 >= sample.PATCH:
+        return sample.orient_and_describe(slab, kps.xy, kps.level)
+    ang = orientation.keypoint_angles_slab(slab, kps.xy, kps.level)
+    desc = brief.describe_slab(pyramid.gaussian_blur(slab), kps.xy, kps.level, ang, dims)
+    return ang, desc
 
 
 def extract_batch(images: torch.Tensor, config: OrbConfig):
@@ -143,3 +159,18 @@ def extract_pair(image_l: torch.Tensor, image_r: torch.Tensor, config: OrbConfig
     feats, slabs = extract_batch(torch.stack([image_l, image_r]), config)
     return (OrbFeatures(*(x[0] for x in feats)), OrbFeatures(*(x[1] for x in feats)),
             slabs[0], slabs[1])
+
+
+def extract(image: torch.Tensor, config: OrbConfig, return_slab: bool = False):
+    """ORB features of one [H, W] float32 image (0..255): extract_batch at
+    B = 1, so the same kernel chain runs.  Returns OrbFeatures [N, ...], and
+    with return_slab the padded [L, H0, W0] pyramid slab too."""
+    feats, slab = extract_batch(image[None], config)
+    feats = OrbFeatures(*(x[0] for x in feats))
+    return (feats, slab[0]) if return_slab else feats
+
+
+def build_extractor(config: OrbConfig):
+    """extract(image) bound to `config` (the JAX package jit-compiles this
+    closure; eager torch runs it as it is)."""
+    return functools.partial(extract, config=config)

@@ -1,10 +1,10 @@
 """Image pyramid (reference ORBextractor::ComputePyramid, src/ORBextractor.cc:
-1674-1734: 8 levels, scale 1.2, bilinear resize).
+1674-1734: 8 levels, scale 1.2, bilinear resize) and the separable Gaussian.
 
-Counterpart of the JAX package's ops/orb/pyramid.py.  Each resize is two
-banded fp32 matmuls (out = Rv @ img @ Rh^T) with the same half-pixel-centre
-bilinear matrices; levels >= 1 differ from the JAX package in the last ulp
-only, because the sums run in another order.
+Counterpart of the JAX package's ops/orb/pyramid.py.  Each resize and each
+blur is two banded fp32 matmuls (out = Rv @ img @ Rh^T) with the same
+matrices; levels >= 1 differ from the JAX package in the last ulp only,
+because the sums run in another order.
 """
 
 from __future__ import annotations
@@ -59,6 +59,37 @@ def build_pyramid(image: torch.Tensor, n_levels: int, scale: float) -> list[torc
     return levels
 
 
+def gaussian_kernel_1d(ksize: int, sigma: float) -> np.ndarray:
+    r = ksize // 2
+    x = np.arange(-r, r + 1, dtype=np.float64)
+    k = np.exp(-(x * x) / (2.0 * sigma * sigma))
+    return (k / k.sum()).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _blur_matrix(n: int, ksize: int, sigma: float) -> np.ndarray:
+    """[n, n] banded Gaussian with edge-replicate boundary folded in."""
+    k = gaussian_kernel_1d(ksize, sigma).astype(np.float64)
+    r = ksize // 2
+    M = np.zeros((n, n), np.float64)
+    for i in range(n):
+        for dj, kv in zip(range(-r, r + 1), k):
+            M[i, min(max(i + dj, 0), n - 1)] += kv
+    return M.astype(np.float32)
+
+
+def gaussian_blur(image: torch.Tensor, ksize: int = 7, sigma: float = 2.0) -> torch.Tensor:
+    """Separable Gaussian of [..., H, W] with replicate padding, as two
+    banded matmuls.  The reference blurs each level with a 7x7 sigma=2
+    Gaussian before computing descriptors (src/ORBextractor.cc:1629-1643,
+    BORDER_REFLECT_101; edge-replicate here, as in the JAX package: the
+    difference stays in the outer 3 px, inside the keypoint border)."""
+    h, w = image.shape[-2:]
+    Bv = torch.from_numpy(_blur_matrix(h, ksize, sigma)).to(image.device)
+    Bh = torch.from_numpy(_blur_matrix(w, ksize, sigma)).to(image.device)
+    return torch.matmul(torch.matmul(Bv, image), Bh.T)
+
+
 def _pad_edge_to(level: torch.Tensor, H0: int, W0: int) -> torch.Tensor:
     """Edge-replicate pad [..., h, w] up to [..., H0, W0] (bottom/right)."""
     h, w = level.shape[-2:]
@@ -67,6 +98,13 @@ def _pad_edge_to(level: torch.Tensor, H0: int, W0: int) -> torch.Tensor:
     ri = torch.clamp(torch.arange(H0, device=level.device), max=h - 1)
     ci = torch.clamp(torch.arange(W0, device=level.device), max=w - 1)
     return level[..., ri, :][..., ci]
+
+
+def stack_slab(levels: list[torch.Tensor]) -> torch.Tensor:
+    """List of [h, w] levels -> [L, H0, W0], each level edge-padded to
+    level-0 size."""
+    H0, W0 = levels[0].shape[-2:]
+    return torch.stack([_pad_edge_to(l, H0, W0) for l in levels])
 
 
 def stack_slab_batch(levels: list[torch.Tensor]) -> torch.Tensor:

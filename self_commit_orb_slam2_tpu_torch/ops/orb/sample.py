@@ -19,22 +19,10 @@ import functools
 import numpy as np
 import torch
 
-from .brief_pattern import BIT_PATTERN_31
+from .brief import pack_bits, rotated_pattern
+from .orientation import _DX, _DY, HALF_PATCH
 
 PATCH = 48
-HALF_PATCH = 15  # reference HALF_PATCH_SIZE (src/ORBextractor.cc:92)
-
-
-def _circular_mask() -> np.ndarray:
-    """Point-symmetric disc of radius 15 (the reference's umax rows)."""
-    d = np.arange(-HALF_PATCH, HALF_PATCH + 1)
-    return (d[None, :] ** 2 + d[:, None] ** 2) <= HALF_PATCH**2 + HALF_PATCH
-
-
-_MASK = _circular_mask()
-_DX = (np.arange(-HALF_PATCH, HALF_PATCH + 1)[None, :] * _MASK).astype(np.float32)
-_DY = (np.arange(-HALF_PATCH, HALF_PATCH + 1)[:, None] * _MASK).astype(np.float32)
-_PATTERN_XY = BIT_PATTERN_31.reshape(512, 2).astype(np.float32)
 
 
 @functools.lru_cache(maxsize=None)
@@ -102,22 +90,8 @@ def orient_and_describe(slab: torch.Tensor, xy: torch.Tensor,
     angle = torch.atan2(m01, m10)
 
     # rotated BRIEF from the blurred patch
-    pat = torch.from_numpy(_PATTERN_XY).to(dev)
-    px = pat[None, :, 0]
-    py = pat[None, :, 1]
-    ca, sa = torch.cos(angle)[:, None], torch.sin(angle)[:, None]
-    rx = torch.round(px * ca - py * sa)
-    ry = torch.round(px * sa + py * ca)
+    rx, ry = rotated_pattern(angle)
     lx = torch.clamp((xy[:, 0:1] + rx).to(torch.int64) - x0[:, None], 0, ps - 1)
     ly = torch.clamp((xy[:, 1:2] + ry).to(torch.int64) - y0[:, None], 0, ps - 1)
     samples = _gather_patch(blur, ly, lx)                   # [N, 512]
-
-    bits = (samples[:, 0::2] < samples[:, 1::2]).to(torch.int64)
-    words = torch.sum(bits.reshape(N, 8, 32)
-                      << torch.arange(32, dtype=torch.int64, device=dev), dim=-1)
-    return angle, to_int32_bits(words)
-
-
-def to_int32_bits(words: torch.Tensor) -> torch.Tensor:
-    """int64 values in [0, 2**32) -> int32 with the same 32 bits."""
-    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+    return angle, pack_bits(samples)

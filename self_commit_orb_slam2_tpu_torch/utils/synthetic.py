@@ -1,7 +1,7 @@
 """Synthetic textured-scene renderer with exact ground truth.
 
-The port's own copy of the JAX package's utils/synthetic.py (numpy only; the
-vocabulary-training corpus textures are left out), so the same seed gives the
+The port's own copy of the JAX package's utils/synthetic.py (numpy only,
+with the vocabulary-training corpus textures), so the same seed gives the
 same arrays in both packages: a procedurally textured 3D room rendered along
 an exact camera trajectory, yielding grayscale images, dense depth maps and
 ground-truth poses for ATE evaluation.
@@ -51,6 +51,128 @@ def value_noise_texture(rng: np.random.Generator, size: int = 1024,
             m = (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
             tex[y0:y1, x0:x1][m] = np.clip(tex[y0:y1, x0:x1][m] + wgt, 0, 1)
     return (tex * 255.0).astype(np.float32)
+
+
+def voronoi_texture(rng: np.random.Generator, size: int = 640,
+                    n_cells: int = 140) -> np.ndarray:
+    """Voronoi cells with random gray levels + per-cell shading: strong
+    corners at cell junctions, flat-ish BRIEF structure inside."""
+    pts = rng.uniform(0, size, (n_cells, 2)).astype(np.float32)
+    levels = rng.uniform(0, 1, n_cells).astype(np.float32)
+    grads = rng.uniform(-0.25, 0.25, (n_cells, 2)).astype(np.float32)
+    ys, xs = np.mgrid[0:size, 0:size].astype(np.float32)
+    # blockwise nearest-seed to bound memory
+    tex = np.zeros((size, size), np.float32)
+    for y0 in range(0, size, 160):
+        yb = slice(y0, min(y0 + 160, size))
+        d = ((xs[yb][..., None] - pts[:, 0]) ** 2
+             + (ys[yb][..., None] - pts[:, 1]) ** 2)
+        cell = np.argmin(d, axis=-1)
+        g = grads[cell]
+        tex[yb] = (levels[cell]
+                   + g[..., 0] * (xs[yb] - pts[cell, 0]) / size
+                   + g[..., 1] * (ys[yb] - pts[cell, 1]) / size)
+    return np.clip(tex, 0, 1) * 255.0
+
+
+def stripe_blob_texture(rng: np.random.Generator, size: int = 640,
+                        n_blobs: int = 160) -> np.ndarray:
+    """Thresholded oriented sinusoid interference + random triangles:
+    line-end and junction corners, banded local structure."""
+    ys, xs = np.mgrid[0:size, 0:size].astype(np.float32)
+    acc = np.zeros((size, size), np.float32)
+    for _ in range(3):
+        th = rng.uniform(0, np.pi)
+        freq = rng.uniform(6, 28) * 2 * np.pi / size
+        acc += np.sin((xs * np.cos(th) + ys * np.sin(th)) * freq
+                      + rng.uniform(0, 2 * np.pi))
+    tex = (acc > rng.uniform(-0.4, 0.4)).astype(np.float32) * 0.55 + 0.2
+    for _ in range(n_blobs):
+        # small random triangle: anchor + two offsets
+        anchor = rng.uniform(0, size, 2).astype(np.float32)
+        tri = np.stack([anchor,
+                        anchor + rng.uniform(-45, 45, 2),
+                        anchor + rng.uniform(-45, 45, 2)]).astype(np.float32)
+        lo = np.clip(tri.min(0).astype(int), 0, size - 1)
+        hi = np.clip(tri.max(0).astype(int) + 1, 0, size)
+        if (hi - lo).min() <= 1:
+            continue
+        xb, yb = np.mgrid[lo[0]:hi[0], lo[1]:hi[1]].astype(np.float32)
+        p = np.stack([xb, yb], -1)
+        d = tri[[1, 2, 0]] - tri
+        s = np.stack([(p[..., 0] - tri[i, 0]) * d[i, 1]
+                      - (p[..., 1] - tri[i, 1]) * d[i, 0]
+                      for i in range(3)])
+        inside = (s >= 0).all(0) | (s <= 0).all(0)
+        lvl = rng.uniform(0, 1)
+        patch = tex[lo[1]:hi[1], lo[0]:hi[0]]
+        tex[lo[1]:hi[1], lo[0]:hi[0]] = np.where(inside.T, lvl, patch)
+    return np.clip(tex, 0, 1) * 255.0
+
+
+def warped_checker_texture(rng: np.random.Generator, size: int = 640) -> np.ndarray:
+    """Domain-warped checkerboard: dense corner lattice, curved edges."""
+    ys, xs = np.mgrid[0:size, 0:size].astype(np.float32)
+    cells = rng.uniform(8, 26)
+    wamp = rng.uniform(4, 22)
+    wfreq = rng.uniform(1.5, 4.0) * 2 * np.pi / size
+    u = xs + wamp * np.sin(ys * wfreq + rng.uniform(0, 6))
+    v = ys + wamp * np.cos(xs * wfreq * rng.uniform(0.7, 1.4))
+    a, b = rng.uniform(0.1, 0.45), rng.uniform(0.55, 0.95)
+    tex = np.where(((u * cells / size).astype(int)
+                    + (v * cells / size).astype(int)) % 2 == 0, a, b)
+    # random gray rectangles break the global periodicity
+    for _ in range(60):
+        cx, cy = rng.integers(0, size, 2)
+        w, h = rng.integers(6, 50, 2)
+        tex[cy:cy + h, cx:cx + w] = rng.uniform(0, 1)
+    return np.clip(tex, 0, 1).astype(np.float32) * 255.0
+
+
+def halftone_texture(rng: np.random.Generator, size: int = 640) -> np.ndarray:
+    """Rotated halftone disc grid with noise-modulated radii: blob corners
+    at many scales."""
+    pitch = float(rng.uniform(14, 30))
+    th = rng.uniform(0, np.pi / 2)
+    c, s = np.cos(th), np.sin(th)
+    ys, xs = np.mgrid[0:size, 0:size].astype(np.float32)
+    u = xs * c + ys * s
+    v = -xs * s + ys * c
+    gu, gv = u / pitch, v / pitch
+    fu, fv = gu - np.floor(gu) - 0.5, gv - np.floor(gv) - 0.5
+    # low-frequency radius modulation
+    n = 8
+    grid = rng.uniform(0.25, 0.48, (n, n)).astype(np.float32)
+    gi = np.clip((ys / size * (n - 1)).astype(int), 0, n - 2)
+    gj = np.clip((xs / size * (n - 1)).astype(int), 0, n - 2)
+    r = grid[gi, gj]
+    fg, bg = rng.uniform(0.6, 0.95), rng.uniform(0.05, 0.4)
+    tex = np.where(fu * fu + fv * fv < r * r, fg, bg).astype(np.float32)
+    return np.clip(tex, 0, 1) * 255.0
+
+
+CORPUS_FAMILIES = ("voronoi", "stripe_blob", "warped_checker", "halftone")
+
+
+def corpus_texture(rng: np.random.Generator, size: int = 640) -> np.ndarray:
+    """One training-corpus texture: random held-out family + random
+    photometric augmentation (gamma / contrast / brightness / vignette) so
+    the vocabulary sees varied lighting, never the value-noise family."""
+    kind = CORPUS_FAMILIES[int(rng.integers(len(CORPUS_FAMILIES)))]
+    tex = {
+        "voronoi": voronoi_texture,
+        "stripe_blob": stripe_blob_texture,
+        "warped_checker": warped_checker_texture,
+        "halftone": halftone_texture,
+    }[kind](rng, size=size)
+    x = tex / 255.0
+    x = np.clip(x ** rng.uniform(0.55, 1.7)
+                * rng.uniform(0.7, 1.25) + rng.uniform(-0.12, 0.12), 0, 1)
+    if rng.random() < 0.4:  # vignette
+        ys, xs = np.mgrid[0:size, 0:size].astype(np.float32)
+        d2 = ((xs / size - 0.5) ** 2 + (ys / size - 0.5) ** 2) * 4
+        x = x * (1.0 - rng.uniform(0.2, 0.5) * d2)
+    return (x * 255.0).astype(np.float32)
 
 
 @dataclass

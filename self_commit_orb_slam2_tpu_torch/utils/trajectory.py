@@ -1,7 +1,8 @@
-"""Trajectory export in TUM format (reference System::SaveTrajectoryTUM,
-src/System.cc:414-503).  Poses are Tcw; the file stores camera-in-world as
-`t tx ty tz qx qy qz qw`.  The port's own copy of the JAX package's
-utils/trajectory.py."""
+"""Trajectory export in TUM and KITTI formats (reference
+System::SaveTrajectoryTUM / SaveKeyFrameTrajectoryTUM / SaveTrajectoryKITTI,
+src/System.cc:414-607).  Poses are Tcw; the files store camera-in-world, TUM
+as `t tx ty tz qx qy qz qw`, KITTI as row-major 3x4.  The port's own copy of
+the JAX package's utils/trajectory.py."""
 
 from __future__ import annotations
 
@@ -29,6 +30,14 @@ def save_tum(path: str, timestamps: np.ndarray, poses_cw: np.ndarray) -> None:
             t = Twc[:3, 3]
             f.write(f"{ts:.6f} {t[0]:.7f} {t[1]:.7f} {t[2]:.7f} "
                     f"{q[0]:.7f} {q[1]:.7f} {q[2]:.7f} {q[3]:.7f}\n")
+
+
+def save_kitti(path: str, poses_cw: np.ndarray) -> None:
+    with open(path, "w") as f:
+        for Tcw in poses_cw:
+            Twc = _inverse_np(np.asarray(Tcw, np.float64))
+            row = Twc[:3, :4].reshape(-1)
+            f.write(" ".join(f"{v:.9e}" for v in row) + "\n")
 
 
 def load_tum(path: str) -> tuple[np.ndarray, np.ndarray]:

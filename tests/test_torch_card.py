@@ -549,3 +549,46 @@ def test_streamed_loop_closure_on_card(cuda):
     assert slam.state == STATE_OK
     _, est = slam.get_trajectory()
     assert np.all(np.isfinite(est)) and len(est) == 36 + 8
+
+
+@pytest.mark.parametrize("cell_size,kernel", [(16, "fast_band"), (8, "fast_nms")])
+def test_extract_on_card_launches_its_kernel_and_equals_cpu(cuda, cell_size, kernel):
+    """The unbatched extract: at 16-px cells a card tensor reaches B1, at
+    8-px cells B2, once each; the features equal the CPU's (the kernels are
+    bitwise equal to the plain versions the CPU runs; the pyramid's matmuls
+    may differ in the last ulp, so >= 99% of keypoints and level 0 exactly)."""
+    from self_commit_orb_slam2_tpu_torch.ops.orb.extractor import OrbConfig, extract
+    from self_commit_orb_slam2_tpu_torch.utils.synthetic import generate_sequence
+
+    img = torch.from_numpy(generate_sequence(n_frames=1, width=320, height=240, fx=260.0,
+                                             seed=5).images[0])
+    cfg = OrbConfig(n_features=500, cell_size=cell_size)
+    kernels = {"fast_band": fast_band.kernel, "fast_nms": fast_nms.kernel}
+    before = {k: v.launches for k, v in kernels.items()}
+    got = extract(img.to(cuda), cfg)
+    torch.cuda.synchronize()
+    after = {k: v.launches - before[k] for k, v in kernels.items()}
+    assert after == {k: int(k == kernel) for k in kernels}
+    want = extract(img, cfg)
+    same = (got.xy.cpu() == want.xy).all(1) & (got.valid.cpu() == want.valid)
+    lvl0 = want.valid & (want.level == 0)
+    assert int(lvl0.sum()) > 100 and bool(same[lvl0].all())
+    assert float(same.float().mean()) >= 0.99
+
+
+def test_native_decoder_builds_on_the_card_machine(tmp_path):
+    """The native decoder (csrc/slamio.cc, g++ and zlib) builds where the
+    port runs, and reads what the viewer's stdlib PNG writer writes."""
+    from self_commit_orb_slam2_tpu_torch.utils import datasets, native_io, viewer
+
+    if not torch.cuda.is_available():
+        pytest.skip("checks the machine that holds the card")
+    assert native_io.available(), native_io.build_error
+    rng = np.random.default_rng(0)
+    for name, arr in (("g8.png", rng.integers(0, 255, (48, 64), dtype=np.uint8)),
+                      ("g16.png", rng.integers(0, 65535, (48, 64), dtype=np.uint16))):
+        path = str(tmp_path / name)
+        viewer.save_png(path, arr)
+        before = datasets.DECODES["native"]
+        np.testing.assert_array_equal(datasets._load_gray(path), arr.astype(np.float32))
+        assert datasets.DECODES["native"] == before + 1

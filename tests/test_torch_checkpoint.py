@@ -65,7 +65,7 @@ def test_round_trip(with_vocab, rng, tmp_path):
     assert m.kf_bow_ids.shape[1] == (16 if with_vocab else 1)
     path = str(tmp_path / "map.npz")
     checkpoint.save_map(path, m)
-    _assert_maps_equal(checkpoint.load_map(path), m)
+    _assert_maps_equal(checkpoint.load_map(path, device="cpu"), m)
 
 
 def test_port_checkpoint_loads_in_jax(rng, tmp_path):
@@ -101,10 +101,10 @@ def test_jax_checkpoint_loads_in_port(rng, tmp_path):
         for name, t in m._asdict().items()})
     path = str(tmp_path / "jax.npz")
     jcheckpoint.save_map(path, jm)
-    _assert_maps_equal(checkpoint.load_map(path), m)
+    _assert_maps_equal(checkpoint.load_map(path, device="cpu"), m)
     # and the file the port writes from it is the file the JAX package wrote
     path2 = str(tmp_path / "port.npz")
-    checkpoint.save_map(path2, checkpoint.load_map(path))
+    checkpoint.save_map(path2, checkpoint.load_map(path, device="cpu"))
     with np.load(path) as a, np.load(path2) as b:
         assert sorted(a.files) == sorted(b.files)
         for name in a.files:
@@ -125,18 +125,21 @@ def test_refusals_and_defaults(rng, tmp_path):
     path = str(tmp_path / "map.npz")
     checkpoint.save_map(path, m)
     with pytest.raises(ValueError, match="unknown MapState fields"):
-        checkpoint.load_map(_resave(path, str(tmp_path / "a.npz"), kf_colour=np.zeros(3)))
+        checkpoint.load_map(_resave(path, str(tmp_path / "a.npz"), kf_colour=np.zeros(3)),
+                            device="cpu")
     with pytest.raises(ValueError, match="newer"):
         checkpoint.load_map(_resave(path, str(tmp_path / "b.npz"),
-                                    __schema_version__=np.int32(checkpoint.SCHEMA_VERSION + 1)))
+                                    __schema_version__=np.int32(checkpoint.SCHEMA_VERSION + 1)),
+                            device="cpu")
     with pytest.raises(ValueError, match="schema version"):
-        checkpoint.load_map(_resave(path, str(tmp_path / "c.npz"), drop=("__schema_version__",)))
+        checkpoint.load_map(_resave(path, str(tmp_path / "c.npz"), drop=("__schema_version__",)),
+                            device="cpu")
     with pytest.raises(ValueError, match="missing MapState field 'pt_pos'"):
-        checkpoint.load_map(_resave(path, str(tmp_path / "d.npz"), drop=("pt_pos",)))
+        checkpoint.load_map(_resave(path, str(tmp_path / "d.npz"), drop=("pt_pos",)), device="cpu")
     # fields with a documented default are synthesized, as in the JAX package
     old = checkpoint.load_map(_resave(path, str(tmp_path / "e.npz"),
                                       drop=("pt_birth", "kf_tree_parent_seq"),
-                                      __schema_version__=np.int32(1)))
+                                      __schema_version__=np.int32(1)), device="cpu")
     assert torch.equal(old.pt_birth, torch.zeros(64, dtype=torch.int32))
     assert torch.equal(old.kf_tree_parent_seq, torch.full((6,), -1, dtype=torch.int32))
     assert checkpoint.SCHEMA_VERSION == jcheckpoint.SCHEMA_VERSION

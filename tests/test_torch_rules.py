@@ -203,3 +203,145 @@ def test_slab_border_mask_built_once_per_shape():
     assert (after.misses, after.hits) == (before.misses + 1, before.hits + 2)
     detect.select_keypoints_slab(score[:2], score[:2], [20, 10], dims[:2], cell=8, border=8)
     assert detect._border_mask.cache_info().misses == before.misses + 2
+
+
+# ------------------------------------------------------------- copies, by source
+
+PORT = ROOT / "self_commit_orb_slam2_tpu_torch"
+JAX = ROOT / "self_commit_orb_slam2_tpu"
+
+
+def _defs(path):
+    """Top-level function and class definitions of a module, docstrings
+    dropped, as ast dumps keyed by name."""
+    out = {}
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            for n in ast.walk(node):
+                body = getattr(n, "body", None)
+                if (isinstance(n, (ast.FunctionDef, ast.ClassDef)) and body
+                        and isinstance(body[0], ast.Expr)
+                        and isinstance(body[0].value, ast.Constant)
+                        and isinstance(body[0].value.value, str)):
+                    n.body = body[1:] or [ast.Pass()]
+            out[node.name] = ast.dump(node)
+    return out
+
+
+# (module, definitions the port copies verbatim from the JAX package's module)
+COPIES = [
+    ("utils/datasets.py", ["_read_timestamp_file", "RgbdFrame", "TumRgbdDataset",
+                           "StereoFrame", "KittiOdometryDataset", "EurocDataset"]),
+    ("utils/config_io.py", ["load_settings"]),
+    ("utils/viewer.py", ["draw_frame", "_to_px", "draw_map_topdown"]),
+    ("utils/trajectory.py", ["_inverse_np", "save_kitti"]),
+    ("utils/synthetic.py", ["value_noise_texture", "voronoi_texture", "stripe_blob_texture",
+                            "warped_checker_texture", "halftone_texture", "corpus_texture"]),
+    ("utils/native_io.py", ["available", "load_gray"]),
+    ("stream_slam.py", ["write_frame", "_read_exact", "read_frame", "write_pose", "read_pose",
+                        "serve"]),
+    ("ops/orb/orientation.py", ["_circular_mask", "_separable_factors", "_band_matrix"]),
+    ("ops/orb/pyramid.py", ["gaussian_kernel_1d", "_blur_matrix"]),
+]
+
+
+@pytest.mark.parametrize("module,names", COPIES, ids=[m for m, _ in COPIES])
+def test_copies_equal_their_originals(module, names):
+    ours, theirs = _defs(PORT / module), _defs(JAX / module)
+    for name in names:
+        assert ours[name] == theirs[name], f"{module}::{name} differs from the JAX package's"
+
+
+def test_stage_timer_copy():
+    """StageTimer: the JAX package's summary and medians; cuda=True only adds
+    the synchronizations around a stage."""
+    from self_commit_orb_slam2_tpu.utils import profiling as jprofiling
+    from self_commit_orb_slam2_tpu_torch.utils import profiling
+
+    ours, theirs = _defs(PORT / "utils/profiling.py"), _defs(JAX / "utils/profiling.py")
+    ours_t, theirs_t = profiling.StageTimer(), jprofiling.StageTimer()
+    for t in (ours_t, theirs_t):
+        with t("decode"):
+            pass
+        t.samples["track"].extend([0.25, 0.5, 0.125])
+    ours_t.samples["decode"] = list(theirs_t.samples["decode"])
+    assert ours_t.summary() == theirs_t.summary()
+    assert ours_t.medians() == theirs_t.medians()
+    assert "device_trace" in ours and "device_trace" in theirs
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            with profiling.StageTimer(cuda=True)("x"):
+                pass
+
+
+def test_slamio_source_is_a_byte_equal_copy():
+    assert (PORT / "csrc" / "slamio.cc").read_bytes() == (JAX / "native" / "slamio.cc").read_bytes()
+    from self_commit_orb_slam2_tpu_torch.utils import native_io
+
+    assert native_io.SOURCE == PORT / "csrc" / "slamio.cc"
+    assert "self_commit_orb_slam2_tpu/" not in (PORT / "utils" / "native_io.py").read_text()
+
+
+def test_load_map_defaults_to_the_card(tmp_path):
+    """checkpoint.load_map puts the map on the card unless asked for the CPU."""
+    from self_commit_orb_slam2_tpu_torch.models import checkpoint, map_state
+
+    path = str(tmp_path / "m.npz")
+    checkpoint.save_map(path, map_state.empty_map(_cfg(), "cpu"))
+    assert checkpoint.load_map(path, device="cpu").kf_Tcw.device.type == "cpu"
+    if torch.cuda.is_available():
+        assert checkpoint.load_map(path).kf_Tcw.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            checkpoint.load_map(path)
+
+
+# ------------------------------------------------------- the name-by-name guard
+
+# JAX names whose port counterpart carries another name (module -> port module
+# or "module::name"): the Pallas wrappers became the CUDA kernels' wrappers,
+# and the jnp remap its torch form.
+RENAMED = {
+    ("ops/orb/fast_pallas.py", "fast_nms_bands_hi_lo"): ("ops/orb/fast_band.py",
+                                                         "fast_nms_bands_hi_lo"),
+    ("ops/orb/fast_pallas.py", "fast_nms_hi_lo"): ("ops/orb/fast_nms.py", "fast_nms_hi_lo"),
+    ("utils/rectify.py", "remap_bilinear_jnp"): ("utils/rectify.py", "remap_bilinear_torch"),
+}
+# Slice 8 (multi-device): the only names the port may still lack.
+SLICE_8_MODULES = ("parallel/", "refine_maps.py")
+
+
+def _public_names(pkg):
+    """{(module, qualified name)} of top-level functions, classes and their
+    methods; names with a leading underscore are private, dunders count."""
+    out = set()
+    for path in pkg.rglob("*.py"):
+        rel = str(path.relative_to(pkg))
+        for node in ast.parse(path.read_text()).body:
+            if not isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+                continue
+            names = [node.name]
+            if isinstance(node, ast.ClassDef):
+                names += [f"{node.name}.{m.name}" for m in node.body
+                          if isinstance(m, ast.FunctionDef)]
+            for name in names:
+                if not any(p.startswith("_") and not p.endswith("__") for p in name.split(".")):
+                    out.add((rel, name))
+    return out
+
+
+def test_every_jax_name_has_a_port_counterpart():
+    """The port does all that the JAX package does, but multi-device: every
+    public function, class and method of the JAX package has a counterpart
+    of the same name in the same module of the port (or its renamed one),
+    and the only names missing are slice 8's."""
+    ours, theirs = _public_names(PORT), _public_names(JAX)
+    missing = {key for key in theirs if RENAMED.get(key, key) not in ours}
+    slice8 = {key for key in missing if key[0].startswith(SLICE_8_MODULES)}
+    assert missing == slice8, sorted(missing - slice8)
+    assert {m for m, _ in slice8} == {"refine_maps.py", "parallel/mesh.py", "parallel/hosts.py",
+                                      "parallel/distributed_ba.py",
+                                      "parallel/distributed_pose_graph.py",
+                                      "parallel/multi_map.py", "parallel/fleet.py"}
+    assert all(v in ours for v in RENAMED.values())
+    assert ("models/loop_closing.py", "run_sharded_gba") in ours   # its body is slice 8's
