@@ -105,11 +105,34 @@ Phases (any failure exits non-zero and prints no result):
      each driver run's frames/s, ms per frame and decode share (host clock,
      synchronized with the card), and B1's launches (once per extraction
      call; B2 never).
+ 14. path 8, the multi-device layer on the one card (a world of one rank):
+       a. path 6's scenario at run_slam's TUM capacities (the default
+          Capacities(), 256 / 65536 / 2048): STATE_OK, >= 1 closure, the
+          dispatched global BA takes the sharded branch (the distributed
+          Schur BA on a 1 x 1 mesh) and is merged, corrected ATE below raw,
+          B1 once per chunk and the first frame (bitwise on the first frame
+          and the chunk at frame 113); the sharded GBA's ms, its peak memory
+          on the card and the stall it cost the stream;
+       b. refine_maps.main on (a)'s map and a copy perturbed by N(0, 5e-3)
+          (keyframe poses and points), --mesh 1x1: rc 0, the perturbed map's
+          mean squared reprojection error below 0.2x its value before, (a)'s
+          map's not above; the pose graph's and the BA's ms, peak memory;
+       c. FleetTracker serving 4 RGB-D streams (generate_sequence seeds 5 to
+          8, 1 + 24 frames each, 640x480, 1000 features, the bench's
+          capacities, chunks of 4): each STATE_OK with ATE < 0.01 m, stream 0
+          within 5e-2 of a solo System on its frames, B1 once per stream per
+          extraction call; frames/s per stream and for the fleet; then
+          initialize_localization of 2 streams on path 3's saved map;
+       d. NCCL at a world of one rank (hosts.initialize over a file://
+          rendezvous): the distributed BA and pose graph at
+          __graft_entry__.py's shapes equal the same calls with no process
+          group within 1e-6; the group torn down.
+     No multi-GPU run: the card is one.
 
 Frame rendering (numpy, host) runs in a pool of worker processes started
 first, beside the card work.  The second-to-last line is the kernels JSON
 (each kernel with its launches on its own path; the band kernel also with
-those on paths 3 to 7 and its times at the stereo shapes); the last line is
+those on paths 3 to 8 and its times at the stereo shapes); the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -716,7 +739,7 @@ def phase_path3(seq, kernels, vocab):
     print(f"[{label}] counts: fast_band launches {n_extract} ({launches_a} in (a)), fast_nms 0; "
           f"mapping passes {len(pass_s)}; relocalization attempts {attempts_d}, "
           f"successes {ok_d} (the 3 timed calls included)")
-    return n_extract, fps, ate, reloc_ms
+    return n_extract, fps, ate, reloc_ms, other.map
 
 
 def _u8(images) -> np.ndarray:
@@ -1067,6 +1090,76 @@ def _to(m, device):
     return type(m)(*(x.to(device) for x in m))
 
 
+def _stream_loop(label, slam, seq6, kernels, ph):
+    """Stream the drifting revolution through slam's closer: the first
+    chunk with the initializing frame, then a chunk per feed with drift
+    injected between feeds (frames DRIFT_FROM to DRIFT_TO) and a poll after
+    each, every launch and relocalization count set to 0 first.  Returns
+    the chunk times (host clock, synced), the chunks in which a closure
+    landed (with the counts of the phase calls in `ph`, the closer's timed
+    phases, before it), the launches, both ATEs and the closer's counters."""
+    import torch
+
+    from self_commit_orb_slam2_tpu_torch.models import relocalization
+    from self_commit_orb_slam2_tpu_torch.utils.drift import make_injector, se3_increment
+    from self_commit_orb_slam2_tpu_torch.utils.evaluation import ate_rmse
+
+    lc = slam._loop_closer
+    images, depths = _u8(seq6.images), np.clip(seq6.depths * 1e3, 0, 65535).astype(np.uint16)
+    ts = seq6.timestamps
+    inject = make_injector(keep_recent=6)
+    dD = torch.linalg.matrix_power(se3_increment(DRIFT_TWIST).double(), CHUNK).float().cuda()
+    for k in kernels.values():
+        k.launches = 0
+    relocalization.reset_counts()
+    sess = slam.open_stream("rgbd", CHUNK)
+    t_start = time.perf_counter()
+    sess.feed((images[:1 + CHUNK], depths[:1 + CHUNK]), ts[:1 + CHUNK])
+    torch.cuda.synchronize()
+    done, chunk_ms, events = 1 + CHUNK, [], []
+    while done < N_LOOP:
+        t0 = time.perf_counter()
+        sl = slice(done, min(done + CHUNK, N_LOOP))
+        sess.feed((images[sl], depths[sl]), ts[sl])
+        done = sl.stop
+        if DRIFT_FROM <= done <= DRIFT_TO:
+            slam.map = inject(slam.map, dD, 1.0)
+        sess.poll()
+        torch.cuda.synchronize()
+        chunk_ms.append((time.perf_counter() - t0) * 1e3)
+        if lc.n_big_changes > len(events):
+            events.append((len(chunk_ms) - 1, done, {k: len(v) for k, v in ph.items()}))
+    t0 = time.perf_counter()
+    sess.finish()
+    torch.cuda.synchronize()
+    chunk_ms.append((time.perf_counter() - t0) * 1e3)
+    stream_s = time.perf_counter() - t_start
+    launches = {k.name: k.launches for k in kernels.values()}
+    attempts, _ = relocalization.counts()
+    _, est = slam.get_trajectory()
+    raw = np.stack([T for _, T in slam.trajectory])
+    gt = seq6.poses_gt[:N_LOOP]
+    require(len(est) == N_LOOP and np.all(np.isfinite(est)), f"{label}: bad trajectory")
+    return dict(chunk_ms=chunk_ms, events=events, stream_s=stream_s, launches=launches,
+                attempts=attempts, closures=lc.n_big_changes, gba_info=dict(lc.last_gba_info),
+                ate=float(ate_rmse(est, gt)), ate_raw=float(ate_rmse(raw, gt)))
+
+
+def _b1_on_loop_frames(label, seq6, orb):
+    """B1 on the drifting revolution's first frame and its chunk at frame 113
+    (where path 6 closes), bitwise against its plain version."""
+    from self_commit_orb_slam2_tpu_torch.ops.orb import fast_band
+    from self_commit_orb_slam2_tpu_torch.tools.time_fast import frames_slab
+
+    images = _u8(seq6.images)
+    for what, frames in (("first frame", images[:1]), ("chunk at frame 113", images[113:117])):
+        slab, H0p, dims = frames_slab(frames, orb, band=True)
+        args = (orb.fast_threshold_hi, orb.fast_threshold_lo, H0p, dims, orb.border, orb.n_levels)
+        out_k = fast_band.fast_nms_bands_hi_lo(slab, *args)
+        _check_kernel("fast_band", f"{label} {what}", out_k,
+                      fast_band.fast_bands_plain(slab, *args), int((out_k[2] > 0).sum()))
+
+
 def phase_path6(seq6, kernels, vocab):
     """The default operating point with loop closing on, streamed; then one
     per-frame closure; then the loop stages on the card against the CPU."""
@@ -1075,11 +1168,7 @@ def phase_path6(seq6, kernels, vocab):
     from self_commit_orb_slam2_tpu_torch.models import loop_closing, pipeline, relocalization
     from self_commit_orb_slam2_tpu_torch.models.system import (
         STATE_NOT_INITIALIZED, STATE_OK, System)
-    from self_commit_orb_slam2_tpu_torch.ops.orb import fast_band
-    from self_commit_orb_slam2_tpu_torch.tools.time_fast import frames_slab
-    from self_commit_orb_slam2_tpu_torch.utils.drift import (
-        displace_old_content, make_injector, se3_increment)
-    from self_commit_orb_slam2_tpu_torch.utils.evaluation import ate_rmse
+    from self_commit_orb_slam2_tpu_torch.utils.drift import displace_old_content, se3_increment
 
     label = "path 6"
     cfg = _bench_config(vocab)
@@ -1087,18 +1176,7 @@ def phase_path6(seq6, kernels, vocab):
     lc = slam._loop_closer
     require(lc is not None and lc.enabled and cfg.tracking.enable_loop_gba
             and cfg.tracking.loop_consistency_th == 3, f"{label}: System(cfg) built no closer")
-    images, depths = _u8(seq6.images), np.clip(seq6.depths * 1e3, 0, 65535).astype(np.uint16)
-    ts = seq6.timestamps
-    inject = make_injector(keep_recent=6)
-    dD = torch.linalg.matrix_power(se3_increment(DRIFT_TWIST).double(), CHUNK).float().cuda()
-    # B1 on this path's own first frame and its chunk at the closure, bitwise
-    orb = cfg.orb
-    for what, frames in (("first frame", images[:1]), ("chunk at frame 113", images[113:117])):
-        slab, H0p, dims = frames_slab(frames, orb, band=True)
-        args = (orb.fast_threshold_hi, orb.fast_threshold_lo, H0p, dims, orb.border, orb.n_levels)
-        out_k = fast_band.fast_nms_bands_hi_lo(slab, *args)
-        _check_kernel("fast_band", f"{label} {what}", out_k,
-                      fast_band.fast_bands_plain(slab, *args), int((out_k[2] > 0).sum()))
+    _b1_on_loop_frames(label, seq6, cfg.orb)
 
     # the first correction's inputs and its pose graph's, for the card / CPU check
     captured = {}
@@ -1115,42 +1193,14 @@ def phase_path6(seq6, kernels, vocab):
     loop_closing.correct_loop, loop_closing.optimize_pose_graph = spy_correct, spy_graph
     try:
         with loop_closing.timed_phases() as ph, pipeline.timed_mapping_passes() as pass_s:
-            for k in kernels.values():
-                k.launches = 0
-            relocalization.reset_counts()
-            sess = slam.open_stream("rgbd", CHUNK)
-            t_start = time.perf_counter()
-            sess.feed((images[:1 + CHUNK], depths[:1 + CHUNK]), ts[:1 + CHUNK])
-            torch.cuda.synchronize()
-            done, chunk_ms, events = 1 + CHUNK, [], []
-            while done < N_LOOP:
-                t0 = time.perf_counter()
-                sl = slice(done, min(done + CHUNK, N_LOOP))
-                sess.feed((images[sl], depths[sl]), ts[sl])
-                done = sl.stop
-                if DRIFT_FROM <= done <= DRIFT_TO:
-                    slam.map = inject(slam.map, dD, 1.0)
-                sess.poll()
-                torch.cuda.synchronize()
-                chunk_ms.append((time.perf_counter() - t0) * 1e3)
-                if lc.n_big_changes > len(events):
-                    events.append((len(chunk_ms) - 1, done, {k: len(v) for k, v in ph.items()}))
-            t0 = time.perf_counter()
-            sess.finish()
-            torch.cuda.synchronize()
-            chunk_ms.append((time.perf_counter() - t0) * 1e3)
-            stream_s = time.perf_counter() - t_start
-            launches = {k.name: k.launches for k in kernels.values()}
-            attempts, _ = relocalization.counts()
-            n_stream_closures = lc.n_big_changes
-            gba_info = dict(lc.last_gba_info)
+            run = _stream_loop(label, slam, seq6, kernels, ph)
+            chunk_ms, events, stream_s, launches = (run[k] for k in (
+                "chunk_ms", "events", "stream_s", "launches"))
+            attempts, n_stream_closures, gba_info = (run[k] for k in (
+                "attempts", "closures", "gba_info"))
             stream_ph = {k: list(v) for k, v in ph.items()}
             changed = [slam.map_changed(), slam.map_changed()]
-            _, est = slam.get_trajectory()
-            raw = np.stack([T for _, T in slam.trajectory])
-            gt = seq6.poses_gt[:N_LOOP]
-            require(len(est) == N_LOOP and np.all(np.isfinite(est)), f"{label}: bad trajectory")
-            ate, ate_raw = float(ate_rmse(est, gt)), float(ate_rmse(raw, gt))
+            ate, ate_raw = run["ate"], run["ate_raw"]
             n_kf, n_pt, n_live = slam.n_keyframes(), slam.n_points(), int(slam.map.kf_valid.sum())
 
             # one per-frame closure: the whole map torn rigidly, the tracker
@@ -1702,6 +1752,355 @@ def phase_path7(seq, kitti, euroc, kernels, vocab, workdir):
     rows["warm"] = {p: (w, c[0], c[1], float(np.median(c[2:]))) for p, (w, c, _) in probes.items()}
     return b1, rows
 
+# ---------------------------------------------------------------- path 8
+# The multi-device layer on the one card (a world of one rank): a loop
+# closure at run_slam's TUM capacities takes the sharded global BA;
+# refine_maps on that map and a perturbed copy; a FleetTracker serving 4
+# RGB-D streams, then 2 localization streams on path 3's saved map; NCCL
+# at a world of one rank.
+N_FLEET, N_FLEET_FRAMES, FLEET_SEED = 4, 25, 5
+PERTURB_SIGMA = 5e-3
+
+
+def _peak_timed(fn):
+    """fn() with the card synced on both sides: (result, ms on the host
+    clock, the most bytes allocated on the card during the call)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, torch.cuda.max_memory_allocated()
+
+
+def _gba_bound_ms(K: int, P: int, n_iters: int) -> float:
+    """Least time of the sharded GBA's dense Schur products alone: per
+    iteration [6K, 3P] @ [3P, 6K] (2 * 36 K^2 * 3P fp32 operations) at the
+    card's fp32 peak."""
+    return n_iters * 2.0 * (6 * K) ** 2 * 3 * P / PEAK_FP32_PER_S * 1e3
+
+
+def phase_path8a(seq6, kernels, vocab):
+    """Path 6's scenario at run_slam's TUM capacities (the port's default
+    Capacities(), 256 / 65536 / 2048): every closure's global BA takes the
+    sharded branch (max_kf * max_pt > 4 Mi) and is merged."""
+    import torch
+
+    from self_commit_orb_slam2_tpu_torch.models import loop_closing, pipeline
+    from self_commit_orb_slam2_tpu_torch.models.config import Capacities
+    from self_commit_orb_slam2_tpu_torch.models.system import STATE_OK, System
+
+    label = "path 8a"
+    cfg = _bench_config(vocab)._replace(caps=Capacities())
+    slam = System(cfg)
+    lc = slam._loop_closer
+    require(lc is not None and lc.enabled, f"{label}: System(cfg) built no closer")
+    require(loop_closing._needs_sharded_gba(slam.config, slam.map),
+            f"{label}: {cfg.caps.max_keyframes} x {cfg.caps.max_points} takes the dense GBA")
+    _b1_on_loop_frames(label, seq6, cfg.orb)
+    gba = []
+    orig = loop_closing.run_sharded_gba
+
+    def timed_gba(config, m, anchor_kf):
+        out, ms, peak = _peak_timed(lambda: orig(config, m, anchor_kf))
+        require(all(bool(torch.isfinite(x).all()) for x in out), f"{label}: non-finite GBA")
+        gba.append((ms, peak))
+        return out
+
+    loop_closing.run_sharded_gba = timed_gba
+    try:
+        with loop_closing.timed_phases() as ph, pipeline.timed_mapping_passes() as pass_s:
+            run = _stream_loop(label, slam, seq6, kernels, ph)
+    finally:
+        loop_closing.run_sharded_gba = orig
+    chunk_ms, launches = run["chunk_ms"], run["launches"]
+    fps = N_LOOP / run["stream_s"]
+    med = float(np.median(chunk_ms[4:]))
+    stalls = [float(np.max(chunk_ms[max(c - 1, 0): c + 3]) - med) for c, _, _ in run["events"]]
+    K, P = cfg.caps.max_keyframes, cfg.caps.max_points
+    bound = _gba_bound_ms(K, P, 10)
+    print(f"[{label}] {N_LOOP} frames of path 6's drifting revolution at run_slam's TUM "
+          f"capacities {K} / {P} / {cfg.caps.local_points}: state {slam.state}, keyframes "
+          f"{slam.n_keyframes()} ({int(slam.map.kf_valid.sum())} live), points "
+          f"{slam.n_points()}, closures {run['closures']} (frames "
+          f"{[f for _, f, _ in run['events']]}), last GBA {run['gba_info']}; ATE corrected "
+          f"{run['ate']:.6f} m, raw per-frame {run['ate_raw']:.6f} m; relocalization attempts "
+          f"{run['attempts']}; launches {launches}")
+    print(f"[{label}] stream {run['stream_s']:.3f} s = {fps:.2f} frames/s (host clock, synced "
+          f"per chunk), median chunk {med:.1f} ms, mapping passes {len(pass_s)}")
+    for name, v in ph.items():
+        print(f"[{label}] {name}: {len(v)} calls, mean {np.mean(v):.1f} ms, max "
+              f"{np.max(v):.1f} ms (host clock, synced)")
+    for (ms, peak), stall in zip(gba, stalls):
+        print(f"[{label}] sharded global BA (10 Huber iterations, 1 x 1 mesh, dense [{6 * K}, "
+              f"{3 * P}] cross block): {ms:.1f} ms (host clock, synced), peak "
+              f"{peak / 2**30:.3f} GiB allocated on the card during it; its Schur products' "
+              f"least time {bound:.1f} ms at {PEAK_FP32_PER_S / 1e12:.0f} TFLOP/s; the closure "
+              f"stalled the stream {stall:.1f} ms over the median chunk (worst chunk of the 4 "
+              "around it, bench.py's measure)")
+    require(slam.state == STATE_OK, f"{label}: tracking lost")
+    require(run["closures"] >= 1, f"{label}: no loop closed in the stream")
+    require(len(gba) >= 1 and run["gba_info"].get("gba_path") == "sharded",
+            f"{label}: no sharded global BA merged ({len(gba)} run, {run['gba_info']})")
+    require(run["ate"] < run["ate_raw"], f"{label}: corrected ATE {run['ate']:.6f} m not below "
+            f"raw {run['ate_raw']:.6f} m")
+    require(run["attempts"] == 0, f"{label}: {run['attempts']} relocalization attempts")
+    want = 1 + -(-(N_LOOP - 1) // CHUNK)
+    require(launches == {"fast_band": want, "fast_nms": 0},
+            f"{label}: launches {launches}, want fast_band {want}, fast_nms 0")
+    return dict(launches=want, fps=fps, ate=run["ate"], ate_raw=run["ate_raw"],
+                closures=run["closures"], gba_ms=gba[0][0], gba_peak=gba[0][1],
+                stall=stalls[0], bound=bound), cfg, slam.map
+
+
+def _mean_reproj_err(cam, m) -> float:
+    """Mean squared reprojection error (px^2) over a map's live
+    observations in front of the camera (tests/test_parallel.py's measure)."""
+    import torch
+
+    from self_commit_orb_slam2_tpu_torch.ops.camera import project
+
+    pid = torch.clamp(m.kf_obs_pt, 0, m.max_pt - 1).long()
+    active = (m.kf_obs_pt >= 0) & m.kf_feat_valid & m.kf_valid[:, None] & m.pt_valid[pid]
+    pc = torch.einsum("kij,knj->kni", m.kf_Tcw[:, :3, :3], m.pt_pos[pid]) \
+        + m.kf_Tcw[:, None, :3, 3]
+    uv, z = project(cam, pc)
+    w = (active & (z > 0.05)).to(torch.float32)
+    return float(torch.sum(torch.sum((uv - m.kf_xy) ** 2, -1) * w) / torch.clamp_min(w.sum(), 1))
+
+
+def phase_path8b(cfg, m, workdir):
+    """refine_maps on the card: (a)'s final map and a copy with keyframe
+    poses and points perturbed by N(0, 5e-3) (tests/test_parallel.py:
+    198-232), S = 2 maps at (a)'s capacities, through the CLI's main."""
+    import torch
+
+    from self_commit_orb_slam2_tpu_torch.models.checkpoint import load_map, save_map
+    from self_commit_orb_slam2_tpu_torch.ops import se3
+    from self_commit_orb_slam2_tpu_torch.parallel import multi_map
+    from self_commit_orb_slam2_tpu_torch.refine_maps import main as refine_main
+
+    label = "path 8b"
+    rng = np.random.default_rng(0)
+    noise = torch.from_numpy(rng.normal(0, PERTURB_SIGMA, (m.max_kf, 6)).astype(np.float32))
+    kf = se3.update_left(m.kf_Tcw, noise.cuda())
+    kf[0] = m.kf_Tcw[0]
+    pt = m.pt_pos + torch.from_numpy(
+        rng.normal(0, PERTURB_SIGMA, tuple(m.pt_pos.shape)).astype(np.float32)).cuda()
+    paths = [os.path.join(workdir, "loop.npz"), os.path.join(workdir, "loop_perturbed.npz")]
+    save_map(paths[0], m)
+    save_map(paths[1], m._replace(kf_Tcw=kf, pt_pos=pt))
+    yml = _settings(os.path.join(workdir, "TUM1.yaml"), WIDTH, HEIGHT, FX, 0.1, N_FEATURES, 30)
+    timed = {"pose graph": [], "bundle adjustment": []}
+    orig = multi_map.distributed_pose_graph, multi_map.distributed_bundle_adjust
+
+    def timing(name, fn):
+        def run(*a, **kw):
+            out, ms, peak = _peak_timed(lambda: fn(*a, **kw))
+            timed[name].append((ms, peak))
+            return out
+        return run
+
+    multi_map.distributed_pose_graph = timing("pose graph", orig[0])
+    multi_map.distributed_bundle_adjust = timing("bundle adjustment", orig[1])
+    try:
+        t0 = time.perf_counter()
+        rc = refine_main(paths + ["--settings", yml, "--mesh", "1x1"])
+        wall = time.perf_counter() - t0
+    finally:
+        multi_map.distributed_pose_graph, multi_map.distributed_bundle_adjust = orig
+    require(rc == 0, f"{label}: refine_maps returned {rc}")
+    before = [_mean_reproj_err(cfg.camera, load_map(p)) for p in paths]
+    after = [_mean_reproj_err(cfg.camera, load_map(p[:-4] + ".refined.npz")) for p in paths]
+    print(f"[{label}] refine_maps.main, 2 maps of {m.max_kf} x {m.max_pt} on a 1x1 mesh, "
+          f"{wall:.1f} s in all: mean squared reprojection error (px^2) {before[0]:.4f} -> "
+          f"{after[0]:.4f} ((a)'s map), {before[1]:.4f} -> {after[1]:.4f} (perturbed by "
+          f"N(0, {PERTURB_SIGMA}))")
+    for name, v in timed.items():
+        print(f"[{label}] {name}: {[round(ms, 1) for ms, _ in v]} ms per map (host clock, "
+              f"synced), peak {max(p for _, p in v) / 2**30:.3f} GiB allocated on the card")
+    require(after[1] < 0.2 * before[1], f"{label}: the perturbed map refined only from "
+            f"{before[1]:.4f} to {after[1]:.4f}")
+    require(after[0] <= before[0],
+            f"{label}: (a)'s map rose from {before[0]:.4f} to {after[0]:.4f}")
+    return dict(pg_ms=[ms for ms, _ in timed["pose graph"]],
+                ba_ms=[ms for ms, _ in timed["bundle adjustment"]],
+                peak=max(p for v in timed.values() for _, p in v), before=before, after=after)
+
+
+def phase_path8c(fleet_seqs, kernels, seq, cfg3, map3):
+    """FleetTracker serving N_FLEET RGB-D streams on the card at the bench's
+    operating point (world 1: every stream on this rank), against a solo
+    System on stream 0's frames; then 2 localization streams on path 3's
+    saved map."""
+    import torch
+
+    from self_commit_orb_slam2_tpu_torch.models.system import System
+    from self_commit_orb_slam2_tpu_torch.parallel.fleet import FleetTracker
+    from self_commit_orb_slam2_tpu_torch.utils.evaluation import ate_rmse
+
+    label = "path 8c"
+    cfg = _bench_config()
+    fleet = FleetTracker(cfg, n_streams=N_FLEET)
+    arr = lambda f, sl: np.stack([getattr(q, f)[sl] for q in fleet_seqs])  # noqa: E731
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    fleet.initialize(arr("images", 0), arr("depths", 0), arr("timestamps", 0))
+    torch.cuda.synchronize()
+    chunk_s, poses = [], []
+    for lo in range(1, N_FLEET_FRAMES, CHUNK):
+        t1 = time.perf_counter()
+        sl = slice(lo, min(lo + CHUNK, N_FLEET_FRAMES))
+        poses.append(fleet.track_chunk(arr("images", sl), arr("depths", sl),
+                                       arr("timestamps", sl)))
+        chunk_s.append(time.perf_counter() - t1)
+    total_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels.values()}
+    poses = np.concatenate(poses, axis=1)
+    est = np.concatenate([np.broadcast_to(np.eye(4, dtype=np.float32), (N_FLEET, 1, 4, 4)),
+                          poses], axis=1)
+    ates = [float(ate_rmse(est[s], q.poses_gt)) for s, q in enumerate(fleet_seqs)]
+    steady = sum(chunk_s[1:])
+    n_steady = N_FLEET_FRAMES - 1 - CHUNK
+    print(f"[{label}] FleetTracker, {N_FLEET} RGB-D streams {WIDTH}x{HEIGHT}, {N_FEATURES} "
+          f"features, capacities {cfg.caps.max_keyframes} / {cfg.caps.max_points}, mapping on, "
+          f"world 1 (every stream on this rank), 1 + {N_FLEET_FRAMES - 1} frames each in chunks "
+          f"of {CHUNK}: state_ok {fleet.state_ok.tolist()}, keyframes "
+          f"{fleet.n_keyframes().tolist()}, ATE {[round(a, 6) for a in ates]} m; launches "
+          f"{launches}")
+    print(f"[{label}] {total_s:.3f} s in all: {N_FLEET_FRAMES / total_s:.2f} frames/s per "
+          f"stream, {N_FLEET * N_FLEET_FRAMES / total_s:.2f} for the fleet; steady (after the "
+          f"first chunk) {n_steady / steady:.2f} per stream, {N_FLEET * n_steady / steady:.2f} "
+          "for the fleet (host clock, track_chunk returns the poses on the host)")
+    want = N_FLEET * (1 + len(chunk_s))
+    require(launches == {"fast_band": want, "fast_nms": 0},
+            f"{label}: launches {launches}, want fast_band {want} (once per stream per "
+            "extraction call), fast_nms 0")
+    require(fleet.state_ok.all(), f"{label}: a stream lost tracking")
+    require(max(ates) < ATE_LIMIT_M, f"{label}: ATE {ates}")
+
+    solo = System(cfg, enable_loop_closing=False)
+    q = fleet_seqs[0]
+    solo.track_batch_rgbd(q.images, q.depths, q.timestamps)
+    _, est_solo = solo.get_trajectory()
+    n = min(len(est_solo), N_FLEET_FRAMES)
+    diff = float(np.abs(est_solo[:n] - est[0, :n]).max())
+    print(f"[{label}] stream 0 against a solo System(cfg, enable_loop_closing=False) on its "
+          f"frames: max |pose difference| {diff:.2e}")
+    require(diff < 5e-2, f"{label}: stream 0 differs from the solo System by {diff}")
+
+    starts = [10, 30]
+    loc = FleetTracker(cfg3, n_streams=2, localization_only=True)
+    t1 = time.perf_counter()
+    ok = loc.initialize_localization(map3, seq.images[starts], seq.depths[starts],
+                                     np.zeros(2, np.float32))
+    torch.cuda.synchronize()
+    loc_ms = (time.perf_counter() - t1) * 1e3
+    T0_inv = np.linalg.inv(seq.poses_gt[0])
+    errs = [float(np.linalg.norm(loc.trajectories[i][0][1][:3, 3]
+                                 - (seq.poses_gt[s] @ T0_inv)[:3, 3]))
+            for i, s in enumerate(starts)]
+    print(f"[{label}] initialize_localization of 2 streams (frames {starts}) on path 3's saved "
+          f"map: success {ok.tolist()}, translation within {[round(e, 4) for e in errs]} m of "
+          f"the ground truth, {loc_ms:.1f} ms for both (host clock, synced)")
+    require(ok.all(), f"{label}: localization bring-up failed ({ok.tolist()})")
+    require(max(errs) < 0.05, f"{label}: relocalized {errs} m away")
+    return dict(launches=want, fps_stream=N_FLEET_FRAMES / total_s,
+                fps_fleet=N_FLEET * N_FLEET_FRAMES / total_s, ates=ates,
+                steady_stream=n_steady / steady, steady_fleet=N_FLEET * n_steady / steady)
+
+
+def _graft_problem(device):
+    """__graft_entry__.dryrun_multichip's shapes at one device (S = 1 map,
+    K = 4 keyframes, N = 64 observations, P = 64 points, E = 4 edge slots),
+    built with the port: the BA's and the pose graph's arguments after the
+    mesh (and the camera)."""
+    import torch
+
+    from self_commit_orb_slam2_tpu_torch.ops import se3, sim3
+    from self_commit_orb_slam2_tpu_torch.ops.camera import CameraParams, project
+
+    cam = CameraParams.create(fx=200.0, fy=200.0, cx=64.0, cy=48.0, bf=20.0, width=128,
+                              height=96)
+    S, K, N, P, E = 1, 4, 64, 64, 4
+    rng = np.random.default_rng(0)
+    pt = rng.uniform(-1, 1, (S, P, 3)).astype(np.float32)
+    pt[..., 2] += 4.0
+    poses = np.zeros((S, K, 4, 4), np.float32)
+    obs_pt = np.full((S, K, N), -1, np.int32)
+    obs_uvr = np.zeros((S, K, N, 3), np.float32)
+    for k in range(K):
+        xi = torch.tensor([0.1 * k, 0.0, 0.02 * k, 0.0, -0.02 * k, 0.0])
+        poses[0, k] = se3.se3_exp(xi).numpy()
+        sel = rng.choice(P, N, replace=False).astype(np.int32)
+        obs_pt[0, k] = sel
+        pc = pt[0, sel] @ poses[0, k][:3, :3].T + poses[0, k][:3, 3]
+        uv = project(cam, torch.from_numpy(pc))[0].numpy()
+        obs_uvr[0, k] = np.concatenate([uv, (uv[:, 0] - float(cam.bf) / pc[:, 2])[:, None]],
+                                       -1)
+    ba = [torch.from_numpy(a).to(device) for a in (
+        poses, pt, obs_pt, obs_uvr, np.ones((S, K, N), np.float32), np.ones((S, K, N), bool),
+        np.tile(np.arange(K) > 0, (S, 1)), np.ones((S, P), bool))]
+    kf_sim3 = sim3.from_se3(torch.from_numpy(poses))
+    ei, ej = np.zeros((S, E), np.int32), np.zeros((S, E), np.int32)
+    meas = sim3.identity().repeat(S, E, 1)
+    ok = np.zeros((S, E), bool)
+    for k in range(1, K):
+        ei[0, k - 1], ej[0, k - 1], ok[0, k - 1] = k, k - 1, True
+        rel = poses[0, k] @ np.linalg.inv(poses[0, k - 1])
+        meas[0, k - 1] = sim3.from_se3(torch.from_numpy(rel))
+    pg = [x.to(device) for x in (kf_sim3, torch.from_numpy(ei), torch.from_numpy(ej), meas,
+                                 torch.from_numpy(ok), torch.from_numpy(np.arange(K)[None] == 0))]
+    return cam, ba, pg
+
+
+def phase_path8d(workdir):
+    """NCCL at a world of one rank: hosts.initialize over a file://
+    rendezvous on the card; the distributed BA and pose graph at
+    __graft_entry__.py:50-80's shapes on a 1x1 mesh over that group equal
+    the same calls with no process group; the group is torn down."""
+    import torch
+    import torch.distributed as dist
+
+    from self_commit_orb_slam2_tpu_torch.parallel import hosts
+    from self_commit_orb_slam2_tpu_torch.parallel.distributed_ba import (
+        distributed_bundle_adjust)
+    from self_commit_orb_slam2_tpu_torch.parallel.distributed_pose_graph import (
+        distributed_pose_graph)
+    from self_commit_orb_slam2_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    label = "path 8d"
+    cam, ba, pg = _graft_problem("cuda")
+
+    def both(mesh):
+        return (*distributed_bundle_adjust(mesh, cam, *ba, n_iters=2),
+                *distributed_pose_graph(mesh, *pg, n_iters=2))
+
+    require(not dist.is_initialized(), f"{label}: a process group exists already")
+    ref = both(make_mesh(MeshSpec(1, 1)))
+    hosts.initialize(f"file://{os.path.join(workdir, 'rendezvous')}", 1, 0, timeout_s=120)
+    try:
+        backend = str(dist.get_backend())
+        x = torch.arange(8.0, device="cuda")
+        dist.all_reduce(x)
+        got, ms, _ = _peak_timed(lambda: both(hosts.global_mesh(n_map=1)))
+    finally:
+        hosts.shutdown()
+    diff = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    print(f"[{label}] NCCL world of 1 rank over a file:// rendezvous (backend {backend!r}): "
+          f"all_reduce on the card ok; distributed BA + pose graph (2 iterations each, "
+          f"__graft_entry__ shapes) {ms:.1f} ms, max |difference| to no process group {diff:.1e}, "
+          f"mean residual {float(got[3][0]):.2e}; group torn down {not dist.is_initialized()}")
+    require("nccl" in backend.lower(), f"{label}: backend {backend} has no NCCL")
+    require(torch.equal(x, torch.arange(8.0, device="cuda")), f"{label}: all_reduce changed x")
+    require(diff <= 1e-6, f"{label}: results differ by {diff} over NCCL")
+    require(all(bool(torch.isfinite(t).all()) for t in got) and float(got[3].max()) < 1e-4,
+            f"{label}: non-finite results or a pose-graph residual above 1e-4")
+    require(not dist.is_initialized(), f"{label}: the process group was not torn down")
+
 
 def main() -> int:
     sys.path.insert(0, HERE)
@@ -1734,6 +2133,9 @@ def main() -> int:
             baseline=EUROC["baseline"]))
         loop_jobs = _submit_frames(pool, circle_trajectory(N_LOOP, frames_per_rev=LOOP_REV), 6,
                                    **geo)
+        fleet_jobs = [pool.submit(_render, "frames", dict(geo, seed=FLEET_SEED + s,
+                                                          n_frames=N_FLEET_FRAMES))
+                      for s in range(N_FLEET)]
         kernels = phase_build()
         seq = _join_frames(seq_jobs)
         print(f"[data] generate_sequence: {N_FRAMES} frames ready "
@@ -1747,7 +2149,7 @@ def main() -> int:
             results[own]["launches"] = n
             summary.append(f"{label} {fps:.2f} frames/s, ATE {ate:.6f} m")
         vocab, bow_ms = phase_vocabulary(seq)
-        n3, fps3, ate3, reloc_ms = phase_path3(seq, kernels, vocab)
+        n3, fps3, ate3, reloc_ms, map3 = phase_path3(seq, kernels, vocab)
         results["fast_band"]["launches_path3"] = n3
         results["fast_nms"]["launches_path3"] = 0
         summary.append(f"path 3 {fps3:.2f} frames/s, ATE {ate3:.6f} m, BoW of a frame "
@@ -1800,12 +2202,34 @@ def main() -> int:
             "initializing frame {:.0f} / {:.0f} ms, first chunk {:.0f} / {:.0f} ms, median "
             "chunk {:.0f} / {:.0f} ms".format(*(rows7["warm"][p][i] for i in (1, 2, 3)
                                                for p in (True, False))))
+        r8a, cfg8, map8 = phase_path8a(seq6, kernels, vocab)
+        with tempfile.TemporaryDirectory() as workdir:
+            r8b = phase_path8b(cfg8, map8, workdir)
+            del map8
+            t0 = time.perf_counter()
+            fleet_seqs = [f.result() for f in fleet_jobs]
+            print(f"[data] path 8c: {N_FLEET} x {N_FLEET_FRAMES} frames; waited "
+                  f"{time.perf_counter() - t0:.1f} s for the render pool (host)")
+            r8c = phase_path8c(fleet_seqs, kernels, seq, _bench_config(vocab), map3)
+            phase_path8d(workdir)
+        n8 = r8a["launches"] + r8c["launches"]
+        summary.append(
+            f"path 8a {r8a['fps']:.2f} frames/s, {r8a['closures']} closures at 256 x 65536, ATE "
+            f"{r8a['ate']:.6f} m (raw {r8a['ate_raw']:.6f} m), sharded GBA {r8a['gba_ms']:.1f} ms "
+            f"(Schur products' bound {r8a['bound']:.1f} ms), peak {r8a['gba_peak'] / 2**30:.3f} "
+            f"GiB, stall {r8a['stall']:.1f} ms; path 8b refine_maps pose graph "
+            f"{r8b['pg_ms'][0]:.1f} ms, BA {r8b['ba_ms'][0]:.1f} ms per map, peak "
+            f"{r8b['peak'] / 2**30:.3f} GiB, perturbed map {r8b['before'][1]:.4f} -> "
+            f"{r8b['after'][1]:.4f} px^2; path 8c {N_FLEET} streams {r8c['fps_stream']:.2f} "
+            f"frames/s each, {r8c['fps_fleet']:.2f} for the fleet (steady "
+            f"{r8c['steady_stream']:.2f} / {r8c['steady_fleet']:.2f}), ATE max "
+            f"{max(r8c['ates']):.6f} m; path 8d NCCL world of 1 ok")
         for row in results.values():
             row.setdefault("shapes", [])
             own = row["name"] == "fast_band"
             row.update(launches_path4a=n4a if own else 0, launches_path4b=n4b if own else 0,
                        launches_path5=n5 if own else 0, launches_path6=n6 if own else 0,
-                       launches_path7=n7 if own else 0)
+                       launches_path7=n7 if own else 0, launches_path8=n8 if own else 0)
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -1814,7 +2238,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_path3",
             "launches_path4a", "launches_path4b", "launches_path5", "launches_path6",
-            "launches_path7", "shapes")
+            "launches_path7", "launches_path8", "shapes")
     print(f"[summary] {card}: {'; '.join(summary)}")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results.values()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

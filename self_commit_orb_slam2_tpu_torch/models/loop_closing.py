@@ -516,12 +516,31 @@ def global_bundle_adjust_slice(config: SlamConfig, m: MapState, kf_Tcw, pt_pos, 
 
 
 def run_sharded_gba(config: SlamConfig, m: MapState, anchor_kf):
-    """The sharded-Schur global BA for maps too big for the dense assembly
-    (max_kf * max_pt > 4 Mi).  It needs the multi-device layer, which is
-    slice 8 of the port."""
-    raise NotImplementedError(
-        "the sharded global BA (max_kf * max_pt > 4 Mi) needs parallel/, slice 8 of the "
-        "port; it is not ported yet")
+    """Sharded-Schur variant of global_bundle_adjust for maps too big for
+    the dense assembly (max_kf * max_pt > 4 Mi): the reference never skips
+    GBA (LoopClosing.cc:880).  10 Huber-weighted iterations over every
+    keyframe but the anchor and slot 0, on a 1 x n mesh with n the most
+    ranks of the world (one without a process group) that divide the point
+    capacity; in a multi-process world every rank calls it with the same
+    map.  Returns (kf_Tcw, pt_pos)."""
+    from ..parallel.distributed_ba import distributed_bundle_adjust
+    from ..parallel.mesh import MeshSpec, make_mesh, world
+
+    n = world()[1]
+    while n > 1 and m.max_pt % n:
+        n -= 1
+    mesh = make_mesh(MeshSpec(n_map=1, n_blk=n))
+    dev = m.kf_valid.device
+    obs_uvr = torch.cat([m.kf_xy, m.kf_uright[..., None]], dim=-1)
+    sigma2 = torch.from_numpy(config.orb.sigma2()).to(dev)[m.kf_level.long()]
+    idx = torch.arange(m.max_kf, device=dev)
+    kf_free = m.kf_valid & (idx != int(anchor_kf)) & (idx != 0)
+    res = distributed_bundle_adjust(
+        mesh, config.camera, *(x[None] for x in (
+            m.kf_Tcw, m.pt_pos, m.kf_obs_pt, obs_uvr, sigma2,
+            m.kf_feat_valid & m.kf_valid[:, None] & (m.kf_obs_pt >= 0), kf_free, m.pt_valid)),
+        n_iters=10, ur_weight=config.ur_weight)
+    return res.kf_Tcw[0], res.pt_pos[0]
 
 
 def merge_gba(m: MapState, snap_kf_seq: torch.Tensor, snap_pt_birth: torch.Tensor,

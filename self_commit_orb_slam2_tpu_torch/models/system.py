@@ -37,7 +37,7 @@ from .config import SlamConfig
 from .streaming import (_SENSORS, STATE_LOST, STATE_NOT_INITIALIZED, STATE_OK,
                         StreamSession)
 
-__all__ = ["System", "resolve_device", "STATE_NOT_INITIALIZED", "STATE_OK",
+__all__ = ["System", "resolve_device", "config_on_device", "STATE_NOT_INITIALIZED", "STATE_OK",
            "STATE_LOST"]
 
 
@@ -51,6 +51,17 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def config_on_device(config: SlamConfig, device: torch.device) -> SlamConfig:
+    """The configuration with its tensors (the vocabulary tree, the
+    rectification maps) on the engine's device."""
+    if config.vocab is not None:
+        config = config._replace(vocab=config.vocab.to(device))
+    if config.rect_maps is not None:
+        config = config._replace(rect_maps=tuple(
+            torch.as_tensor(a, dtype=torch.float32).to(device) for a in config.rect_maps))
+    return config
 
 
 def _f32(image) -> torch.Tensor:
@@ -79,13 +90,7 @@ class System:
         self.device = resolve_device(device)
         if config.sensor not in ("rgbd", "stereo", "mono"):
             raise ValueError(f"unknown sensor {config.sensor!r}")
-        if config.vocab is not None:  # the whole tree lives on the engine's device
-            config = config._replace(vocab=config.vocab.to(self.device))
-        if config.rect_maps is not None:  # so do the rectification maps
-            config = config._replace(rect_maps=tuple(
-                torch.as_tensor(a, dtype=torch.float32).to(self.device)
-                for a in config.rect_maps))
-        self.config = config
+        self.config = config = config_on_device(config, self.device)
         # Doubled feature budget before the monocular map exists (reference
         # mpIniORBextractor = 2x nFeatures, src/Tracking.cc:121-124):
         # bootstrap frames carry 2N candidates, try_initialize keeps the N best.

@@ -84,6 +84,47 @@ def edge_jacobians(S_i: torch.Tensor, S_j: torch.Tensor, meas: torch.Tensor):
     return X[..., :7], -X[..., 7:]
 
 
+def normal_equations(S: torch.Tensor, ei: torch.Tensor, ej: torch.Tensor,
+                     edge_meas: torch.Tensor, edge_valid: torch.Tensor,
+                     free: torch.Tensor):
+    """The Gauss-Newton system of the edges (ei, ej) at the poses S [K, 8]:
+    H [K * K, 7, 7] (block (a, b) at row a * K + b) and b [K, 7], summed by
+    index_add_ over the edges; fixed vertices get no column."""
+    K = S.shape[0]
+    f32 = torch.float32
+    w = edge_valid.to(f32)[:, None, None]
+    Si, Sj = S[ei], S[ej]
+    r = edge_residual(Si, Sj, edge_meas)                            # [E, 7]
+    Ji, Jj = edge_jacobians(Si, Sj, edge_meas)
+    Ji = Ji * free[ei][:, None, None].to(f32)
+    Jj = Jj * free[ej][:, None, None].to(f32)
+    wJi, wJj = Ji * w, Jj * w
+    JtJ = torch.cat([torch.einsum("eai,eaj->eij", a, b)
+                     for a, b in ((wJi, Ji), (wJj, Jj), (wJi, Jj), (wJj, Ji))])
+    blocks = torch.cat([ei * K + ei, ej * K + ej, ei * K + ej, ej * K + ei])
+    H = torch.zeros(K * K, 7, 7, dtype=f32, device=S.device).index_add_(0, blocks, JtJ)
+    b = torch.zeros(K, 7, dtype=f32, device=S.device).index_add_(
+        0, torch.cat([ei, ej]), torch.cat([torch.einsum("eai,ea->ei", wJi, r),
+                                           torch.einsum("eai,ea->ei", wJj, r)]))
+    return H, b
+
+
+def damped_update(S: torch.Tensor, H: torch.Tensor, b: torch.Tensor, free: torch.Tensor,
+                  damping: float) -> torch.Tensor:
+    """One damped Gauss-Newton step from the normal equations: the dense
+    [7K, 7K] system with fixed vertices pinned, LU-solved; a non-finite step
+    is dropped.  Returns exp(dx) . S."""
+    K = S.shape[0]
+    free7 = free.repeat_interleave(7)
+    Hd = H.reshape(K, K, 7, 7).permute(0, 2, 1, 3).reshape(K * 7, K * 7)
+    Hd = torch.where(free7[:, None] & free7[None, :], Hd, 0.0)
+    Hd = Hd + torch.diag(torch.where(free7, damping, 1.0))
+    Hd = Hd + damping * torch.diag(torch.diagonal(Hd))
+    dx = torch.linalg.solve_ex(Hd, -b.reshape(K * 7))[0].reshape(K, 7)
+    dx = torch.where(torch.all(torch.isfinite(dx)), dx, 0.0)
+    return sim3.compose(sim3.exp(dx), S)
+
+
 def optimize_pose_graph(kf_sim3: torch.Tensor,     # [K, 8]
                         edge_i: torch.Tensor,      # [E] int
                         edge_j: torch.Tensor,      # [E] int
@@ -91,36 +132,13 @@ def optimize_pose_graph(kf_sim3: torch.Tensor,     # [K, 8]
                         edge_valid: torch.Tensor,  # [E] bool
                         kf_fixed: torch.Tensor,    # [K] bool (loop anchor / invalid slots)
                         n_iters: int = 20, damping: float = 1e-6) -> PoseGraphResult:
-    K = kf_sim3.shape[0]
-    dev, f32 = kf_sim3.device, torch.float32
     ei, ej = edge_i.long(), edge_j.long()
     free = ~kf_fixed
-    free7 = free.repeat_interleave(7)
-    w = edge_valid.to(f32)[:, None, None]
-    blocks = torch.cat([ei * K + ei, ej * K + ej, ei * K + ej, ej * K + ei])
-    rows = torch.cat([ei, ej])
     S = kf_sim3
     for _ in range(n_iters):
-        Si, Sj = S[ei], S[ej]
-        r = edge_residual(Si, Sj, edge_meas)                        # [E, 7]
-        Ji, Jj = edge_jacobians(Si, Sj, edge_meas)
-        Ji = Ji * free[ei][:, None, None].to(f32)                   # fixed vertices: no column
-        Jj = Jj * free[ej][:, None, None].to(f32)
-        wJi, wJj = Ji * w, Jj * w
-        JtJ = torch.cat([torch.einsum("eai,eaj->eij", a, b)
-                         for a, b in ((wJi, Ji), (wJj, Jj), (wJi, Jj), (wJj, Ji))])
-        H = torch.zeros(K * K, 7, 7, dtype=f32, device=dev).index_add_(0, blocks, JtJ)
-        b = torch.zeros(K, 7, dtype=f32, device=dev).index_add_(
-            0, rows, torch.cat([torch.einsum("eai,ea->ei", wJi, r),
-                                torch.einsum("eai,ea->ei", wJj, r)]))
-        Hd = H.reshape(K, K, 7, 7).permute(0, 2, 1, 3).reshape(K * 7, K * 7)
-        Hd = torch.where(free7[:, None] & free7[None, :], Hd, 0.0)
-        Hd = Hd + torch.diag(torch.where(free7, damping, 1.0))
-        Hd = Hd + damping * torch.diag(torch.diagonal(Hd))
-        dx = torch.linalg.solve_ex(Hd, -b.reshape(K * 7))[0].reshape(K, 7)
-        dx = torch.where(torch.all(torch.isfinite(dx)), dx, 0.0)
-        S = sim3.compose(sim3.exp(dx), S)
+        H, b = normal_equations(S, ei, ej, edge_meas, edge_valid, free)
+        S = damped_update(S, H, b, free, damping)
     r = edge_residual(S[ei], S[ej], edge_meas)
-    wv = edge_valid.to(f32)
+    wv = edge_valid.to(torch.float32)
     mean = torch.sum(torch.sum(r * r, -1) * wv) / torch.clamp_min(torch.sum(wv), 1.0)
     return PoseGraphResult(kf_sim3=S, mean_residual=mean)

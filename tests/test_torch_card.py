@@ -592,3 +592,91 @@ def test_native_decoder_builds_on_the_card_machine(tmp_path):
         before = datasets.DECODES["native"]
         np.testing.assert_array_equal(datasets._load_gray(path), arr.astype(np.float32))
         assert datasets.DECODES["native"] == before + 1
+
+
+def _sharded_gba_map():
+    """A small map (16 keyframes x 4096 points) streamed on the CPU, its
+    poses and points perturbed by N(0, 5e-3)."""
+    from self_commit_orb_slam2_tpu_torch.models.config import Capacities, SlamConfig
+    from self_commit_orb_slam2_tpu_torch.models.system import System
+    from self_commit_orb_slam2_tpu_torch.ops import se3
+    from self_commit_orb_slam2_tpu_torch.ops.camera import CameraParams
+    from self_commit_orb_slam2_tpu_torch.ops.orb.extractor import OrbConfig
+    from self_commit_orb_slam2_tpu_torch.utils.synthetic import generate_sequence
+
+    cfg = SlamConfig(camera=CameraParams.create(fx=260.0, fy=260.0, cx=160.0, cy=120.0,
+                                                bf=26.0, width=320, height=240),
+                     orb=OrbConfig(n_features=300),
+                     caps=Capacities(max_keyframes=16, max_points=4096), sensor="rgbd")
+    seq = generate_sequence(n_frames=20, width=320, height=240, seed=3)
+    slam = System(cfg, enable_loop_closing=False, device="cpu")
+    slam.track_batch_rgbd(seq.images, seq.depths, seq.timestamps, chunk=4)
+    rng = np.random.default_rng(0)
+    m = slam.map
+    kf = se3.update_left(m.kf_Tcw, torch.from_numpy(
+        rng.normal(0, 5e-3, (m.max_kf, 6)).astype(np.float32)))
+    kf[0] = m.kf_Tcw[0]
+    return cfg, m._replace(kf_Tcw=kf, pt_pos=m.pt_pos + torch.from_numpy(
+        rng.normal(0, 5e-3, tuple(m.pt_pos.shape)).astype(np.float32)))
+
+
+def test_run_sharded_gba_on_card_matches_cpu(cuda):
+    """loop_closing.run_sharded_gba (the distributed BA at a world of one
+    rank) on the card equals the CPU within 1e-3."""
+    from self_commit_orb_slam2_tpu_torch.models import loop_closing
+
+    cfg, m = _sharded_gba_map()
+    assert int(m.kf_valid.sum()) >= 3
+    T_ref, p_ref = loop_closing.run_sharded_gba(cfg, m, 1)
+    T, p = loop_closing.run_sharded_gba(cfg, type(m)(*(t.to(cuda) for t in m)), 1)
+    assert T.is_cuda and p.is_cuda
+    assert torch.allclose(T.cpu(), T_ref, atol=1e-3)
+    assert torch.allclose(p.cpu(), p_ref, atol=1e-3)
+    assert not torch.equal(T_ref, m.kf_Tcw)
+
+
+def test_nccl_world_of_one(cuda, tmp_path):
+    """hosts.initialize wires an NCCL group of one rank over a file://
+    rendezvous; distributed BA and pose graph on a 1x1 mesh over it equal
+    the same calls with no process group within 1e-6; the group tears down."""
+    import torch.distributed as dist
+
+    from self_commit_orb_slam2_tpu_torch.ops import sim3
+    from self_commit_orb_slam2_tpu_torch.parallel import hosts
+    from self_commit_orb_slam2_tpu_torch.parallel.distributed_ba import (
+        distributed_bundle_adjust)
+    from self_commit_orb_slam2_tpu_torch.parallel.distributed_pose_graph import (
+        distributed_pose_graph)
+    from self_commit_orb_slam2_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    cfg, m = _sharded_gba_map()
+    m = type(m)(*(t.to(cuda) for t in m))
+    obs_uvr = torch.cat([m.kf_xy, m.kf_uright[..., None]], dim=-1)
+    ba_args = [x[None] for x in (m.kf_Tcw, m.pt_pos, m.kf_obs_pt, obs_uvr,
+                                 torch.ones_like(m.kf_uright),
+                                 m.kf_feat_valid & m.kf_valid[:, None],
+                                 m.kf_valid & (torch.arange(m.max_kf, device=cuda) > 0),
+                                 m.pt_valid)]
+    K = m.max_kf
+    S0 = sim3.from_se3(m.kf_Tcw)
+    i = torch.arange(1, K, device=cuda)
+    pg_args = [x[None] for x in (S0, i, i - 1, sim3.compose(S0[1:], sim3.inverse(S0[:-1])),
+                                 m.kf_valid[1:] & m.kf_valid[:-1],
+                                 ~m.kf_valid | (torch.arange(K, device=cuda) == 0))]
+    ba_ref = distributed_bundle_adjust(make_mesh(MeshSpec(1, 1)), cfg.camera, *ba_args, n_iters=3)
+    pg_ref = distributed_pose_graph(make_mesh(MeshSpec(1, 1)), *pg_args, n_iters=3)
+    assert not dist.is_initialized()
+    hosts.initialize(f"file://{tmp_path / 'rendezvous'}", 1, 0, timeout_s=120)
+    try:
+        assert dist.is_initialized() and "nccl" in str(dist.get_backend()).lower()
+        x = torch.arange(4.0, device=cuda)
+        dist.all_reduce(x)
+        assert torch.equal(x, torch.arange(4.0, device=cuda))
+        mesh = hosts.global_mesh()
+        ba = distributed_bundle_adjust(mesh, cfg.camera, *ba_args, n_iters=3)
+        pg = distributed_pose_graph(mesh, *pg_args, n_iters=3)
+    finally:
+        hosts.shutdown()
+    assert not dist.is_initialized()
+    for got, ref in zip((*ba, *pg), (*ba_ref, *pg_ref)):
+        assert torch.allclose(got, ref, atol=1e-6)

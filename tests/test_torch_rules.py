@@ -69,10 +69,11 @@ def test_no_silent_cpu_fallback():
 @pytest.mark.parametrize("kwargs", [dict(enable_mapping=True, enable_loop_closing=True),
                                     dict(enable_mapping=False, enable_loop_closing=True)])
 def test_unported_phases_refused(kwargs):
-    """Nothing of the public API is refused any more: System(cfg) builds the
-    loop closer for every sensor (idle without a vocabulary, as in the JAX
-    package); the one refusal left is the sharded global BA, which names
-    the slice that ports it.  An unknown sensor is an error."""
+    """Nothing of the public API is refused: System(cfg) builds the loop
+    closer for every sensor (idle without a vocabulary, as in the JAX
+    package), and the sharded global BA that maps above 4 Mi keyframe-point
+    pairs take returns finite poses and points.  An unknown sensor is an
+    error."""
     from self_commit_orb_slam2_tpu_torch.models import loop_closing
 
     tiny = bow.from_arrays(np.zeros((3, 8), np.uint32), np.array([[1, 2], [-1, -1], [-1, -1]]),
@@ -86,10 +87,15 @@ def test_unported_phases_refused(kwargs):
         off = System(_cfg()._replace(sensor=sensor), enable_mapping=kwargs["enable_mapping"],
                      enable_loop_closing=False, device="cpu")
         assert off._loop_closer is None and off.open_stream(sensor).sensor == sensor
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        loop_closing.run_sharded_gba(slam.config, slam.map, 0)
+    small = System(_cfg()._replace(caps=config.Capacities(max_keyframes=8, max_points=512)),
+                   device="cpu").map
+    small = small._replace(kf_valid=small.kf_valid | (torch.arange(8) < 3))
+    T, p = loop_closing.run_sharded_gba(slam.config, small, 1)
+    assert T.shape == (8, 4, 4) and p.shape == (512, 3)
+    assert bool(torch.isfinite(T).all()) and bool(torch.isfinite(p).all())
     # the dense path up to 4 Mi keyframe-point pairs: the bench's 64 and 96
-    # keyframes x 16384 points; the default capacities (256 x 65536) need slice 8
+    # keyframes x 16384 points; the default capacities (256 x 65536) take the
+    # sharded one
     for (K, P), sharded in (((64, 16384), False), ((96, 16384), False), ((256, 65536), True)):
         assert loop_closing._needs_sharded_gba(slam.config, SimpleNamespace(
             max_kf=K, max_pt=P)) == sharded
@@ -307,10 +313,6 @@ RENAMED = {
     ("ops/orb/fast_pallas.py", "fast_nms_hi_lo"): ("ops/orb/fast_nms.py", "fast_nms_hi_lo"),
     ("utils/rectify.py", "remap_bilinear_jnp"): ("utils/rectify.py", "remap_bilinear_torch"),
 }
-# Slice 8 (multi-device): the only names the port may still lack.
-SLICE_8_MODULES = ("parallel/", "refine_maps.py")
-
-
 def _public_names(pkg):
     """{(module, qualified name)} of top-level functions, classes and their
     methods; names with a leading underscore are private, dunders count."""
@@ -331,17 +333,11 @@ def _public_names(pkg):
 
 
 def test_every_jax_name_has_a_port_counterpart():
-    """The port does all that the JAX package does, but multi-device: every
-    public function, class and method of the JAX package has a counterpart
-    of the same name in the same module of the port (or its renamed one),
-    and the only names missing are slice 8's."""
+    """The port does all that the JAX package does: every public function,
+    class and method of the JAX package has a counterpart of the same name
+    in the same module of the port (or its renamed one); none is missing."""
     ours, theirs = _public_names(PORT), _public_names(JAX)
     missing = {key for key in theirs if RENAMED.get(key, key) not in ours}
-    slice8 = {key for key in missing if key[0].startswith(SLICE_8_MODULES)}
-    assert missing == slice8, sorted(missing - slice8)
-    assert {m for m, _ in slice8} == {"refine_maps.py", "parallel/mesh.py", "parallel/hosts.py",
-                                      "parallel/distributed_ba.py",
-                                      "parallel/distributed_pose_graph.py",
-                                      "parallel/multi_map.py", "parallel/fleet.py"}
+    assert missing == set(), sorted(missing)
     assert all(v in ours for v in RENAMED.values())
-    assert ("models/loop_closing.py", "run_sharded_gba") in ours   # its body is slice 8's
+    assert {m for m, _ in theirs if m.startswith("parallel/")} <= {m for m, _ in ours}
