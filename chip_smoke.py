@@ -106,8 +106,9 @@ Phases (any failure exits non-zero and prints no result):
      synchronized with the card), and B1's launches (once per extraction
      call; B2 never).
  14. path 8, the multi-device layer on the one card (a world of one rank):
-       a. path 6's scenario at run_slam's TUM capacities (the default
-          Capacities(), 256 / 65536 / 2048): STATE_OK, >= 1 closure, the
+       a. path 6's scenario, its first 157 frames, at run_slam's TUM
+          capacities (the default Capacities(), 256 / 65536 / 2048):
+          STATE_OK, >= 1 closure, the
           dispatched global BA takes the sharded branch (the distributed
           Schur BA on a 1 x 1 mesh) and is merged, corrected ATE below raw,
           B1 once per chunk and the first frame (bitwise on the first frame
@@ -128,11 +129,32 @@ Phases (any failure exits non-zero and prints no result):
           __graft_entry__.py's shapes equal the same calls with no process
           group within 1e-6; the group torn down.
      No multi-GPU run: the card is one.
+ 15. path 9:
+       a. bench.py's mono scale-drift configuration (bench_long_mono: mono,
+          96 / 16384 / 1024, max_frames_between_kf 10, the vocabulary,
+          System(cfg)) on the first 180 frames of path 6's circle through
+          open_stream("mono"), bench.py's per-frame twist and scale 1.0006
+          composed per chunk and injected while tracking is OK, from the
+          first chunk after initialization to frame 120; once with loop
+          closing and once without: >= 1 closure, its global BA merged,
+          STATE_OK, Sim3-aligned ATE (trailing ground truth) with loop
+          closing below the run without, B1 bitwise on the path's first
+          frame and its chunk at frame 160 and once per extraction call;
+          prints each closure's frame and Sim3 scale, both ATEs, the live
+          keyframes, ms per loop phase, the stall, frames/s;
+       b. tests/test_long_sequence.py's bounded map at 640x480 / 1000
+          features: 12 keyframe slots, a keyframe every 2 frames, 1 + 60
+          frames of its look-at oscillation in chunks of 4: STATE_OK after
+          every chunk, more keyframes inserted than slots, at most 12 live,
+          n_culled == inserted - live, one finite pose per frame from
+          get_trajectory, ATE < 0.08 m, 0 < live points <= 16384; then a
+          second pass, untimed, on the same frames counts the carried ids
+          the birth-stamp guard dropped.
 
 Frame rendering (numpy, host) runs in a pool of worker processes started
 first, beside the card work.  The second-to-last line is the kernels JSON
 (each kernel with its launches on its own path; the band kernel also with
-those on paths 3 to 8 and its times at the stereo shapes); the last line is
+those on paths 3 to 9 and its times at the stereo shapes); the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -444,7 +466,7 @@ def phase_kernels(seq):
 
 
 def phase_path(seq, kernels, label: str, cell_size: int, mapping: bool, own: str):
-    """Stream the 61 frames through the System along one path; `own` is the
+    """Stream the N_FRAMES frames through the System along one path; `own` is the
     FAST kernel the path must run (once per extraction call)."""
     import torch
 
@@ -1090,8 +1112,8 @@ def _to(m, device):
     return type(m)(*(x.to(device) for x in m))
 
 
-def _stream_loop(label, slam, seq6, kernels, ph):
-    """Stream the drifting revolution through slam's closer: the first
+def _stream_loop(label, slam, seq6, kernels, ph, n=N_LOOP):
+    """Stream the drifting revolution's first n frames through slam's closer: the first
     chunk with the initializing frame, then a chunk per feed with drift
     injected between feeds (frames DRIFT_FROM to DRIFT_TO) and a poll after
     each, every launch and relocalization count set to 0 first.  Returns
@@ -1117,9 +1139,9 @@ def _stream_loop(label, slam, seq6, kernels, ph):
     sess.feed((images[:1 + CHUNK], depths[:1 + CHUNK]), ts[:1 + CHUNK])
     torch.cuda.synchronize()
     done, chunk_ms, events = 1 + CHUNK, [], []
-    while done < N_LOOP:
+    while done < n:
         t0 = time.perf_counter()
-        sl = slice(done, min(done + CHUNK, N_LOOP))
+        sl = slice(done, min(done + CHUNK, n))
         sess.feed((images[sl], depths[sl]), ts[sl])
         done = sl.stop
         if DRIFT_FROM <= done <= DRIFT_TO:
@@ -1127,7 +1149,7 @@ def _stream_loop(label, slam, seq6, kernels, ph):
         sess.poll()
         torch.cuda.synchronize()
         chunk_ms.append((time.perf_counter() - t0) * 1e3)
-        if lc.n_big_changes > len(events):
+        while lc.n_big_changes > len(events):   # one entry a closure
             events.append((len(chunk_ms) - 1, done, {k: len(v) for k, v in ph.items()}))
     t0 = time.perf_counter()
     sess.finish()
@@ -1138,21 +1160,22 @@ def _stream_loop(label, slam, seq6, kernels, ph):
     attempts, _ = relocalization.counts()
     _, est = slam.get_trajectory()
     raw = np.stack([T for _, T in slam.trajectory])
-    gt = seq6.poses_gt[:N_LOOP]
-    require(len(est) == N_LOOP and np.all(np.isfinite(est)), f"{label}: bad trajectory")
+    gt = seq6.poses_gt[:n]
+    require(len(est) == n and np.all(np.isfinite(est)), f"{label}: bad trajectory")
     return dict(chunk_ms=chunk_ms, events=events, stream_s=stream_s, launches=launches,
                 attempts=attempts, closures=lc.n_big_changes, gba_info=dict(lc.last_gba_info),
                 ate=float(ate_rmse(est, gt)), ate_raw=float(ate_rmse(raw, gt)))
 
 
-def _b1_on_loop_frames(label, seq6, orb):
-    """B1 on the drifting revolution's first frame and its chunk at frame 113
-    (where path 6 closes), bitwise against its plain version."""
+def _b1_on_loop_frames(label, seq6, orb, at: int = 113):
+    """B1 on a path's first frame and its chunk at frame `at` (113: where
+    path 6 closes), bitwise against its plain version."""
     from self_commit_orb_slam2_tpu_torch.ops.orb import fast_band
     from self_commit_orb_slam2_tpu_torch.tools.time_fast import frames_slab
 
     images = _u8(seq6.images)
-    for what, frames in (("first frame", images[:1]), ("chunk at frame 113", images[113:117])):
+    for what, frames in (("first frame", images[:1]),
+                         (f"chunk at frame {at}", images[at:at + CHUNK])):
         slab, H0p, dims = frames_slab(frames, orb, band=True)
         args = (orb.fast_threshold_hi, orb.fast_threshold_lo, H0p, dims, orb.border, orb.n_levels)
         out_k = fast_band.fast_nms_bands_hi_lo(slab, *args)
@@ -1759,6 +1782,9 @@ def phase_path7(seq, kitti, euroc, kernels, vocab, workdir):
 # RGB-D streams, then 2 localization streams on path 3's saved map; NCCL
 # at a world of one rank.
 N_FLEET, N_FLEET_FRAMES, FLEET_SEED = 4, 25, 5
+# (a) streams path 6's first 157 frames (it closed at frame 113 or 145 on the card):
+# the cut that keeps the whole script inside the 1200 s the chip check allows
+N_LOOP_8A = 157
 PERTURB_SIGMA = 5e-3
 
 
@@ -1812,16 +1838,16 @@ def phase_path8a(seq6, kernels, vocab):
     loop_closing.run_sharded_gba = timed_gba
     try:
         with loop_closing.timed_phases() as ph, pipeline.timed_mapping_passes() as pass_s:
-            run = _stream_loop(label, slam, seq6, kernels, ph)
+            run = _stream_loop(label, slam, seq6, kernels, ph, N_LOOP_8A)
     finally:
         loop_closing.run_sharded_gba = orig
     chunk_ms, launches = run["chunk_ms"], run["launches"]
-    fps = N_LOOP / run["stream_s"]
+    fps = N_LOOP_8A / run["stream_s"]
     med = float(np.median(chunk_ms[4:]))
     stalls = [float(np.max(chunk_ms[max(c - 1, 0): c + 3]) - med) for c, _, _ in run["events"]]
     K, P = cfg.caps.max_keyframes, cfg.caps.max_points
     bound = _gba_bound_ms(K, P, 10)
-    print(f"[{label}] {N_LOOP} frames of path 6's drifting revolution at run_slam's TUM "
+    print(f"[{label}] {N_LOOP_8A} frames of path 6's drifting revolution at run_slam's TUM "
           f"capacities {K} / {P} / {cfg.caps.local_points}: state {slam.state}, keyframes "
           f"{slam.n_keyframes()} ({int(slam.map.kf_valid.sum())} live), points "
           f"{slam.n_points()}, closures {run['closures']} (frames "
@@ -1847,7 +1873,7 @@ def phase_path8a(seq6, kernels, vocab):
     require(run["ate"] < run["ate_raw"], f"{label}: corrected ATE {run['ate']:.6f} m not below "
             f"raw {run['ate_raw']:.6f} m")
     require(run["attempts"] == 0, f"{label}: {run['attempts']} relocalization attempts")
-    want = 1 + -(-(N_LOOP - 1) // CHUNK)
+    want = 1 + -(-(N_LOOP_8A - 1) // CHUNK)
     require(launches == {"fast_band": want, "fast_nms": 0},
             f"{label}: launches {launches}, want fast_band {want}, fast_nms 0")
     return dict(launches=want, fps=fps, ate=run["ate"], ate_raw=run["ate_raw"],
@@ -2102,6 +2128,251 @@ def phase_path8d(workdir):
     require(not dist.is_initialized(), f"{label}: the process group was not torn down")
 
 
+# ---------------------------------------------------------------- path 9
+# (a) bench.py's mono scale-drift loop (bench_long_mono, bench.py:535-650) cut
+# to path 6's revolution of 120 frames: 180 frames (1.5 revolutions) through
+# open_stream("mono") in chunks of 4, bench.py's per-frame twist and scale
+# composed over each chunk and injected while tracking is OK, from the first
+# chunk after initialization to frame 120; once with loop closing and once
+# without (scripts/jax_mono_loop_scenario.py drives the same through the JAX
+# package).  (b) tests/test_long_sequence.py's bounded map at full width: 12
+# keyframe slots, a keyframe every 2 frames, 1 + 60 frames of a lingering
+# look-at oscillation, so slots are culled and reused.
+
+N_MONO_LOOP, MONO_DRIFT_TO = 180, 120
+MONO_TWIST = [0.0009, 0.0002, -0.0004, 0.0, 0.0007, 0.0]   # bench.py:575-576
+MONO_SCALE = 1.0006                                        # bench.py:577, per frame
+N_BOUNDED, BOUNDED_SEED = 61, 7                            # tests/test_long_sequence.py:55-57
+
+
+def _mono_loop_config(vocab):
+    """bench_long_mono's configuration (bench.py:561-574)."""
+    from self_commit_orb_slam2_tpu_torch.models.config import Capacities
+
+    cfg = _sensor_config("mono", WIDTH, HEIGHT, FX, 0.1, N_FEATURES, vocab,
+                         max_frames_between_kf=10)
+    return cfg._replace(caps=Capacities(max_keyframes=96, max_points=16384, local_points=1024))
+
+
+def _mono_stream(label, slam, seq9, kernels, ph):
+    """Stream path 9 (a)'s frames through slam with the drift injected; every
+    launch and relocalization count set to 0 first.  Returns the chunk
+    times (host clock, synced), the chunks in which a closure landed, the
+    launches, the frames the bootstrap took, the Sim3-aligned ATE against
+    the trailing ground truth (bench.py:615-618) and the closer's counters."""
+    import torch
+
+    from self_commit_orb_slam2_tpu_torch.models import relocalization
+    from self_commit_orb_slam2_tpu_torch.models.system import STATE_OK
+    from self_commit_orb_slam2_tpu_torch.utils.drift import make_injector, se3_increment
+    from self_commit_orb_slam2_tpu_torch.utils.evaluation import ate_rmse
+
+    lc = slam._loop_closer
+    images, ts, n = _u8(seq9.images), seq9.timestamps, N_MONO_LOOP
+    inject = make_injector(keep_recent=6)
+    dD = torch.linalg.matrix_power(se3_increment(MONO_TWIST).double(), CHUNK).float().cuda()
+    s_chunk = MONO_SCALE ** CHUNK
+    for k in kernels.values():
+        k.launches = 0
+    relocalization.reset_counts()
+    sess = slam.open_stream("mono", CHUNK)
+    t_start = time.perf_counter()
+    done, chunk_ms, events, n_drift = 0, [], [], 0
+    while done < n:
+        t0 = time.perf_counter()
+        sl = slice(done, min(done + CHUNK, n))
+        was_ok = slam.state == STATE_OK
+        sess.feed((images[sl],), ts[sl])
+        done = sl.stop
+        if was_ok and done <= MONO_DRIFT_TO and slam.state == STATE_OK:
+            slam.map = inject(slam.map, dD, s_chunk)
+            n_drift += 1
+        sess.poll()
+        torch.cuda.synchronize()
+        chunk_ms.append((time.perf_counter() - t0) * 1e3)
+        while lc is not None and lc.n_big_changes > len(events):   # one entry a closure
+            events.append((len(chunk_ms) - 1, done, {k: len(v) for k, v in ph.items()}))
+    t0 = time.perf_counter()
+    sess.finish()
+    torch.cuda.synchronize()
+    chunk_ms.append((time.perf_counter() - t0) * 1e3)
+    stream_s = time.perf_counter() - t_start
+    launches = {k.name: k.launches for k in kernels.values()}
+    attempts, _ = relocalization.counts()
+    _, est = slam.get_trajectory()
+    require(0 < len(est) <= n and np.all(np.isfinite(est)), f"{label}: bad trajectory")
+    gt = seq9.poses_gt[n - len(est):n]
+    return dict(chunk_ms=chunk_ms, events=events, stream_s=stream_s, launches=launches,
+                attempts=attempts, n_boot=n - sess.n_fed, n_drift=n_drift,
+                closures=lc.n_big_changes if lc is not None else 0,
+                gba_info=dict(lc.last_gba_info) if lc is not None else {},
+                ate=float(ate_rmse(est, gt, with_scale=True)), n_poses=len(est),
+                live=int(slam.map.kf_valid.sum()), n_kf=slam.n_keyframes())
+
+
+def phase_path9a(seq9, kernels, vocab):
+    """A mono loop under scale drift, with and without loop closing."""
+    from self_commit_orb_slam2_tpu_torch.models import loop_closing, pipeline
+    from self_commit_orb_slam2_tpu_torch.models.system import STATE_OK, System
+
+    label = "path 9a"
+    cfg = _mono_loop_config(vocab)
+    _b1_on_loop_frames(label, seq9, cfg.orb, at=160)
+    runs = {}
+    for loops in (True, False):
+        slam = System(cfg, enable_loop_closing=loops)
+        lc = slam._loop_closer
+        require(not loops or (lc is not None and lc.enabled),
+                f"{label}: System(cfg) built no closer")
+        with loop_closing.timed_phases() as ph, pipeline.timed_mapping_passes() as pass_s:
+            run = _mono_stream(label, slam, seq9, kernels, ph)
+        run.update(state=slam.state, phases={k: list(v) for k, v in ph.items()},
+                   passes=len(pass_s))
+        if loops:   # each applied correction's Sim3 scale, from the closer's record
+            scales = [float(det.S_cur_cand[7]) for det in lc.corrections]
+        runs[loops] = run
+    on, off = runs[True], runs[False]
+    med = float(np.median(on["chunk_ms"][4:]))
+    stalls = [float(np.max(on["chunk_ms"][max(c - 1, 0): c + 3]) - med)
+              for c, _, _ in on["events"]]
+    for loops, run in runs.items():
+        fps = N_MONO_LOOP / run["stream_s"]
+        print(f"[{label}] loop closing {'on' if loops else 'off'}: {N_MONO_LOOP} frames "
+              f"{WIDTH}x{HEIGHT} of a {LOOP_REV}-frame circle, mono, bench_long_mono's "
+              f"configuration (96 / 16384 / 1024, max_frames_between_kf 10, vocabulary), chunk "
+              f"{CHUNK}, drift (twist {MONO_TWIST}, scale {MONO_SCALE} a frame, composed per "
+              f"chunk) injected after {run['n_drift']} chunks up to frame {MONO_DRIFT_TO}: "
+              f"initialized after {run['n_boot']} frames, state {run['state']}, keyframes "
+              f"{run['n_kf']} ({run['live']} live), closures {run['closures']} (frames "
+              f"{[f for _, f, _ in run['events']]}), last GBA {run['gba_info']}; Sim3-aligned "
+              f"ATE {run['ate']:.6f} m over {run['n_poses']} poses; {fps:.2f} frames/s (host "
+              f"clock, synced per chunk), mapping passes {run['passes']}; relocalization "
+              f"attempts {run['attempts']}; launches {run['launches']}")
+    print(f"[{label}] closures' Sim3 scale s: {[round(x, 6) for x in scales]}")
+    for name, v in on["phases"].items():
+        print(f"[{label}] {name}: {len(v)} calls, mean {np.mean(v):.1f} ms, max "
+              f"{np.max(v):.1f} ms (host clock, synced)")
+    for (c, frame, before), stall in zip(on["events"], stalls):
+        print(f"[{label}] closure landed in chunk {c} (frame {frame}): stall {stall:.1f} ms over "
+              f"the median chunk {med:.1f} ms (worst chunk of the 4 around it, bench.py's "
+              f"measure); phase calls before it {before}")
+    for loops, run in runs.items():
+        want = run["n_boot"] + -(-(N_MONO_LOOP - run["n_boot"]) // CHUNK)
+        require(run["launches"] == {"fast_band": want, "fast_nms": 0},
+                f"{label}: launches {run['launches']}, want fast_band {want}, fast_nms 0")
+        require(run["state"] == STATE_OK, f"{label}: tracking lost (loop closing {loops})")
+    require(on["n_drift"] == off["n_drift"] > 0, f"{label}: the runs took different drift "
+            f"({on['n_drift']} and {off['n_drift']} chunks)")
+    require(on["closures"] >= 1, f"{label}: no loop closed in the mono stream")
+    require(len(scales) == on["closures"], f"{label}: {len(scales)} corrections recorded for "
+            f"{on['closures']} closures")
+    require(on["gba_info"].get("gba_path") == "dense", f"{label}: no global BA merged")
+    require(on["ate"] < off["ate"], f"{label}: Sim3-aligned ATE with loop closing "
+            f"{on['ate']:.6f} m not below the run without {off['ate']:.6f} m")
+    return dict(launches=on["launches"]["fast_band"] + off["launches"]["fast_band"],
+                fps=N_MONO_LOOP / on["stream_s"], ate=on["ate"], ate_raw=off["ate"],
+                closures=on["closures"], frames=[f for _, f, _ in on["events"]],
+                scales=scales, stalls=stalls, live=on["live"],
+                phases={k: float(np.mean(v)) for k, v in on["phases"].items()})
+
+
+def _bounded_pass(slam, seq9b, count_drops: bool):
+    """Track path 9 (b)'s frames into slam, a fresh System, in chunks of 4.  With
+    count_drops, a spy on tracking.track_motion counts the carried ids the
+    birth-stamp guard drops (live slot, another point's stamp) on the static
+    motion hypothesis, once a frame: a pass kept apart from the timed one."""
+    import torch
+
+    from self_commit_orb_slam2_tpu_torch.models import tracking
+    from self_commit_orb_slam2_tpu_torch.models.system import STATE_OK
+
+    dropped = torch.zeros((), dtype=torch.int64, device="cuda")
+    orig = tracking.track_motion
+
+    def spy_motion(config, m, frame, Tcw, vel, last_frame, ids, radius, *, last_obs_birth=None):
+        nonlocal dropped
+        if last_obs_birth is not None and radius == config.tracking.motion_search_radius_wide:
+            cl = ids.clamp(0, m.max_pt - 1).long()
+            dropped = dropped + torch.sum((ids >= 0) & m.pt_valid[cl]
+                                          & (m.pt_birth[cl] != last_obs_birth))
+        return orig(config, m, frame, Tcw, vel, last_frame, ids, radius,
+                    last_obs_birth=last_obs_birth)
+
+    images, depths, ts = seq9b.images, seq9b.depths, seq9b.timestamps
+    live_max, n_lost = 0, 0
+    if count_drops:
+        tracking.track_motion = spy_motion
+    try:
+        bounds = [0] + list(range(1 + CHUNK, N_BOUNDED + 1, CHUNK))
+        for a, b in zip(bounds[:-1], bounds[1:]):
+            slam.track_batch_rgbd(images[a:b], depths[a:b], ts[a:b], chunk=CHUNK)
+            n_lost += slam.state != STATE_OK
+            live_max = max(live_max, int(slam.map.kf_valid.sum()))
+        torch.cuda.synchronize()
+    finally:
+        tracking.track_motion = orig
+    return live_max, n_lost, int(dropped)
+
+
+def phase_path9b(seq9b, kernels):
+    """The bounded map: more keyframes inserted than the map has slots."""
+    from self_commit_orb_slam2_tpu_torch.models import pipeline, relocalization
+    from self_commit_orb_slam2_tpu_torch.models.config import Capacities
+    from self_commit_orb_slam2_tpu_torch.models.system import STATE_OK, System
+    from self_commit_orb_slam2_tpu_torch.utils.evaluation import ate_rmse
+
+    label = "path 9b"
+    cfg = _sensor_config("rgbd", WIDTH, HEIGHT, FX, 0.1, N_FEATURES, None,
+                         max_frames_between_kf=2, min_frames_between_kf=0,
+                         kf_cull_redundancy=0.7)
+    cfg = cfg._replace(caps=Capacities(max_keyframes=12, max_points=16384, local_points=1024,
+                                       cull_log=256))
+    slam = System(cfg, enable_loop_closing=False)
+    _b1_on_loop_frames(label, seq9b, cfg.orb, at=40)
+    with pipeline.timed_mapping_passes() as pass_s:
+        for k in kernels.values():
+            k.launches = 0
+        relocalization.reset_counts()
+        t0 = time.perf_counter()
+        live_max, n_lost, _ = _bounded_pass(slam, seq9b, count_drops=False)
+        dt = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels.values()}
+        attempts, _ = relocalization.counts()
+    m = slam.map
+    total, live, culled = int(m.n_kf), int(m.kf_valid.sum()), int(m.n_culled)
+    pts = int(m.pt_valid.sum())
+    ts_est, est = slam.get_trajectory()
+    ate = float(ate_rmse(est, seq9b.poses_gt[:N_BOUNDED])) if len(est) == N_BOUNDED else np.inf
+    counted = System(cfg, enable_loop_closing=False)
+    _, _, dropped = _bounded_pass(counted, seq9b, count_drops=True)
+    print(f"[{label}] {N_BOUNDED} frames {WIDTH}x{HEIGHT} RGB-D, {N_FEATURES} features, of a "
+          f"look-at oscillation (tests/test_long_sequence.py's, seed {BOUNDED_SEED}), "
+          f"{cfg.caps.max_keyframes} keyframe slots, a keyframe every 2 frames, redundancy 0.7, "
+          f"chunk {CHUNK}: keyframes inserted {total}, live {live} (at most {live_max}), culled "
+          f"{culled}; points {pts} of {cfg.caps.max_points}; {len(est)} poses from "
+          f"get_trajectory, ATE {ate:.6f} m; state {slam.state} ({n_lost} chunks ended lost); "
+          f"{N_BOUNDED / dt:.2f} frames/s (host clock, synced), mapping passes {len(pass_s)}, "
+          f"mean {np.mean(pass_s) * 1e3:.1f} ms; relocalization attempts {attempts}; launches "
+          f"{launches}")
+    print(f"[{label}] a second pass, untimed, on the same frames: carried ids the birth guard "
+          f"dropped {dropped}; keyframes inserted {int(counted.map.n_kf)}, live "
+          f"{int(counted.map.kf_valid.sum())}, culled {int(counted.map.n_culled)}")
+    require(n_lost == 0 and slam.state == STATE_OK, f"{label}: tracking lost")
+    require(total > cfg.caps.max_keyframes, f"{label}: only {total} keyframes inserted into "
+            f"{cfg.caps.max_keyframes} slots: slot reuse untested")
+    require(live_max <= cfg.caps.max_keyframes, f"{label}: {live_max} live keyframes")
+    require(culled == total - live, f"{label}: n_culled {culled} != {total} - {live}")
+    require(0 < pts <= cfg.caps.max_points, f"{label}: {pts} live points")
+    require(len(ts_est) == N_BOUNDED and np.all(np.isfinite(est)),
+            f"{label}: {len(ts_est)} poses from get_trajectory, want {N_BOUNDED} finite")
+    require(ate < 0.08, f"{label}: ATE {ate:.6f} m >= 0.08 m")
+    want = 1 + -(-(N_BOUNDED - 1) // CHUNK)
+    require(launches == {"fast_band": want, "fast_nms": 0},
+            f"{label}: launches {launches}, want fast_band {want}, fast_nms 0")
+    return dict(launches=want, total=total, live=live, culled=culled, ate=ate,
+                dropped=dropped, fps=N_BOUNDED / dt)
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     try:
@@ -2110,6 +2381,12 @@ def main() -> int:
         print("chip_smoke: torch is not installed", file=sys.stderr)
         return 1
     stack = contextlib.ExitStack()
+    t_main = time.perf_counter()
+
+    def lap(what):
+        print(f"[time] {what} done {time.perf_counter() - t_main:.1f} s after the start "
+              "(host clock)", flush=True)
+
     try:
         name, count, card = phase_device()
         try:
@@ -2136,24 +2413,30 @@ def main() -> int:
         fleet_jobs = [pool.submit(_render, "frames", dict(geo, seed=FLEET_SEED + s,
                                                           n_frames=N_FLEET_FRAMES))
                       for s in range(N_FLEET)]
+        bounded_jobs = _submit_frames(
+            pool, lookat_trajectory(N_BOUNDED, sweep=0.22, frames_per_cycle=24), 2,
+            **dict(geo, seed=BOUNDED_SEED))
         kernels = phase_build()
         seq = _join_frames(seq_jobs)
         print(f"[data] generate_sequence: {N_FRAMES} frames ready "
               f"{time.perf_counter() - t_data:.1f} s after the render pool started (6 worker "
               f"processes, host)")
         results = phase_kernels(seq)
+        lap("build and kernels")
         summary = []
         for label, cell, mapping, own in (("path 1", 16, False, "fast_band"),
                                           ("path 2", 8, True, "fast_nms")):
             n, fps, ate = phase_path(seq, kernels, label, cell, mapping, own)
             results[own]["launches"] = n
             summary.append(f"{label} {fps:.2f} frames/s, ATE {ate:.6f} m")
+            lap(label)
         vocab, bow_ms = phase_vocabulary(seq)
         n3, fps3, ate3, reloc_ms, map3 = phase_path3(seq, kernels, vocab)
         results["fast_band"]["launches_path3"] = n3
         results["fast_nms"]["launches_path3"] = 0
         summary.append(f"path 3 {fps3:.2f} frames/s, ATE {ate3:.6f} m, BoW of a frame "
                        f"{bow_ms:.3f} ms, one relocalization {reloc_ms:.1f} ms")
+        lap("vocabulary and path 3")
 
         t0 = time.perf_counter()
         kitti = _join_frames(kitti_jobs)
@@ -2180,6 +2463,7 @@ def main() -> int:
         summary.append(f"two-view {two_view_ms:.1f} ms; path 5 {fps5:.2f} frames/s, Sim3 ATE "
                        f"{ate5:.6f} m, initialized after {n_init} frames, {attempt_ms:.1f} ms "
                        f"per bootstrap attempt")
+        lap("paths 4 and 5")
         t0 = time.perf_counter()
         seq6 = _join_frames(loop_jobs)
         print(f"[data] path 6: {N_LOOP} frames; waited {time.perf_counter() - t0:.1f} s for the "
@@ -2192,6 +2476,7 @@ def main() -> int:
                        f"correction {mean6['correct']:.1f} ms, GBA slice "
                        f"{mean6['gba_slice']:.1f} ms, merge {mean6['merge']:.1f} ms, pose graph "
                        f"on the card {stages['pose_graph_ms']:.1f} ms")
+        lap("path 6")
         with tempfile.TemporaryDirectory() as workdir:
             n7, rows7 = phase_path7(seq, kitti, euroc, kernels, vocab, workdir)
         summary.append("path 7 " + ", ".join(
@@ -2202,7 +2487,9 @@ def main() -> int:
             "initializing frame {:.0f} / {:.0f} ms, first chunk {:.0f} / {:.0f} ms, median "
             "chunk {:.0f} / {:.0f} ms".format(*(rows7["warm"][p][i] for i in (1, 2, 3)
                                                for p in (True, False))))
+        lap("path 7")
         r8a, cfg8, map8 = phase_path8a(seq6, kernels, vocab)
+        lap("path 8a")
         with tempfile.TemporaryDirectory() as workdir:
             r8b = phase_path8b(cfg8, map8, workdir)
             del map8
@@ -2212,6 +2499,7 @@ def main() -> int:
                   f"{time.perf_counter() - t0:.1f} s for the render pool (host)")
             r8c = phase_path8c(fleet_seqs, kernels, seq, _bench_config(vocab), map3)
             phase_path8d(workdir)
+        lap("path 8b to 8d")
         n8 = r8a["launches"] + r8c["launches"]
         summary.append(
             f"path 8a {r8a['fps']:.2f} frames/s, {r8a['closures']} closures at 256 x 65536, ATE "
@@ -2224,12 +2512,29 @@ def main() -> int:
             f"frames/s each, {r8c['fps_fleet']:.2f} for the fleet (steady "
             f"{r8c['steady_stream']:.2f} / {r8c['steady_fleet']:.2f}), ATE max "
             f"{max(r8c['ates']):.6f} m; path 8d NCCL world of 1 ok")
+        r9a = phase_path9a(seq6, kernels, vocab)
+        lap("path 9a")
+        t0 = time.perf_counter()
+        seq9b = _join_frames(bounded_jobs)
+        print(f"[data] path 9b: {N_BOUNDED} frames; waited {time.perf_counter() - t0:.1f} s for "
+              f"the render pool (host)")
+        r9b = phase_path9b(seq9b, kernels)
+        lap("path 9b")
+        n9 = r9a["launches"] + r9b["launches"]
+        summary.append(
+            f"path 9a mono {r9a['fps']:.2f} frames/s, {r9a['closures']} closures (frames "
+            f"{r9a['frames']}, s {[round(x, 4) for x in r9a['scales']]}), Sim3-aligned ATE "
+            f"{r9a['ate']:.6f} m (without loop closing {r9a['ate_raw']:.6f} m), stall "
+            f"{r9a['stalls'][0]:.1f} ms; path 9b {r9b['total']} keyframes inserted into 12 slots, "
+            f"{r9b['live']} live, {r9b['culled']} culled, ATE {r9b['ate']:.6f} m, "
+            f"{r9b['fps']:.2f} frames/s")
         for row in results.values():
             row.setdefault("shapes", [])
             own = row["name"] == "fast_band"
             row.update(launches_path4a=n4a if own else 0, launches_path4b=n4b if own else 0,
                        launches_path5=n5 if own else 0, launches_path6=n6 if own else 0,
-                       launches_path7=n7 if own else 0, launches_path8=n8 if own else 0)
+                       launches_path7=n7 if own else 0, launches_path8=n8 if own else 0,
+                       launches_path9=n9 if own else 0)
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -2238,7 +2543,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_path3",
             "launches_path4a", "launches_path4b", "launches_path5", "launches_path6",
-            "launches_path7", "launches_path8", "shapes")
+            "launches_path7", "launches_path8", "launches_path9", "shapes")
     print(f"[summary] {card}: {'; '.join(summary)}")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results.values()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

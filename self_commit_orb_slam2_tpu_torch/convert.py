@@ -63,7 +63,7 @@ def state_from_numpy(map_np: dict, carry_np: dict | None, device):
     return m, TrackCarry(**fields)
 
 
-def vocabulary_from_numpy(vocab_np, device="cpu") -> bow_ops.Vocabulary:
+def vocabulary_from_numpy(vocab_np, device) -> bow_ops.Vocabulary:
     """A JAX Vocabulary (its arrays as numpy; node descriptors uint32) -> the
     port's Vocabulary on `device`, with its child-descriptor table rebuilt."""
     v = _as_dict(vocab_np)

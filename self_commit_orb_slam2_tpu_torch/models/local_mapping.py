@@ -280,9 +280,13 @@ def create_new_points(config: SlamConfig, m: MapState, kf_id: torch.Tensor,
 
     Tcw2 = m.kf_Tcw[nb]                                                     # [B, 4, 4]
     baseline = torch.linalg.norm(c1 - se3.inverse(Tcw2)[:, :3, 3], dim=-1)
-    # baseline gate (reference :366-384): stereo needs more than the rig's
-    # baseline, mono a baseline / scene-depth ratio above 0.01
-    enough_baseline = baseline > cam.baseline if cam.bf > 0 else baseline / 2.0 > 0.01
+    # baseline gate (reference :366-384), chosen by the sensor as the
+    # reference's mbMonocular chooses it: stereo and RGB-D need more than the
+    # rig's baseline, mono a baseline / scene-depth ratio above 0.01 (the JAX
+    # package chooses by bf > 0, so a mono camera with bf set took the stereo
+    # rule and its map starved; ROADMAP.md §C)
+    enough_baseline = (baseline > cam.baseline if config.sensor != "mono"
+                       else baseline / 2.0 > 0.01)
     free2 = m.kf_feat_valid[nb] & (m.kf_obs_pt[nb] < 0)
     # fundamental matrices F12 = K^-T [t12]x R12 K^-1 (reference ComputeF12)
     T12 = Tcw1 @ se3.inverse(Tcw2)

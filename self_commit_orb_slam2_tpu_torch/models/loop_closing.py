@@ -613,6 +613,9 @@ class LoopCloser:
         # the gate values of every consumed detection (found, chain, inliers,
         # projections), read in the same transfer as the decision values
         self.debug_log: list = []
+        # the LoopDetection of every correction applied, in order, on the
+        # device (each closure's Sim3 S_cur_cand, its scale at [7])
+        self.corrections: list = []
         # groups within one part are detected against one pre-correction
         # map; the COOLDOWN check discards the rest after a mid-part
         # correction only while MAX_DETECT < COOLDOWN
@@ -767,10 +770,12 @@ class LoopCloser:
                 with _phase("correct", m.kf_valid):
                     slot = ms.latest_kf(m)
                     before = row(m.kf_Tcw, slot)
+                    det = LoopDetection(*(x[i] for x in dets))
                     m = correct_loop(self.config, m,
                                      torch.tensor(s, dtype=torch.int32, device=m.kf_valid.device),
-                                     LoopDetection(*(x[i] for x in dets)))
+                                     det)
                     fired.append((slot, before, row(m.kf_Tcw, slot)))
+                self.corrections.append(det)
                 self._dispatch_gba(m, cand)
                 self.last_loop_kf = counter
                 self.n_big_changes += 1

@@ -83,7 +83,7 @@ def test_vocabulary_from_numpy_and_file_round_trip(vocabs, tmp_path):
     jv, tv = vocabs
     _same_tree(jv, convert.vocabulary_from_numpy(
         {f: (np.asarray(getattr(jv, f)) if f not in ("k", "L", "n_words", "levelsup")
-             else getattr(jv, f)) for f in jv._fields if f != "child_desc"}))
+             else getattr(jv, f)) for f in jv._fields if f != "child_desc"}, "cpu"))
     # each package reads the file the other wrote
     bow.save_vocabulary(str(tmp_path / "t.npz"), tv, provenance="p")
     jbow.save_vocabulary(str(tmp_path / "j.npz"), jv, provenance="p")

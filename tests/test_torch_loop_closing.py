@@ -94,8 +94,11 @@ def _jax_sets(m, kf, cand_slots, active, key):
     return torch.from_numpy(np.stack([np.asarray(s) for s in sets]).astype(np.int64))
 
 
-@pytest.fixture(scope="module")
-def states():
+def loop_states(sensors=("rgbd", "mono"), mono_tear=MONO_TEAR) -> dict:
+    """The JAX states of the module docstring, by sensor: the map, the
+    current keyframe, the JAX detection from PRNGKey(3) and its correction.
+    mono_tear: (twist, scale) of the similarity that displaces the whole
+    first branch for the mono state."""
     jcfg, _ = _configs()
     seq = generate_sequence(n_frames=N_FIRST, width=320, height=240, seed=9,
                             trajectory=spin_trajectory(N_FIRST, frames_per_rev=72))
@@ -104,7 +107,7 @@ def states():
     first = jax.device_get(slam.map)
     newest = int(first.n_kf) - 1
     out = {}
-    for sensor in ("rgbd", "mono"):
+    for sensor in sensors:
         m = jax.device_put(first)
         if sensor == "rgbd":
             # increment j moves the content of keyframes 0..j (the JAX drift
@@ -113,8 +116,8 @@ def states():
             for j in range(N_DRIFT):
                 m = displace_old_content(m, D, jnp.float32(1.0), keep_recent=newest - j)
         else:
-            m = displace_old_content(m, jse3.se3_exp(jnp.asarray(MONO_TEAR[0], jnp.float32)),
-                                     jnp.float32(MONO_TEAR[1]), keep_recent=-1)
+            m = displace_old_content(m, jse3.se3_exp(jnp.asarray(mono_tear[0], jnp.float32)),
+                                     jnp.float32(mono_tear[1]), keep_recent=-1)
         slam.map = m
         slam.carry, slam.state = None, jsystem.STATE_NOT_INITIALIZED
         slam.track_batch_rgbd(seq.images[:N_SECOND], seq.depths[:N_SECOND],
@@ -129,6 +132,11 @@ def states():
         out[sensor] = dict(jcfg=jc, tcfg=tc, m=m_np, kf=int(kf), key=key,
                            det=jax.device_get(det), corrected=corrected)
     return out
+
+
+@pytest.fixture(scope="module")
+def states():
+    return loop_states()
 
 
 @pytest.mark.parametrize("sensor", ["rgbd", "mono"])

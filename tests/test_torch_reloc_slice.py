@@ -113,7 +113,7 @@ def runs():
     jrec = _scenario(jsys, seq, lambda s: s.n_points())
 
     vocab = convert.vocabulary_from_numpy(
-        {f: getattr(jvocab, f) for f in jvocab._fields if f != "child_desc"})
+        {f: getattr(jvocab, f) for f in jvocab._fields if f != "child_desc"}, "cpu")
     cfg = config.SlamConfig(camera=CameraParams.create(**CAM), orb=OrbConfig(n_features=500),
                             caps=config.Capacities(**CAPS),
                             tracking=config.TrackingConfig(**track), vocab=vocab)

@@ -74,7 +74,7 @@ def world():
     traj = [np.asarray(T) for _, T in jsys.trajectory]
 
     vocab = convert.vocabulary_from_numpy(
-        {f: getattr(jvocab, f) for f in jvocab._fields if f != "child_desc"})
+        {f: getattr(jvocab, f) for f in jvocab._fields if f != "child_desc"}, "cpu")
     cfg = config.SlamConfig(
         camera=CameraParams.create(**CAM), orb=OrbConfig(n_features=500),
         caps=config.Capacities(**CAPS),

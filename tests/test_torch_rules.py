@@ -341,3 +341,123 @@ def test_every_jax_name_has_a_port_counterpart():
     assert missing == set(), sorted(missing)
     assert all(v in ours for v in RENAMED.values())
     assert {m for m, _ in theirs if m.startswith("parallel/")} <= {m for m, _ in ours}
+
+
+# -------------------------------------------------------- the signature guard
+
+def _params(fn):
+    """(positional parameter names, keyword-only names, takes **kw)."""
+    a = fn.args
+    pos = [x.arg for x in a.posonlyargs + a.args]
+    return pos, [x.arg for x in a.kwonlyargs], a.kwarg is not None
+
+
+def _signatures(pkg):
+    """{(module, qualified name): _params} of top-level functions and methods,
+    and {(module, class): class-level names} (fields, constants)."""
+    funcs, attrs = {}, {}
+    for path in pkg.rglob("*.py"):
+        rel = str(path.relative_to(pkg))
+        for node in ast.parse(path.read_text()).body:
+            if isinstance(node, ast.FunctionDef):
+                funcs[(rel, node.name)] = _params(node)
+            elif isinstance(node, ast.ClassDef):
+                names = []
+                for m in node.body:
+                    if isinstance(m, ast.FunctionDef):
+                        funcs[(rel, f"{node.name}.{m.name}")] = _params(m)
+                    elif isinstance(m, ast.AnnAssign) and isinstance(m.target, ast.Name):
+                        names.append(m.target.id)
+                    elif isinstance(m, ast.Assign):
+                        names += [t.id for t in m.targets if isinstance(t, ast.Name)]
+                attrs[(rel, node.name)] = [n for n in names if not n.startswith("_")]
+    return funcs, attrs
+
+
+# Parameters the port adds, each anywhere in a signature:
+PORT_ONLY_PARAMS = {
+    "device": "the engine runs on the card unless the caller asks for the CPU",
+    "generator": "a torch.Generator draws what a JAX PRNG key drew (ROADMAP.md §C (2))",
+    "sets": "fixed minimal sets, so a parity test can feed the JAX package's own draws",
+    "timeout_s": "a deadline for the torch.distributed rendezvous",
+    "cuda": "StageTimer synchronizes the card around a stage when asked",
+}
+# JAX parameters replaced at the same place: a JAX PRNG key by a generator.
+REPLACED_PARAMS = {"key": "generator"}
+# The differences the port keeps on purpose, by (module, name): JAX parameter
+# -> its port name, "**kw" (taken through **kw), "*" (keyword-only in the
+# port) or None (not taken); then the reason.
+SIGNATURE_DIFFERENCES = {
+    **{("models/pipeline.py", f): ({"localization_only": "**kw"},
+                                   "a keyword taken through **kw into track_step")
+       for f in ("step_rgbd", "step_stereo", "step_mono", "batch_steps_rgbd",
+                 "batch_steps_stereo", "batch_steps_rgbd_packed", "batch_steps_stereo_packed")},
+    **{("models/pipeline.py", f): ({"localization_only": "*"},
+                                   "keyword-only, after run_mapping, beside the generator")
+       for f in ("track_step", "batch_steps_frames")},
+    ("ops/matching/core.py", "masked_best_match"): (
+        {"ratio_same_level_only": None},
+        "a JAX-only option: no caller in the JAX package passes it"),
+    ("ops/matching/stereo.py", "match_stereo"): (
+        {"pyramid_l": "slab_l", "pyramid_r": "slab_r"},
+        "a rename: the port's matcher reads the stacked pyramid slab, not the level list"),
+    ("ops/orb/sample.py", "orient_and_describe"): (
+        {"slab_raw": "slab"}, "a rename: the port samples the one unpadded slab"),
+    ("models/loop_closing.py", "LoopCloser.dispatch_group"): (
+        {"rebase": None},
+        "the closer builds each re-base payload when its correction fires (ROADMAP.md §C (4))"),
+}
+# Class-level names the port does not keep, with the reason.
+ATTRIBUTE_DIFFERENCES = {
+    ("ops/orb/extractor.py", "OrbConfig", "use_pallas_fast"):
+        "a TPU-only switch: the Pallas kernel ran only on a TPU; on the card the CUDA "
+        "kernel is the one route",
+    ("models/streaming.py", "StreamSession", "MAX_INFLIGHT"):
+        "the port drains each chunk when it is dispatched, so no fetch is in flight",
+}
+
+
+def test_every_jax_signature_matches_the_port():
+    """Every public JAX function and method takes the same parameters in the
+    port: the same positional names in the same order, the same keywords,
+    less only the differences named above with their reasons (and every
+    named difference still exists).  Renamed functions are compared under
+    their port names."""
+    ours, theirs = _signatures(PORT), _signatures(JAX)
+    used, bad = set(), []
+    for key, (jpos, jkw, _) in sorted(theirs[0].items()):
+        if any(p.startswith("_") and not p.endswith("__") for p in key[1].split(".")):
+            continue
+        pos, kw, var_kw = ours[0][RENAMED.get(key, key)]
+        diff = SIGNATURE_DIFFERENCES.get(key, ({}, ""))[0]
+        if diff:
+            used.add(key)
+        want = []   # the port's positional names, in the JAX package's order
+        for p in jpos:
+            new = diff.get(p, REPLACED_PARAMS.get(p, p))
+            if new == "**kw":
+                bad += [(key, p, "not through **kw")] if p in pos + kw or not var_kw else []
+            elif new == "*":
+                bad += [(key, p, "not keyword-only")] if p not in kw else []
+            elif new is None:
+                bad += [(key, p, "still taken")] if p in pos + kw else []
+            else:
+                want.append(new)
+        got = [p for p in pos if p not in PORT_ONLY_PARAMS or p in want]
+        if got != want:
+            bad.append((key, jpos, pos))
+        bad += [(key, p, "keyword missing") for p in jkw if p not in kw and not var_kw]
+        bad += [(key, p, "keyword added") for p in kw
+                if p not in jkw and p not in PORT_ONLY_PARAMS and diff.get(p) != "*"]
+    assert bad == [], bad
+    assert used == set(SIGNATURE_DIFFERENCES), set(SIGNATURE_DIFFERENCES) - used
+    for (module, cls), names in theirs[1].items():
+        if cls.startswith("_"):
+            continue
+        for name in names:
+            if name not in ours[1][(module, cls)]:
+                assert (module, cls, name) in ATTRIBUTE_DIFFERENCES, (module, cls, name)
+            else:
+                assert (module, cls, name) not in ATTRIBUTE_DIFFERENCES, (module, cls, name)
+    for module, cls, name in ATTRIBUTE_DIFFERENCES:
+        assert name in theirs[1][(module, cls)]
