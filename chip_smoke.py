@@ -23,7 +23,17 @@ Phases (any failure exits non-zero and prints no result):
        path 2: 8-px cells (FAST NMS kernel + slab selection), local mapping
                on, one mapping pass per keyframe inserted after the first;
      each must end STATE_OK with >= 2 keyframes and ATE < 0.01 m, launch its
-     own kernel once per extraction call and the other kernel never;
+     own kernel once per extraction call and the other kernel never, and
+     replay its step graphs (every System on the card tracks SLAM-mode
+     frames through the two CUDA graphs of models/step_graph.py, captured
+     at its first tracked frame or in warm_start); then the graph phase of
+     the path (phase_graph; also after paths 4 (a) and 5): 1 + 21 frames,
+     each chunk run op by op (pipeline.batch_steps_frames) on a clone
+     of the state and through the graphs on the live state, which must
+     agree (bitwise, else poses within 1e-5, inliers within 2, the same
+     keyframes); eager against graphed, tracking ms, device kernels, graph
+     replays, host syncs and cudaMemcpy calls per frame (torch.profiler),
+     idle share, the capture's seconds;
   5. vocabulary: the bundled vocabulary (k=10, L=6) is loaded and moved to
      the card; transform + sparse_bow of one extracted frame on the card must
      equal the same calls on the CPU (words, nodes, ids exactly; weights
@@ -106,7 +116,7 @@ Phases (any failure exits non-zero and prints no result):
      synchronized with the card), and B1's launches (once per extraction
      call; B2 never).
  14. path 8, the multi-device layer on the one card (a world of one rank):
-       a. path 6's scenario, its first 157 frames, at run_slam's TUM
+       a. path 6's scenario, its 184 frames, at run_slam's TUM
           capacities (the default Capacities(), 256 / 65536 / 2048):
           STATE_OK, >= 1 closure, the
           dispatched global BA takes the sharded branch (the distributed
@@ -161,6 +171,7 @@ those on paths 3 to 9 and its times at the stereo shapes); the last line is
 from __future__ import annotations
 
 import contextlib
+import faulthandler
 import json
 import multiprocessing
 import os
@@ -526,7 +537,145 @@ def phase_path(seq, kernels, label: str, cell_size: int, mapping: bool, own: str
     require(len(pass_s) == want_passes,
             f"{label}: {len(pass_s)} mapping passes, want {want_passes} (one per "
             f"keyframe inserted after initialization)")
-    return launches[own], fps, ate
+    require(slam.step_graph.replays > 0, f"{label}: the stream replayed no step graph")
+    graphs = phase_graph(label, cfg, "rgbd", (images, depths), ts, mapping)
+    return launches[own], fps, ate, graphs
+
+
+# the graph phase of paths 1, 2, 4 (a) and 5: chunks of 4 after the first
+# frame (or the mono bootstrap), eager against graphed from the same states
+GRAPH_CHUNKS = 6
+GRAPH_POSE_TOL, GRAPH_INLIER_TOL = 1e-5, 2
+
+
+def _clone_state(x):
+    import torch
+
+    return type(x)(*(v.clone() if torch.is_tensor(v) else _clone_state(v) for v in x))
+
+
+def _graph_note(g) -> str:
+    return (f"tracking eager {g['eager_ms']:.1f} / graphed {g['graph_ms']:.1f} ms per frame, "
+            f"host syncs {g['per'][False]['syncs']:.2f} / {g['per'][True]['syncs']:.2f}, "
+            f"kernels {g['per'][False]['kernels']:.0f} / {g['per'][True]['kernels']:.0f} per "
+            f"frame, capture {g['capture_s']:.1f} s, bitwise {g['bitwise']}")
+
+
+def phase_graph(label, cfg, sensor, arrays, ts, mapping):
+    """Eager against graphed along one path (models/step_graph.py).  A fresh
+    System takes the path's first frame (or the mono bootstrap's frames) on
+    the per-frame path; its StepGraph captures on that state; then
+    GRAPH_CHUNKS chunks, built by the path's frame phase first.
+    Before each chunk the map, the carry and the stream's generator are
+    cloned; the chunk runs through pipeline.batch_steps_frames (op by op) on
+    the clone, then through the StepGraph on the live state.  Hard: the two
+    packed StepInfos agree (bitwise, else poses within GRAPH_POSE_TOL,
+    inliers within GRAPH_INLIER_TOL, the same keyframe decisions) and so do
+    the live keyframe slots and their frame ids.  The last chunk, its first
+    frame live and the other 3 padded (an op-by-op trace of 4 frames takes
+    the profiler minutes to read), runs both ways under torch.profiler.
+    Prints tracking ms per frame (host clock, synced, the chunks before the
+    last), the profiled frame's device kernels, graph replays, host syncs
+    (its flag read, the chunk's valid.tolist() and the closing
+    cuda.synchronize) and cudaMemcpy calls, and the idle share, and the
+    capture's seconds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from self_commit_orb_slam2_tpu_torch.models import pipeline
+    from self_commit_orb_slam2_tpu_torch.models.system import STATE_OK, System
+    from self_commit_orb_slam2_tpu_torch.utils.profiling import trace_counts
+
+    t_phase = time.perf_counter()
+    slam = System(cfg, enable_mapping=mapping, enable_loop_closing=False)
+    sg = slam.step_graph
+    require(sg is not None and sg.graphed, f"{label} graphs: the System has no CUDA StepGraph")
+    i = 0
+    while slam.state != STATE_OK:   # the first frame, or the mono bootstrap
+        require(i < 8, f"{label} graphs: no map after {i} frames")
+        slam._track(sensor, tuple(torch.from_numpy(a[i].astype(np.float32) * np.float32(
+            1e-3 if a.dtype == np.uint16 else 1.0)) for a in arrays), float(ts[i]))
+        i += 1
+    sess = slam.open_stream(sensor, CHUNK)
+    chunks = []
+    for c in range(GRAPH_CHUNKS):
+        s = i + CHUNK * c
+        n_live = 1 if c == GRAPH_CHUNKS - 1 else CHUNK
+        chunks.append(sess.frame_fn(slam.config, sess._upload(
+            [a[s:s + n_live] for a in arrays], list(ts[s:s + n_live]))))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sg.capture(slam.map, slam.carry, chunks[0][0].select(0), mapping)
+    capture_s = time.perf_counter() - t0
+
+    def run(c, graphed):
+        frames, tsc, valid = chunks[c]
+        if graphed:
+            slam.map, slam.carry, packed = sg.batch_steps(
+                slam.map, slam.carry, frames, tsc, valid, mapping, slam._stream_gen)
+            return packed, slam.map
+        gen = torch.Generator(device="cuda")
+        gen.set_state(slam._stream_gen.get_state())
+        m, _, packed = pipeline.batch_steps_frames(
+            slam.config, _clone_state(slam.map), _clone_state(slam.carry), frames, tsc, valid,
+            mapping, generator=gen)
+        return packed, m
+
+    secs = {False: 0.0, True: 0.0}
+    worst = dict(bitwise=True, pose=0.0, inliers=0)
+    traces = {}
+    for c in range(GRAPH_CHUNKS):
+        last = c == GRAPH_CHUNKS - 1
+        out = {}
+        for graphed in (False, True):
+            r0 = sg.replays
+            torch.cuda.synchronize()
+            with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if last
+                  else contextlib.nullcontext()) as prof:
+                t0 = time.perf_counter()
+                out[graphed] = run(c, graphed)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            if last:
+                traces[graphed] = dict(trace_counts(prof, dt), replays=sg.replays - r0)
+            else:
+                secs[graphed] += dt
+        (pe, me), (pg, mg) = out[False], out[True]
+        ie, ig = (pipeline.unpack_infos(p.cpu().numpy()) for p in (pe, pg))
+        d_pose = float(np.abs(ie.Tcw - ig.Tcw).max())
+        d_inl = int(np.abs(ie.n_inliers - ig.n_inliers).max())
+        bitwise = bool(torch.equal(pe, pg))
+        worst.update(bitwise=worst["bitwise"] and bitwise, pose=max(worst["pose"], d_pose),
+                     inliers=max(worst["inliers"], d_inl))
+        require(bitwise or (d_pose <= GRAPH_POSE_TOL and d_inl <= GRAPH_INLIER_TOL
+                            and np.array_equal(ie.created_kf, ig.created_kf)),
+                f"{label} graphs: chunk {c} graphed against eager: pose {d_pose:.3e}, inliers "
+                f"{d_inl}, keyframes {ie.created_kf} against {ig.created_kf}")
+        require(torch.equal(me.kf_valid, mg.kf_valid)
+                and torch.equal(me.kf_frame_id[me.kf_valid], mg.kf_frame_id[mg.kf_valid]),
+                f"{label} graphs: chunk {c}: the keyframes differ")
+    require(bool(slam.carry.state_ok), f"{label} graphs: tracking lost")
+    n_timed = CHUNK * (GRAPH_CHUNKS - 1)
+    ms = {g: secs[g] / n_timed * 1e3 for g in secs}
+    per = {g: {k: traces[g][k] for k in ("kernels", "syncs", "memcpy", "replays")}
+           for g in traces}   # one live frame
+    for g in (False, True):
+        t = traces[g]
+        print(f"[{label} graphs] {'graphed' if g else 'eager  '}: tracking {ms[g]:.2f} ms/frame "
+              f"(host clock, synced, {n_timed} frames); profiled frame: {per[g]['kernels']:.0f} "
+              f"device kernels, {per[g]['replays']:.0f} graph replays, {per[g]['syncs']:.0f} host "
+              f"syncs, {per[g]['memcpy']:.0f} cudaMemcpy calls, idle share {t['idle']:.3f} "
+              f"(device busy {t['busy_ms']:.2f} ms, under the profiler)")
+    print(f"[{label} graphs] capture {capture_s:.2f} s (warm-up x2 + both graphs); graphed "
+          f"against eager over {n_timed + 1} frames from the same states: bitwise "
+          f"{worst['bitwise']}, worst pose {worst['pose']:.3e}, worst inliers "
+          f"{worst['inliers']}; {int(slam.map.kf_valid.sum())} keyframes; the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    require(traces[True]["replays"] >= 1 and traces[False]["replays"] == 0,
+            f"{label} graphs: {traces[True]['replays']} replays graphed, "
+            f"{traces[False]['replays']} eager in the profiled frame")
+    return dict(eager_ms=ms[False], graph_ms=ms[True], per=per, capture_s=capture_s,
+                idle={g: traces[g]["idle"] for g in traces}, **worst)
 
 
 def _bench_config(vocab=None):
@@ -1095,7 +1244,9 @@ def phase_path5(seq, kernels, vocab):
     want = n_boot + -(-(first - n_boot) // CHUNK) + (N_MONO - first) // CHUNK
     require(launches == {"fast_band": want, "fast_nms": 0},
             f"{label}: launches {launches}, want fast_band {want}, fast_nms 0")
-    return want, fps, ate, float(np.mean(attempt_s) * 1e3), lag + 1
+    require(slam.step_graph.replays > 0, f"{label}: the stream replayed no step graph")
+    graphs = phase_graph(label, cfg, "mono", (images,), ts, True)
+    return want, fps, ate, float(np.mean(attempt_s) * 1e3), lag + 1, graphs
 
 
 # path 6: a circle revolution of 120 frames, 184 streamed (the JAX package
@@ -1782,9 +1933,9 @@ def phase_path7(seq, kitti, euroc, kernels, vocab, workdir):
 # RGB-D streams, then 2 localization streams on path 3's saved map; NCCL
 # at a world of one rank.
 N_FLEET, N_FLEET_FRAMES, FLEET_SEED = 4, 25, 5
-# (a) streams path 6's first 157 frames (it closed at frame 113 or 145 on the card):
-# the cut that keeps the whole script inside the 1200 s the chip check allows
-N_LOOP_8A = 157
+# (a) streams path 6's 184 frames (cut to 157 while the steps ran op by op, to
+# keep the script inside the 1200 s the chip check allows)
+N_LOOP_8A = 184
 PERTURB_SIGMA = 5e-3
 
 
@@ -2280,7 +2431,11 @@ def _bounded_pass(slam, seq9b, count_drops: bool):
     """Track path 9 (b)'s frames into slam, a fresh System, in chunks of 4.  With
     count_drops, a spy on tracking.track_motion counts the carried ids the
     birth-stamp guard drops (live slot, another point's stamp) on the static
-    motion hypothesis, once a frame: a pass kept apart from the timed one."""
+    motion hypothesis, once a frame: a pass kept apart from the timed one.
+    The spy runs inside the step graph, so it adds into a tensor made before
+    the capture (in place: each replay adds), and the System captures in
+    warm_start, on a scratch state with no carried ids, before the count
+    starts."""
     import torch
 
     from self_commit_orb_slam2_tpu_torch.models import tracking
@@ -2290,11 +2445,10 @@ def _bounded_pass(slam, seq9b, count_drops: bool):
     orig = tracking.track_motion
 
     def spy_motion(config, m, frame, Tcw, vel, last_frame, ids, radius, *, last_obs_birth=None):
-        nonlocal dropped
         if last_obs_birth is not None and radius == config.tracking.motion_search_radius_wide:
             cl = ids.clamp(0, m.max_pt - 1).long()
-            dropped = dropped + torch.sum((ids >= 0) & m.pt_valid[cl]
-                                          & (m.pt_birth[cl] != last_obs_birth))
+            dropped.add_(torch.sum((ids >= 0) & m.pt_valid[cl]
+                                   & (m.pt_birth[cl] != last_obs_birth)))
         return orig(config, m, frame, Tcw, vel, last_frame, ids, radius,
                     last_obs_birth=last_obs_birth)
 
@@ -2302,6 +2456,8 @@ def _bounded_pass(slam, seq9b, count_drops: bool):
     live_max, n_lost = 0, 0
     if count_drops:
         tracking.track_motion = spy_motion
+        slam.warm_start()
+        dropped.zero_()
     try:
         bounds = [0] + list(range(1 + CHUNK, N_BOUNDED + 1, CHUNK))
         for a, b in zip(bounds[:-1], bounds[1:]):
@@ -2329,6 +2485,7 @@ def phase_path9b(seq9b, kernels):
                                        cull_log=256))
     slam = System(cfg, enable_loop_closing=False)
     _b1_on_loop_frames(label, seq9b, cfg.orb, at=40)
+    slam.warm_start()   # the step graphs' capture: start-up, outside the timed frames
     with pipeline.timed_mapping_passes() as pass_s:
         for k in kernels.values():
             k.launches = 0
@@ -2374,6 +2531,7 @@ def phase_path9b(seq9b, kernels):
 
 
 def main() -> int:
+    faulthandler.enable()   # a crash prints every thread's stack
     sys.path.insert(0, HERE)
     try:
         import torch  # noqa: F401
@@ -2426,9 +2584,9 @@ def main() -> int:
         summary = []
         for label, cell, mapping, own in (("path 1", 16, False, "fast_band"),
                                           ("path 2", 8, True, "fast_nms")):
-            n, fps, ate = phase_path(seq, kernels, label, cell, mapping, own)
+            n, fps, ate, g = phase_path(seq, kernels, label, cell, mapping, own)
             results[own]["launches"] = n
-            summary.append(f"{label} {fps:.2f} frames/s, ATE {ate:.6f} m")
+            summary.append(f"{label} {fps:.2f} frames/s, ATE {ate:.6f} m, " + _graph_note(g))
             lap(label)
         vocab, bow_ms = phase_vocabulary(seq)
         n3, fps3, ate3, reloc_ms, map3 = phase_path3(seq, kernels, vocab)
@@ -2447,22 +2605,25 @@ def main() -> int:
         band = results["fast_band"]
         phase_band_shapes(kitti, euroc, euroc_maps, band)
         match_ms, share = phase_stereo_matcher(kitti)
-        n4a, fps4a, ate4a, pass4a = phase_path_stereo(
-            "path 4a", kitti, _sensor_config("stereo", vocab=vocab, max_frames_between_kf=10,
-                                             **KITTI), N_KITTI, 0.01, kernels)
+        cfg4a = _sensor_config("stereo", vocab=vocab, max_frames_between_kf=10, **KITTI)
+        n4a, fps4a, ate4a, pass4a = phase_path_stereo("path 4a", kitti, cfg4a, N_KITTI, 0.01,
+                                                      kernels)
+        g4a = phase_graph("path 4a", cfg4a, "stereo", (_u8(kitti.images),
+                                                       _u8(kitti.right_images)),
+                          kitti.timestamps, True)
         n4b, fps4b, ate4b, _ = phase_path_stereo(
             "path 4b", euroc, _sensor_config("stereo", vocab=vocab, rect_maps=euroc_maps,
                                              max_frames_between_kf=10, **EUROC),
             N_EUROC - N_EUROC_PER_FRAME, 0.02, kernels)
         summary.append(f"path 4a {fps4a:.2f} frames/s, ATE {ate4a:.6f} m, {pass4a:.1f} ms per "
                        f"mapping pass, match_stereo {match_ms / CHUNK:.3f} ms per frame, depth "
-                       f"on {share:.3f} of the keypoints; path 4b {fps4b:.2f} frames/s, ATE "
-                       f"{ate4b:.6f} m")
+                       f"on {share:.3f} of the keypoints, {_graph_note(g4a)}; path 4b "
+                       f"{fps4b:.2f} frames/s, ATE {ate4b:.6f} m")
         two_view_ms = phase_two_view()
-        n5, fps5, ate5, attempt_ms, n_init = phase_path5(seq, kernels, vocab)
+        n5, fps5, ate5, attempt_ms, n_init, g5 = phase_path5(seq, kernels, vocab)
         summary.append(f"two-view {two_view_ms:.1f} ms; path 5 {fps5:.2f} frames/s, Sim3 ATE "
                        f"{ate5:.6f} m, initialized after {n_init} frames, {attempt_ms:.1f} ms "
-                       f"per bootstrap attempt")
+                       f"per bootstrap attempt, {_graph_note(g5)}")
         lap("paths 4 and 5")
         t0 = time.perf_counter()
         seq6 = _join_frames(loop_jobs)

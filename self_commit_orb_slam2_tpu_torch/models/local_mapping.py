@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops import se3
+from ..ops import constants, se3
 from ..ops.camera import in_frustum, project
 from ..ops.indexing import (add_drop, indicator, nonzero_padded, row, set_drop,
                             top_k)
@@ -45,12 +45,12 @@ MAX_OBS_TABLE = 12  # observation descriptors per point entering the median
 
 def _set_at(arr: torch.Tensor, i: torch.Tensor, val) -> torch.Tensor:
     """arr.at[i].set(val) for a 0-d index tensor (-1 drops the write)."""
-    val = torch.as_tensor(val, dtype=arr.dtype, device=arr.device)
+    val = val.to(arr.dtype) if torch.is_tensor(val) else arr.new_full((), val)
     return set_drop(arr, i.reshape(1), val.expand(arr.shape[1:])[None])
 
 
 def _scale_tables(config: SlamConfig, device):
-    sf = torch.from_numpy(config.orb.scale_factors()).to(device)
+    sf = constants.scale_factors(config.orb, device)
     return sf, sf * sf
 
 
@@ -59,8 +59,7 @@ def _predict_level(config: SlamConfig, ref_dist: torch.Tensor,
     """Predicted octave (MapPoint::PredictScale, src/MapPoint.cc:551):
     ceil(log(ref_dist / dist) / log(scale_factor)), clipped to the pyramid."""
     ratio = torch.clamp_min(ref_dist, 1e-6) / torch.clamp_min(dist, 1e-6)
-    log_sf = torch.log(torch.tensor(config.orb.scale_factor, dtype=torch.float32,
-                                    device=dist.device))
+    log_sf = constants.log_scale_factor(config.orb.scale_factor, dist.device)
     return torch.clamp(torch.ceil(torch.log(ratio) / log_sf).to(torch.int32), 0,
                        config.orb.n_levels - 1)
 
@@ -290,7 +289,7 @@ def create_new_points(config: SlamConfig, m: MapState, kf_id: torch.Tensor,
     free2 = m.kf_feat_valid[nb] & (m.kf_obs_pt[nb] < 0)
     # fundamental matrices F12 = K^-T [t12]x R12 K^-1 (reference ComputeF12)
     T12 = Tcw1 @ se3.inverse(Tcw2)
-    Kinv = torch.linalg.inv(K33)
+    Kinv = constants.inverse_camera_matrix(cam, K33.device)
     F12 = Kinv.T @ se3.hat(T12[:, :3, 3]) @ T12[:, :3, :3] @ Kinv
     x1h = torch.cat([xy1, torch.ones_like(xy1[:, :1])], dim=-1)
     lines = x1h @ F12                                                       # [B, N, 3]

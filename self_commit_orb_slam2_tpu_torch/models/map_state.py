@@ -18,7 +18,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops import se3
+from ..ops import constants, se3
 from ..ops.indexing import add_drop, indicator, nonzero_padded, row, set_drop
 from .config import SlamConfig
 from .frame import FrameData
@@ -247,7 +247,7 @@ def insert_keyframe(m: MapState, frame: FrameData, Tcw: torch.Tensor,
     parent_seq = torch.where(row(tree_counts, tp) > 0, row(m.kf_seq, tp), -1)
 
     def w(arr, val):
-        val = torch.as_tensor(val, dtype=arr.dtype, device=dev)
+        val = val.to(arr.dtype) if torch.is_tensor(val) else arr.new_full((), val)
         arr.index_put_((slot,), torch.where(ok, val, arr[slot][0])[None])
 
     w(m.kf_Tcw, Tcw)
@@ -288,7 +288,7 @@ def add_points(m: MapState, config: SlamConfig, kf_id: torch.Tensor,
     UpdateNormalAndDepth, src/MapPoint.cc:477-533).  Returns (map, ids [M],
     -1 where not created)."""
     dev = positions.device
-    scale_factors = torch.from_numpy(config.orb.scale_factors()).to(dev)
+    scale_factors = constants.scale_factors(config.orb, dev)
     n_levels = config.orb.n_levels
     P = m.max_pt
     M = create_mask.shape[0]

@@ -7,13 +7,17 @@ tracking steps run in order over it (batch_steps_frames -> track_step):
 dual-hypothesis motion tracking, local-map tracking, the keyframe decision,
 keyframe insertion and, with run_mapping, the local-mapping pass.  The JAX
 package compiles each step into one XLA program with lax.cond branches; here
-the step runs eagerly and each branch is a host `if` on a 0-d tensor.
+track_step is split at its host branches: step_core (everything up to the
+flags), relocalize_branch and keyframe_tail, with one host `if` on the flags
+between them.  step_core and keyframe_tail build no tensor from host data
+(ops/constants.py holds the step's constants) and read nothing back, so a
+CUDA System replays each as a captured graph (models/step_graph.py).
 
-Host syncs per frame: one.  The keyframe flag and, with a vocabulary, the
-"wants relocalization" flag are read in one transfer.  A frame that
-relocalizes pays a second one (the keyframe decision after the recovered
-pose) beside the one inside relocalize(); a localization-mode frame pays one
-more to decide whether local-map tracking runs.
+Host reads per SLAM-mode frame: one, the flags (the keyframe flag and,
+with a vocabulary, the "wants relocalization" flag, in one transfer).  A
+frame that relocalizes reads once more (the keyframe decision after the
+recovered pose) beside the reads inside relocalize(); a localization-mode
+frame once more, to decide whether local-map tracking runs.
 
 With a vocabulary the LOST branch relocalizes inside the stream (reference
 Tracking.cc:523-629, :2030), drawing its RANSAC sets from a torch.Generator
@@ -30,6 +34,7 @@ import numpy as np
 import torch
 
 from ..ops import se3
+from ..ops.constants import constant
 from ..ops.indexing import row, select
 from . import frame as frame_mod
 from . import local_mapping
@@ -143,6 +148,30 @@ def timed_mapping_passes():
         _pass_s = None
 
 
+@contextlib.contextmanager
+def untimed_mapping_passes():
+    """Suspend timed_mapping_passes() inside the block (a graph's warm-up and
+    capture run passes that are not the stream's, and a capture cannot
+    synchronize)."""
+    global _pass_s
+    saved, _pass_s = _pass_s, None
+    try:
+        yield
+    finally:
+        _pass_s = saved
+
+
+def record_pass_seconds(seconds: float) -> None:
+    """Append a pass timed elsewhere (a replayed keyframe graph) to the open
+    timed_mapping_passes() list, if any."""
+    if _pass_s is not None:
+        _pass_s.append(seconds)
+
+
+def mapping_passes_timed() -> bool:
+    return _pass_s is not None
+
+
 def _mapping_pass(config: SlamConfig, m: MapState, kf_id: torch.Tensor) -> MapState:
     if _pass_s is None:
         return local_mapping._process(config, m, kf_id)
@@ -187,98 +216,154 @@ def _echo_local_map(config: SlamConfig, m: MapState, res) -> tracking.LocalMapRe
     )
 
 
-def track_step(config: SlamConfig, m: MapState, carry: TrackCarry,
-               frame: FrameData, timestamp, run_mapping: bool = True, *,
-               localization_only: bool = False,
-               generator: torch.Generator | None = None):
-    """One tracking step (frame already built) -> (map, carry, StepInfo).
-    Updates the map in place when a keyframe is inserted; with run_mapping
-    the local-mapping pass follows the insertion.  With a vocabulary a frame
-    that lost tracking relocalizes, drawing from `generator`."""
-    cfg = config.tracking
-    dev = frame.xy.device
-    false = torch.zeros((), dtype=torch.bool, device=dev)
+class StepCore(NamedTuple):
+    """What a step knows before its host branches: the carry and StepInfo
+    of a frame that neither relocalizes nor inserts a keyframe, and what the
+    branches read."""
 
-    if localization_only:
-        # Localization mode (reference Tracking.cc:523-656): motion tracking
-        # is augmented with temporal visual-odometry points from the last
-        # frame's depth (UpdateLastFrame, :1247-1350); carry.vo is the
-        # reference's mbVO "map support lost" flag; local-map tracking is
-        # skipped while map support is lost (:648-655), and relocalization
-        # runs alongside the VO motion model, its solution preferred
-        # (:568-624).
-        res = _motion_hypotheses(tracking.track_motion_loc, config, m, carry, frame)
-        ok_mm = res.n_inliers > 20           # loc-mode motion-model return (:1427)
-        vo_now = res.n_map_inliers < 10      # mbVO update (:1425-1426)
-        if bool(ok_mm & ~vo_now):            # host branch (lax.cond in JAX)
-            lres = tracking.track_local_map(config, m, frame, res.Tcw, res.obs_pt)
-            ok = lres.n_inliers >= cfg.min_inliers_local
-        else:
-            lres = _echo_local_map(config, m, res)
-            ok = ok_mm
-        want_reloc = ~ok | carry.vo | ~carry.state_ok
-    else:
-        res = _motion_hypotheses(tracking.track_motion, config, m, carry, frame)
-        vo_now = false
-        lres = tracking.track_local_map(config, m, frame, res.Tcw, res.obs_pt)
-        ok = lres.n_inliers >= cfg.min_inliers_local
-        want_reloc = ~ok
+    carry: TrackCarry
+    info: StepInfo
+    lres: tracking.LocalMapResult
+    ok: torch.Tensor           # bool: tracking held
+    need_kf: torch.Tensor      # bool: the keyframe decision
+    want_reloc: torch.Tensor   # bool: the LOST branch would run
+    vo_now: torch.Tensor       # bool: localization-mode map support lost
 
-    # The keyframe decision, and relocalization on the LOST branch (reference
-    # Tracking falls back to Relocalization() whenever LOST,
-    # src/Tracking.cc:523-629, :2030), so a stream recovers mid-chunk instead
-    # of dead-reckoning to its end.  Both host branches read their flags in
-    # one transfer; relocalization runs only on frames that want it.
-    need_kf = _need_keyframe(config, m, carry, frame, lres, localization_only) & ok
-    relocated = false
-    if config.vocab is None:
-        make_kf = bool(need_kf)
-    else:
-        want, make_kf = torch.stack([want_reloc, need_kf]).tolist()
-        if want:
-            r = relocalization.relocalize(config, m, frame, generator)
-            relocated = r.success
-            ok = ok | relocated
-            lres = lres._replace(
-                Tcw=torch.where(relocated, r.Tcw, lres.Tcw),
-                obs_pt=torch.where(relocated, r.obs_pt, lres.obs_pt),
-                n_inliers=torch.where(relocated, r.n_inliers, lres.n_inliers))
-            need_kf = _need_keyframe(config, m, carry, frame, lres, localization_only) & ok
-            make_kf = bool(need_kf)
 
+def _birth(m: MapState, obs_pt: torch.Tensor) -> torch.Tensor:
+    """pt_birth stamps of the points in obs_pt (0 where none)."""
+    return torch.where(obs_pt >= 0, m.pt_birth[torch.clamp(obs_pt, 0, m.max_pt - 1).long()], 0)
+
+
+def _advance(m: MapState, carry: TrackCarry, frame: FrameData,
+             lres: tracking.LocalMapResult, ok, need_kf, vo_now,
+             relocated: torch.Tensor | None = None):
+    """The carry and StepInfo after a frame that inserts no keyframe
+    (relocated None: the LOST branch did not run)."""
     new_Tcw = torch.where(ok, lres.Tcw, carry.velocity @ carry.Tcw)  # dead-reckon if lost
-    new_velocity = torch.where(
-        relocated, torch.eye(4, dtype=torch.float32, device=dev),
-        torch.where(ok, new_Tcw @ se3.inverse(carry.Tcw), carry.velocity))
+    new_velocity = torch.where(ok, new_Tcw @ se3.inverse(carry.Tcw), carry.velocity)
+    vo = vo_now
+    if relocated is not None:
+        new_velocity = torch.where(
+            relocated, torch.eye(4, dtype=torch.float32, device=new_Tcw.device), new_velocity)
+        vo = vo_now & ~relocated   # mbVO clears on relocalization success (Tracking.cc:623)
     obs_pt = torch.where(ok, lres.obs_pt, NO_POINT)
-
-    if make_kf:
-        m, kf_id = tracking.create_keyframe(config, m, frame, new_Tcw, lres.obs_pt,
-                                            carry.frame_id, timestamp)
-        if run_mapping:
-            m = _mapping_pass(config, m, kf_id)
-        obs_after = row(m.kf_obs_pt, kf_id)
-    else:
-        obs_after = obs_pt
-
-    birth_after = torch.where(
-        obs_after >= 0,
-        m.pt_birth[torch.clamp(obs_after, 0, m.max_pt - 1).long()], 0)
     carry_out = TrackCarry(
         Tcw=new_Tcw,
         velocity=new_velocity,
         last_frame=frame,
-        last_obs_pt=obs_after,
-        last_obs_birth=birth_after,
+        last_obs_pt=obs_pt,
+        last_obs_birth=_birth(m, obs_pt),
         frame_id=carry.frame_id + 1,
         last_kf_frame_id=torch.where(need_kf, carry.frame_id, carry.last_kf_frame_id),
         prev_inliers=torch.where(ok, lres.n_inliers, carry.prev_inliers),
         state_ok=ok,
         key=carry.key,
-        # mbVO clears on relocalization success (reference Tracking.cc:623)
-        vo=vo_now & ~relocated,
+        vo=vo,
     )
-    return m, carry_out, _info(m, new_Tcw, lres.n_inliers, need_kf, ok, carry_out.vo)
+    return carry_out, _info(m, new_Tcw, lres.n_inliers, need_kf, ok, vo)
+
+
+def step_core(config: SlamConfig, m: MapState, carry: TrackCarry,
+              frame: FrameData) -> StepCore:
+    """The SLAM-mode step up to its host branches: the two motion
+    hypotheses, local-map tracking, the keyframe decision and the LOST
+    flag.  It reads nothing back to the host and builds no tensor from host
+    data, so a CUDA graph captures it (models/step_graph.py)."""
+    res = _motion_hypotheses(tracking.track_motion, config, m, carry, frame)
+    lres = tracking.track_local_map(config, m, frame, res.Tcw, res.obs_pt)
+    ok = lres.n_inliers >= config.tracking.min_inliers_local
+    need_kf = _need_keyframe(config, m, carry, frame, lres) & ok
+    vo_now = torch.zeros((), dtype=torch.bool, device=frame.xy.device)
+    carry_out, info = _advance(m, carry, frame, lres, ok, need_kf, vo_now)
+    return StepCore(carry_out, info, lres, ok, need_kf, ~ok, vo_now)
+
+
+def _localization_core(config: SlamConfig, m: MapState, carry: TrackCarry,
+                       frame: FrameData) -> StepCore:
+    """Localization mode (reference Tracking.cc:523-656): motion tracking is
+    augmented with temporal visual-odometry points from the last frame's
+    depth (UpdateLastFrame, :1247-1350); carry.vo is the reference's mbVO
+    "map support lost" flag; local-map tracking is skipped while map
+    support is lost (:648-655), and relocalization runs alongside the VO
+    motion model, its solution preferred (:568-624).  Never a keyframe."""
+    res = _motion_hypotheses(tracking.track_motion_loc, config, m, carry, frame)
+    ok_mm = res.n_inliers > 20           # loc-mode motion-model return (:1427)
+    vo_now = res.n_map_inliers < 10      # mbVO update (:1425-1426)
+    if bool(ok_mm & ~vo_now):            # host branch (lax.cond in JAX)
+        lres = tracking.track_local_map(config, m, frame, res.Tcw, res.obs_pt)
+        ok = lres.n_inliers >= config.tracking.min_inliers_local
+    else:
+        lres = _echo_local_map(config, m, res)
+        ok = ok_mm
+    need_kf = torch.zeros((), dtype=torch.bool, device=frame.xy.device)
+    carry_out, info = _advance(m, carry, frame, lres, ok, need_kf, vo_now)
+    return StepCore(carry_out, info, lres, ok, need_kf, ~ok | carry.vo | ~carry.state_ok,
+                    vo_now)
+
+
+def relocalize_branch(config: SlamConfig, m: MapState, carry: TrackCarry,
+                      frame: FrameData, core: StepCore,
+                      generator: torch.Generator | None,
+                      localization_only: bool = False) -> StepCore:
+    """The LOST branch (reference Tracking falls back to Relocalization()
+    whenever LOST, src/Tracking.cc:523-629, :2030): relocalize the frame
+    against the map, drawing from `generator`, and redo the keyframe
+    decision and the carry from the recovered pose.  `carry` is the carry
+    the step started from."""
+    r = relocalization.relocalize(config, m, frame, generator)
+    relocated = r.success
+    ok = core.ok | relocated
+    lres = core.lres._replace(
+        Tcw=torch.where(relocated, r.Tcw, core.lres.Tcw),
+        obs_pt=torch.where(relocated, r.obs_pt, core.lres.obs_pt),
+        n_inliers=torch.where(relocated, r.n_inliers, core.lres.n_inliers))
+    need_kf = _need_keyframe(config, m, carry, frame, lres, localization_only) & ok
+    carry_out, info = _advance(m, carry, frame, lres, ok, need_kf, core.vo_now, relocated)
+    return StepCore(carry_out, info, lres, ok, need_kf, core.want_reloc, core.vo_now)
+
+
+def keyframe_tail(config: SlamConfig, m: MapState, carry: TrackCarry, frame: FrameData,
+                  obs_pt: torch.Tensor, frame_id: torch.Tensor, timestamp,
+                  run_mapping: bool, info: StepInfo):
+    """Keyframe insertion at the step's pose (carry.Tcw, the carry a branch
+    left) with the frame's matches obs_pt, then, with run_mapping, the
+    local-mapping pass; the carry and StepInfo after them.  frame_id is the
+    frame's own id (the carry's before the step).  Like step_core it reads
+    nothing back to the host."""
+    m, kf_id = tracking.create_keyframe(config, m, frame, carry.Tcw, obs_pt, frame_id,
+                                        timestamp)
+    if run_mapping:
+        m = _mapping_pass(config, m, kf_id)
+    obs_after = row(m.kf_obs_pt, kf_id)
+    carry = carry._replace(last_obs_pt=obs_after, last_obs_birth=_birth(m, obs_after))
+    return m, carry, _info(m, carry.Tcw, info.n_inliers, info.created_kf, info.state_ok,
+                           info.vo)
+
+
+def track_step(config: SlamConfig, m: MapState, carry: TrackCarry,
+               frame: FrameData, timestamp, run_mapping: bool = True, *,
+               localization_only: bool = False,
+               generator: torch.Generator | None = None):
+    """One tracking step (frame already built) -> (map, carry, StepInfo):
+    step_core (or the localization-mode tracking), one host read of its
+    flags, then the LOST branch (with a vocabulary) and keyframe_tail as
+    they ask.  Updates the map in place when a keyframe is inserted; with
+    run_mapping the local-mapping pass follows the insertion."""
+    core = (_localization_core if localization_only else step_core)(config, m, carry, frame)
+    # the host read: both flags in one transfer; the LOST branch runs only
+    # with a vocabulary
+    if config.vocab is None:
+        want, make_kf = False, bool(core.need_kf)
+    else:
+        want, make_kf = torch.stack([core.want_reloc, core.need_kf]).tolist()
+    if want:
+        core = relocalize_branch(config, m, carry, frame, core, generator, localization_only)
+        make_kf = bool(core.need_kf)
+    if not make_kf:
+        return m, core.carry, core.info
+    return keyframe_tail(config, m, core.carry, frame, core.lres.obs_pt, carry.frame_id,
+                         timestamp, run_mapping, core.info)
 
 
 def _info(m: MapState, Tcw, n_inliers, created_kf, state_ok, vo) -> StepInfo:
@@ -366,8 +451,7 @@ def frames_rgbd_packed(config: SlamConfig, buf: torch.Tensor):
     depth_mm = d[..., 0] | (d[..., 1] << 8)
     ts, valid = _unpack_tail(buf, 3 * H * W)
     frames = frame_mod.make_frames_rgbd_batch(
-        config, images, depth_mm.to(torch.float32) * torch.tensor(
-            1e-3, dtype=torch.float32, device=buf.device))
+        config, images, depth_mm.to(torch.float32) * constant(1e-3, torch.float32, buf.device))
     return frames, ts, valid
 
 
@@ -443,8 +527,8 @@ def _depth_metres(depth: torch.Tensor) -> torch.Tensor:
     package's step_rgbd casts on the device alike)."""
     if depth.is_floating_point():
         return depth.to(torch.float32)
-    return depth.to(torch.int32).to(torch.float32) * torch.tensor(
-        1e-3, dtype=torch.float32, device=depth.device)
+    return depth.to(torch.int32).to(torch.float32) * constant(1e-3, torch.float32,
+                                                              depth.device)
 
 
 def step_rgbd(config: SlamConfig, m: MapState, carry: TrackCarry,

@@ -121,10 +121,7 @@ class StreamSession:
     def _dispatch(self, buf: torch.Tensor, ts_live: list) -> None:
         cfg = self.sys.config
         frames, ts, valid = self.frame_fn(cfg, buf)
-        self.sys.map, self.sys.carry, packed = pipeline.batch_steps_frames(
-            cfg, self.sys.map, self.sys.carry, frames, ts, valid,
-            self.sys.enable_mapping, localization_only=self.loc,
-            generator=self.sys._stream_gen)
+        packed = self.sys._batch_steps(frames, ts, valid, self.loc)
         n_live = len(ts_live)
         self._all_ts.extend(ts_live)
         self.n_fed += n_live

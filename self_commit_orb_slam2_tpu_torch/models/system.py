@@ -34,6 +34,7 @@ from . import mono_init
 from . import pipeline
 from . import relocalization
 from .config import SlamConfig
+from .step_graph import StepGraph
 from .streaming import (_SENSORS, STATE_LOST, STATE_NOT_INITIALIZED, STATE_OK,
                         StreamSession)
 
@@ -112,6 +113,11 @@ class System:
         self._batch_chunk = 4  # frames per streamed chunk (the JAX package's default)
         self._loop_closer = (loop_closing.LoopCloser(config, self._loop_gen)
                              if enable_loop_closing else None)
+        # SLAM-mode tracking steps through captured CUDA graphs on the card
+        # (models/step_graph.py); None: pipeline.track_step, op by op (the
+        # CPU's default; tests set a CPU StepGraph here to run its plain version)
+        self.step_graph: Optional[StepGraph] = (
+            StepGraph(config, self.device) if self.device.type == "cuda" else None)
         self._last_big_change = 0
         # seconds per tracked frame: one entry per track_* call, and a chunked
         # batch's time spread evenly over its frames (kept across reset())
@@ -120,12 +126,13 @@ class System:
 
     def warm_start(self) -> None:
         """Warm the loop closer's device libraries (LoopCloser.warmup, with
-        the closer on) and prime the streaming pipeline, before the first
-        real frame: the runtime analogue of the reference's seconds-long
-        ORBvoc load at startup (src/System.cc:77-89).  Optional; without it
-        the first chunk and the first closure pay the kernel builds and the
-        libraries' start-up.  Touches neither the map, the carry, the
-        trajectory nor the engine's random streams."""
+        the closer on), prime the streaming pipeline and capture the step's
+        CUDA graphs, before the first real frame: the runtime analogue of
+        the reference's seconds-long ORBvoc load at startup
+        (src/System.cc:77-89).  Optional; without it the first chunk and the
+        first closure pay the kernel builds, the libraries' start-up and the
+        capture.  Touches neither the map, the carry, the trajectory nor the
+        engine's random streams."""
         if self._loop_closer is not None and self._loop_closer.enabled:
             self._loop_closer.warmup(self.map)
         self._prime_stream()
@@ -134,7 +141,8 @@ class System:
         """Build the kernels and push PRIME_CHUNKS dummy packed chunks (valid
         False: the steps take only their pass-through branch) through upload,
         the streamed frame phase and batch_steps_frames, on a scratch map and
-        carry with a generator of their own."""
+        carry with a generator of their own; then capture the step graphs on
+        that scratch state."""
         cfg = self.config
         sensor = cfg.sensor
         H, W = int(cfg.camera.height), int(cfg.camera.width)
@@ -155,6 +163,8 @@ class System:
                 cfg, m, carry, frames, ts, valid, self.enable_mapping,
                 localization_only=self.localization_only, generator=gen)
         packed.cpu()  # waits for the device
+        if self.step_graph is not None:
+            self.step_graph.capture(m, carry, frames.select(0), self.enable_mapping)
 
     # ------------------------------------------------------------- public API
 
@@ -415,24 +425,52 @@ class System:
                 self.carry = None
         else:
             frame = _FRAME_BUILDERS[sensor](self.config, *images)
+            info = self._step(frame, ts)
+            self.Tcw = info.Tcw[0].copy()
+            self.state = STATE_OK if info.state_ok[0] else STATE_LOST
+            self.vo_mode = bool(info.vo[0])
+            if self.state == STATE_LOST and self.config.vocab is not None:
+                self._relocalize_last_frame()
+            ref_kf_Tcw = info.ref_kf_Tcw[0]
+            Tcr = self.Tcw @ np.linalg.inv(ref_kf_Tcw)
+            self._rel_trajectory.append((timestamp, int(info.ref_kf_seq[0]), Tcr))
+            if self._loop_closer is not None and info.created_kf[0]:
+                before = self._loop_closer.n_big_changes
+                self.map = self._loop_closer.process(self.map, int(info.ref_kf[0]))
+                if self._loop_closer.n_big_changes != before:
+                    self._apply_correction_to_carry(int(info.ref_kf[0]), ref_kf_Tcw)
+        self.trajectory.append((timestamp, self.Tcw))
+        return self.Tcw
+
+    def _step(self, frame: frame_mod.FrameData, ts: torch.Tensor) -> pipeline.StepInfo:
+        """One tracking step of the per-frame API -> its StepInfo on the host
+        (numpy, a leading axis of 1), read in one transfer with the step's
+        flags on a frame that takes neither branch.  With no carry (a map
+        loaded into a fresh System) track_step raises, as in the JAX
+        package."""
+        if (self.step_graph is not None and not self.localization_only
+                and self.carry is not None):
+            self.map, self.carry, row = self.step_graph.step(
+                self.map, self.carry, frame, ts, self.enable_mapping, self._stream_gen)
+        else:
             self.map, self.carry, info = pipeline.track_step(
                 self.config, self.map, self.carry, frame, ts, self.enable_mapping,
                 localization_only=self.localization_only, generator=self._stream_gen)
-            self.Tcw = info.Tcw.cpu().numpy()
-            self.state = STATE_OK if bool(info.state_ok) else STATE_LOST
-            self.vo_mode = bool(info.vo)
-            if self.state == STATE_LOST and self.config.vocab is not None:
-                self._relocalize_last_frame()
-            ref_kf_Tcw = info.ref_kf_Tcw.cpu().numpy()
-            Tcr = self.Tcw @ np.linalg.inv(ref_kf_Tcw)
-            self._rel_trajectory.append((timestamp, int(info.ref_kf_seq), Tcr))
-            if self._loop_closer is not None and bool(info.created_kf):
-                before = self._loop_closer.n_big_changes
-                self.map = self._loop_closer.process(self.map, int(info.ref_kf))
-                if self._loop_closer.n_big_changes != before:
-                    self._apply_correction_to_carry(int(info.ref_kf), ref_kf_Tcw)
-        self.trajectory.append((timestamp, self.Tcw))
-        return self.Tcw
+            row = pipeline.pack_infos([info])[0].cpu().numpy()
+        return pipeline.unpack_infos(row[None])
+
+    def _batch_steps(self, frames: frame_mod.FrameData, ts: torch.Tensor,
+                     valid: torch.Tensor, localization_only: bool) -> torch.Tensor:
+        """A chunk's tracking steps (StreamSession._dispatch) on the map and
+        carry -> packed StepInfo [B, 40] on the device."""
+        if self.step_graph is not None and not localization_only:
+            self.map, self.carry, packed = self.step_graph.batch_steps(
+                self.map, self.carry, frames, ts, valid, self.enable_mapping, self._stream_gen)
+        else:
+            self.map, self.carry, packed = pipeline.batch_steps_frames(
+                self.config, self.map, self.carry, frames, ts, valid, self.enable_mapping,
+                localization_only=localization_only, generator=self._stream_gen)
+        return packed
 
     def _mono_initialize(self, image: torch.Tensor, timestamp: float) -> np.ndarray:
         """Two-frame monocular bootstrap (reference

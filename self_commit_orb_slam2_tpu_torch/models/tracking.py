@@ -28,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops import bow as bow_ops
+from ..ops import constants
 from ..ops.camera import in_frustum, project
 from ..ops.indexing import indicator, nonzero_padded, row, set_drop
 from ..ops.matching import core as mcore
@@ -58,7 +59,7 @@ class LocalMapResult(NamedTuple):
 
 
 def _scale_factors(config: SlamConfig, device) -> torch.Tensor:
-    return torch.from_numpy(config.orb.scale_factors()).to(device)
+    return constants.scale_factors(config.orb, device)
 
 
 def _observations(frame: FrameData) -> torch.Tensor:
@@ -79,7 +80,7 @@ def _optimize_with_matches(config: SlamConfig, m: MapState, Tcw0, frame: FrameDa
                            obs_pt: torch.Tensor):
     """Pose-optimize the frame against its matched points; returns the
     result and the inlier-filtered obs_pt."""
-    sigma2 = torch.from_numpy(config.orb.sigma2()).to(Tcw0.device)
+    sigma2 = constants.sigma2(config.orb, Tcw0.device)
     cl = torch.clamp(obs_pt, 0, m.max_pt - 1).long()
     valid = (obs_pt >= 0) & frame.valid & m.pt_valid[cl]
     res = pose_optimize(config.camera, Tcw0, m.pt_pos[cl], _observations(frame),
@@ -209,7 +210,7 @@ def track_motion_loc(config: SlamConfig, m: MapState, frame: FrameData,
     obs_pt_map = torch.where(is_map, pt_ids[src_c], NO_POINT)
     n_matches = torch.sum(has).to(torch.int32)
 
-    sigma2 = torch.from_numpy(config.orb.sigma2()).to(uv.device)
+    sigma2 = constants.sigma2(config.orb, uv.device)
     res = pose_optimize(cam, Tcw_pred, pts_w[src_c], _observations(frame),
                         sigma2[frame.level.long()], has & frame.valid,
                         ur_weight=config.ur_weight)
@@ -253,8 +254,7 @@ def track_local_map(config: SlamConfig, m: MapState, frame: FrameData,
 
     # scale prediction (reference MapPoint::PredictScale src/MapPoint.cc:551)
     ratio = torch.clamp_min(max_d / 1.2, 1e-6) / torch.clamp_min(dist, 1e-6)
-    log_sf = torch.log(torch.tensor(config.orb.scale_factor, dtype=torch.float32,
-                                    device=dev))
+    log_sf = constants.log_scale_factor(config.orb.scale_factor, dev)
     pred_level = torch.clamp(torch.ceil(torch.log(ratio) / log_sf).to(torch.int32),
                              0, n_levels - 1)
     # radius by viewing angle (reference ORBmatcher.cc:178 RadiusByViewingCos)

@@ -11,6 +11,14 @@ from __future__ import annotations
 import torch
 
 
+def _values(arr: torch.Tensor, vals) -> torch.Tensor:
+    """vals as a tensor of arr's dtype on arr's device; a Python scalar
+    becomes a device fill, never a copy of host data."""
+    if torch.is_tensor(vals):
+        return vals.to(dtype=arr.dtype, device=arr.device)
+    return arr.new_full((), vals)
+
+
 def set_drop(arr: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
     """arr.at[idx].set(vals, mode="drop") along dim 0 for any index shape,
     returned as a new tensor; negative indices are dropped too.  Among
@@ -19,7 +27,7 @@ def set_drop(arr: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
     so the card gives the same answer (index_put_ promises no order among
     duplicates there)."""
     n, m = arr.shape[0], idx.numel()
-    vals = torch.as_tensor(vals, dtype=arr.dtype, device=arr.device)
+    vals = _values(arr, vals)
     vals = vals.expand(*idx.shape, *arr.shape[1:]).reshape(m, *arr.shape[1:])
     idx = idx.reshape(-1).long()
     tgt = torch.where((idx >= 0) & (idx < n), idx, n)
@@ -35,7 +43,7 @@ def add_drop(arr: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
     n = arr.shape[0]
     idx = idx.long()
     tgt = torch.where((idx >= 0) & (idx < n), idx, n)
-    vals = torch.as_tensor(vals, dtype=arr.dtype, device=arr.device).expand(tgt.shape)
+    vals = _values(arr, vals).expand(tgt.shape)
     return torch.cat([arr, arr[:1]]).index_add(0, tgt, vals)[:n]
 
 

@@ -99,7 +99,7 @@ def rotation_consistency_mask(angle_q: torch.Tensor, angle_t: torch.Tensor,
     counts = counts.scatter_add(0, bin_idx, match.valid.to(torch.int32))
     top3, top3_idx = _top3_desc(counts)
     keep = top3.to(torch.float32) > 0.1 * top3[0].to(torch.float32)
-    keep[0] = True
+    keep = keep | (torch.arange(keep.shape[0], device=keep.device) == 0)  # the top bin stays
     keep_bin = torch.zeros(HISTO_LENGTH, dtype=torch.bool, device=angle_q.device)
     keep_bin = keep_bin.scatter(0, top3_idx, keep)
     return match.valid & keep_bin[bin_idx]

@@ -27,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from .. import se3
+from ..constants import constant
 from ..camera import CameraParams
 from .robust import CHI2_MONO, CHI2_STEREO, huber_weight
 
@@ -116,11 +117,11 @@ def bundle_adjust(cam: CameraParams,
     dev, f32 = pt_pos.device, torch.float32
     inv_sigma2 = 1.0 / torch.clamp_min(obs_sigma2, 1e-9)
     # extra information on the u_right component (see pose_opt.pose_optimize)
-    sw = torch.tensor([1.0, 1.0, ur_weight**0.5], dtype=f32, device=dev)
+    sw = constant((1.0, 1.0, ur_weight**0.5), f32, dev)
     pid = torch.clamp(obs_pt, 0, P - 1).long()
     kf_free_f = kf_free.to(f32)
     pt_free_f = pt_free.to(f32)
-    free6 = kf_free.repeat_interleave(6)
+    free6 = kf_free[:, None].expand(K, 6).reshape(K * 6)
     eye3 = torch.eye(3, dtype=f32, device=dev)
     blk = torch.arange(K * 6, device=dev).reshape(K, 6)
 

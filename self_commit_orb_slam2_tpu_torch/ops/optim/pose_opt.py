@@ -18,6 +18,7 @@ from typing import NamedTuple
 import torch
 
 from .. import se3
+from ..constants import constant
 from ..camera import CameraParams
 from .robust import CHI2_MONO, CHI2_STEREO, huber_weight
 
@@ -76,7 +77,7 @@ def pose_optimize(cam: CameraParams, Tcw0: torch.Tensor, pts_w: torch.Tensor,
     is_stereo = obs[:, 2] >= 0.0
     inv_sigma2 = 1.0 / torch.clamp_min(sigma2, 1e-9)
     chi2_th = torch.where(is_stereo, CHI2_STEREO, CHI2_MONO)
-    sw = torch.tensor([1.0, 1.0, ur_weight**0.5], dtype=torch.float32, device=dev)
+    sw = constant((1.0, 1.0, ur_weight**0.5), torch.float32, dev)
     eye6 = torch.eye(6, dtype=torch.float32, device=dev)
 
     def gn_iteration(T, active, use_huber):

@@ -12,6 +12,8 @@ import math
 
 import torch
 
+from .constants import constant
+
 _EPS = 1e-8
 
 
@@ -124,8 +126,7 @@ def rt_to_mat(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     R = R.expand(*batch, 3, 3)
     t = t.expand(*batch, 3)
     top = torch.cat([R, t[..., None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
-                          device=R.device).expand(*batch, 1, 4)
+    bottom = constant((0.0, 0.0, 0.0, 1.0), R.dtype, R.device).expand(*batch, 1, 4)
     return torch.cat([top, bottom], dim=-2)
 
 

@@ -12,14 +12,14 @@ from __future__ import annotations
 
 import torch
 
-from . import se3
+from . import constants, se3
 from .camera import CameraParams, project
 
 
 def camera_matrix(cam: CameraParams, device) -> torch.Tensor:
-    """[3, 3] intrinsics K (the JAX CameraParams.K)."""
-    return torch.tensor([[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy],
-                         [0.0, 0.0, 1.0]], dtype=torch.float32, device=device)
+    """[3, 3] intrinsics K (the JAX CameraParams.K), built once per device;
+    read it, do not write into it."""
+    return constants.camera_matrix(cam, device)
 
 
 def projection_matrix(K: torch.Tensor, Tcw: torch.Tensor) -> torch.Tensor:

@@ -1,20 +1,26 @@
 """Where the port's stream spends its time on the card.
 
     python -m self_commit_orb_slam2_tpu_torch.tools.profile_stream [n_chunks] [--path2|--stereo]
+        [--eager]
 
 Runs a port path (the bench's capacities, chunk 4, loop closing off) on
 generate_sequence frames: path 1 (RGB-D 640x480, 1000 features, 16-px cells,
 mapping off) by default, path 2 (8-px cells, mapping on) with --path2, path
 4 (a) (stereo at KITTI geometry, 1241x376, 2000 features, mapping on, no
-vocabulary) with --stereo.  Then over `n_chunks` steady chunks (default 2):
+vocabulary) with --stereo.  The tracking phase runs as the System runs it:
+through the step's CUDA graphs (models/step_graph.py), captured during the
+first chunk; with --eager through pipeline.batch_steps_frames, op by op.
+Then over `n_chunks` steady chunks (default 2):
   * host-clock time of the frame phase (frames_rgbd_packed or
     frames_stereo_packed; with --stereo also of the stereo matcher alone, on
-    the chunk's own features) and the tracking phase (batch_steps_frames),
-    each ending in cuda.synchronize, and of the mapping passes inside the
-    tracking phase (synced around each pass);
+    the chunk's own features) and the tracking phase, each ending in
+    cuda.synchronize, and of the mapping passes inside the tracking phase
+    (synced around each pass; graphed, the keyframe graph's replay, which
+    also inserts the keyframe);
   * a torch.profiler trace: device busy time against wall time (the idle
-    share), launches per frame, and the top operators by host and by device
-    time.
+    share), device kernels, graph replays and host syncs per frame
+    (utils/profiling.trace_counts), and the top operators by host and by
+    device time.
 Needs a CUDA device.
 """
 
@@ -25,7 +31,6 @@ import time
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
 
 from ..models import pipeline
 from ..ops.matching import stereo as stereo_ops
@@ -34,6 +39,7 @@ from ..models.config import Capacities, SlamConfig, TrackingConfig
 from ..models.system import System
 from ..ops.camera import CameraParams
 from ..ops.orb.extractor import OrbConfig
+from ..utils.profiling import trace_counts
 from ..utils.synthetic import generate_sequence
 
 CHUNK = 4
@@ -59,7 +65,8 @@ def _stereo_match_ms(cfg: SlamConfig, buf: torch.Tensor) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def main(n_chunks: int = 2, path2: bool = False, stereo: bool = False) -> None:
+def main(n_chunks: int = 2, path2: bool = False, stereo: bool = False,
+         eager: bool = False) -> None:
     n_frames = 1 + CHUNK * (1 + 2 * n_chunks)
     width, height, fx, n_features = (1241, 376, 718.9, 2000) if stereo else (640, 480,
                                                                              520.0, 1000)
@@ -74,6 +81,8 @@ def main(n_chunks: int = 2, path2: bool = False, stereo: bool = False) -> None:
                      tracking=TrackingConfig(max_frames_between_kf=10),
                      sensor="stereo" if stereo else "rgbd")
     slam = System(cfg, enable_mapping=path2 or stereo, enable_loop_closing=False)
+    if eager:
+        slam.step_graph = None
     images = np.clip(seq.images, 0, 255).astype(np.uint8)
     second = (np.clip(seq.right_images, 0, 255).astype(np.uint8) if stereo
               else np.clip(seq.depths * 1e3, 0, 65535).astype(np.uint16))
@@ -100,8 +109,7 @@ def main(n_chunks: int = 2, path2: bool = False, stereo: bool = False) -> None:
             frames, ts, valid = frame_phase(cfg, buf)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            slam.map, slam.carry, _ = pipeline.batch_steps_frames(
-                cfg, slam.map, slam.carry, frames, ts, valid, slam.enable_mapping)
+            slam._batch_steps(frames, ts, valid, False)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
             frame_s.append(t1 - t0)
@@ -109,7 +117,12 @@ def main(n_chunks: int = 2, path2: bool = False, stereo: bool = False) -> None:
     if stereo:
         print(f"path 4a: match_stereo alone {np.mean(match_ms) / CHUNK:.3f} ms/frame (host "
               f"clock, synced, inside the frame phase below)")
-    print(f"path {name}: frame phase: {np.mean(frame_s) / CHUNK * 1e3:.3f} "
+    mode = "eager" if eager else "graphed"
+    sg = slam.step_graph
+    if sg is not None:
+        print(f"path {name}: step graphs captured {sg.captures} time(s) in "
+              f"{sg.capture_s:.2f} s (host clock)")
+    print(f"path {name} ({mode}): frame phase: {np.mean(frame_s) / CHUNK * 1e3:.3f} "
           f"ms/frame, tracking phase: {np.mean(track_s) / CHUNK * 1e3:.3f} ms/frame, of "
           f"which mapping {sum(map_s) / (n_chunks * CHUNK) * 1e3:.3f} ms/frame "
           f"({len(map_s)} passes; host clock, {n_chunks} chunks of {CHUNK})")
@@ -119,24 +132,23 @@ def main(n_chunks: int = 2, path2: bool = False, stereo: bool = False) -> None:
 
     bufs = [chunk_buf(n_chunks + k) for k in range(n_chunks)]
     torch.cuda.synchronize()
+    r0 = sg.replays if sg is not None else 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for buf in bufs:
             frames, ts, valid = frame_phase(cfg, buf)
-            slam.map, slam.carry, _ = pipeline.batch_steps_frames(
-                cfg, slam.map, slam.carry, frames, ts, valid, slam.enable_mapping)
+            slam._batch_steps(frames, ts, valid, False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
-    # device time and launches from the kernel events themselves (operator
-    # rows repeat their kernels' device time)
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
-    dev_us = sum(e.self_device_time_total for e in kernels)
-    n_launch = sum(e.count for e in kernels)
+    c = trace_counts(prof, wall)
     n_fr = n_chunks * CHUNK
-    print(f"profiled {n_fr} frames: wall {wall * 1e3:.1f} ms, device busy "
-          f"{dev_us / 1e3:.1f} ms, idle share {1 - dev_us / 1e6 / wall:.3f}, "
-          f"{n_launch / n_fr:.0f} device kernels per frame")
+    replays = (sg.replays - r0) if sg is not None else 0
+    print(f"profiled {n_fr} frames ({mode}): wall {wall * 1e3:.1f} ms, device busy "
+          f"{c['busy_ms']:.1f} ms, idle share {c['idle']:.3f}, {c['kernels'] / n_fr:.0f} "
+          f"device kernels, {replays / n_fr:.2f} graph replays, {c['syncs'] / n_fr:.2f} host "
+          f"syncs, {c['memcpy'] / n_fr:.2f} cudaMemcpy calls per frame (frame phase "
+          f"included)")
     print(events.table(sort_by="self_cpu_time_total", row_limit=25))
     print(events.table(sort_by="self_device_time_total", row_limit=15))
 
@@ -144,4 +156,4 @@ def main(n_chunks: int = 2, path2: bool = False, stereo: bool = False) -> None:
 if __name__ == "__main__":
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
     main(int(args[0]) if args else 2, path2="--path2" in sys.argv[1:],
-         stereo="--stereo" in sys.argv[1:])
+         stereo="--stereo" in sys.argv[1:], eager="--eager" in sys.argv[1:])

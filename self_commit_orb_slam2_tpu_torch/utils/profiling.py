@@ -78,3 +78,33 @@ def device_trace(log_dir: str):
     with torch.profiler.profile(activities=acts) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+# runtime calls after which the host has waited for the card
+HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+              "cudaMemcpy")
+
+
+def trace_counts(prof, wall_s: float) -> dict:
+    """Counts of a torch.profiler run (CPU and CUDA activities) over a window
+    of wall_s seconds: device kernels and memory operations executed
+    (`kernels`) and their busy ms, the idle share (1 - busy / wall), the
+    runtime calls after which the host waited for the card (`syncs`:
+    cudaStreamSynchronize, cudaDeviceSynchronize, cudaEventSynchronize, a
+    synchronous cudaMemcpy; a device-to-host copy or a copy from pageable
+    host memory ends in one), every cudaMemcpy* call (`memcpy`; a
+    device-to-device copy is one too) and cudaGraphLaunch calls."""
+    from torch.autograd import DeviceType
+
+    events = prof.key_averages()
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in device)
+
+    def calls(pred) -> int:
+        return sum(e.count for e in events if e.device_type == DeviceType.CPU and pred(e.key))
+
+    return dict(kernels=sum(e.count for e in device), busy_ms=busy_us / 1e3,
+                idle=1.0 - busy_us / 1e6 / wall_s,
+                syncs=calls(lambda k: k in HOST_WAITS),
+                memcpy=calls(lambda k: k.startswith("cudaMemcpy")),
+                graph_launches=calls(lambda k: k == "cudaGraphLaunch"))

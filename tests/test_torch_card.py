@@ -680,3 +680,118 @@ def test_nccl_world_of_one(cuda, tmp_path):
     assert not dist.is_initialized()
     for got, ref in zip((*ba, *pg), (*ba_ref, *pg_ref)):
         assert torch.allclose(got, ref, atol=1e-6)
+
+
+# ------------------------------------------------------------------ step graphs
+
+
+def _graph_setup(cuda, n_frames=25):
+    """The slice files' 320x240 RGB-D configuration, a keyframe every 4
+    frames at most, mapping on; a CUDA System (its StepGraph on)."""
+    from self_commit_orb_slam2_tpu_torch.models.config import (
+        Capacities, SlamConfig, TrackingConfig)
+    from self_commit_orb_slam2_tpu_torch.models.system import System
+    from self_commit_orb_slam2_tpu_torch.ops.camera import CameraParams
+    from self_commit_orb_slam2_tpu_torch.ops.orb.extractor import OrbConfig
+    from self_commit_orb_slam2_tpu_torch.utils.synthetic import generate_sequence
+
+    seq = generate_sequence(n_frames=n_frames, width=320, height=240, fx=260.0, seed=5)
+    cfg = SlamConfig(camera=CameraParams.create(fx=260.0, fy=260.0, cx=160.0, cy=120.0,
+                                                bf=26.0, width=320, height=240),
+                     orb=OrbConfig(n_features=500),
+                     caps=Capacities(max_keyframes=64, max_points=16384, local_points=1024),
+                     tracking=TrackingConfig(max_frames_between_kf=4))
+    slam = System(cfg, enable_mapping=True, enable_loop_closing=False)
+    assert slam.step_graph is not None and slam.step_graph.graphed
+    return cfg, seq, slam
+
+
+def _clone_tree(x):
+    return type(x)(*(v.clone() if torch.is_tensor(v) else _clone_tree(v) for v in x))
+
+
+def _card_frame(cfg, seq, i, cuda):
+    from self_commit_orb_slam2_tpu_torch.models.frame import make_frame_rgbd
+
+    frame = make_frame_rgbd(cfg, torch.from_numpy(seq.images[i].astype(np.float32)).to(cuda),
+                            torch.from_numpy(seq.depths[i].astype(np.float32)).to(cuda))
+    return frame, torch.tensor(float(seq.timestamps[i]), device=cuda)
+
+
+def test_step_graph_replays_equal_eager_from_cloned_states(cuda):
+    """24 frames after the first.  Before each, the map and the carry are
+    cloned and the frame runs through pipeline.track_step (op by op) on the
+    clone, then through the System's StepGraph (replays) on the live state.
+    The mapping pass sums with index_add_, so the bound is poses within
+    1e-5 and inliers within 2 where the two are not bitwise; the keyframe
+    decisions and the keyframes' frame ids are the same."""
+    from self_commit_orb_slam2_tpu_torch.models import pipeline
+
+    cfg, seq, slam = _graph_setup(cuda)
+    slam.track_rgbd(seq.images[0], seq.depths[0], float(seq.timestamps[0]))
+    sg = slam.step_graph
+    n_kf_frames = 0
+    for i in range(1, 25):
+        frame, ts = _card_frame(cfg, seq, i, cuda)
+        m_e, _, info_e = pipeline.track_step(cfg, _clone_tree(slam.map), _clone_tree(slam.carry),
+                                             frame, ts, True)
+        row_e = pipeline.pack_infos([info_e])[0].cpu().numpy()
+        slam.map, slam.carry, row_g = sg.step(slam.map, slam.carry, frame, ts, True,
+                                              slam._stream_gen)
+        if not np.array_equal(row_e, row_g):
+            assert np.abs(row_e[:32] - row_g[:32]).max() <= 1e-5, i
+            assert abs(row_e[32] - row_g[32]) <= 2, i
+        assert row_e[33] == row_g[33], i   # created_kf
+        n_kf_frames += int(row_g[33] > 0.5)
+        assert torch.equal(m_e.kf_valid, slam.map.kf_valid), i
+        assert torch.equal(m_e.kf_frame_id, slam.map.kf_frame_id), i
+        assert torch.allclose(m_e.kf_Tcw, slam.map.kf_Tcw, atol=1e-5), i
+    assert n_kf_frames >= 3
+    assert sg.captures == 1 and sg.replays == 24 + n_kf_frames
+    assert bool(slam.carry.state_ok)
+
+
+def test_step_core_and_tail_run_without_a_sync(cuda):
+    """pipeline.step_core and pipeline.keyframe_tail op by op on the card, and
+    a replay of the core graph, under torch.cuda.set_sync_debug_mode("error"):
+    no operation in them waits for the card."""
+    from self_commit_orb_slam2_tpu_torch.models import pipeline
+
+    cfg, seq, slam = _graph_setup(cuda, n_frames=10)
+    slam.track_batch_rgbd(seq.images[:9], seq.depths[:9], seq.timestamps[:9], chunk=4)
+    assert slam.step_graph.captures == 1
+    frame, ts = _card_frame(cfg, seq, 9, cuda)
+    m = _clone_tree(slam.map)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        core = pipeline.step_core(cfg, slam.map, slam.carry, frame)
+        m2, _, _ = pipeline.keyframe_tail(cfg, m, core.carry, frame, core.lres.obs_pt,
+                                          slam.carry.frame_id, ts, True, core.info)
+        slam.step_graph._core()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(m2.n_kf) == int(slam.map.n_kf) + 1
+
+
+def test_warm_start_captures_and_touches_no_state(cuda):
+    """warm_start captures the step graphs on a scratch state: the map, the
+    carry, the trajectory and the engine's generators are untouched, and the
+    stream after it replays without capturing again."""
+    from self_commit_orb_slam2_tpu_torch.models.system import STATE_OK
+    from self_commit_orb_slam2_tpu_torch.utils.evaluation import ate_rmse
+
+    cfg, seq, slam = _graph_setup(cuda, n_frames=13)
+    gens = (slam._stream_gen, slam._reloc_gen, slam._mono_gen, slam._loop_gen)
+    before = [g.get_state() for g in gens]
+    map0 = _clone_tree(slam.map)
+    slam.warm_start()
+    sg = slam.step_graph
+    assert sg.captures == 1 and sg.replays == 0
+    assert slam.carry is None and slam.trajectory == []
+    assert all(torch.equal(a, b) for a, b in zip(map0, slam.map))
+    assert all(torch.equal(s, g.get_state()) for s, g in zip(before, gens))
+    slam.track_batch_rgbd(seq.images, seq.depths, seq.timestamps, chunk=4)
+    _, est = slam.get_trajectory()
+    assert sg.captures == 1 and sg.replays >= 12
+    assert slam.state == STATE_OK and ate_rmse(est, seq.poses_gt) < 0.02
