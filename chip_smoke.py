@@ -203,6 +203,29 @@ def require(cond: bool, msg: str) -> None:
         raise PhaseError(msg)
 
 
+def _reset_launches(kernels) -> None:
+    """Set every launch count to 0: the wrappers' own, and the graph
+    runners' counts of what their captures recorded and their replays ran."""
+    from self_commit_orb_slam2_tpu_torch.models import program_graphs
+
+    for k in kernels.values():
+        k.launches = 0
+    program_graphs.LAUNCHES_AT_CAPTURE.clear()
+    program_graphs.LAUNCHES_REPLAYED.clear()
+
+
+def _launches(kernels) -> dict:
+    """Device launches of each kernel since _reset_launches.  A wrapper adds
+    one where it launches its kernel, and inside a CUDA graph capture that
+    launch is only recorded; a replay runs what its capture recorded.  So:
+    the wrapper's count, less the recordings, plus replays x launches per
+    capture (models/program_graphs.py counts both)."""
+    from self_commit_orb_slam2_tpu_torch.models import program_graphs
+
+    return {k.name: k.launches - program_graphs.LAUNCHES_AT_CAPTURE[k.name]
+            + program_graphs.LAUNCHES_REPLAYED[k.name] for k in kernels.values()}
+
+
 def _render(kind: str, kw: dict):
     """One rendering job in a worker process (host numpy)."""
     from self_commit_orb_slam2_tpu_torch.utils import synthetic
@@ -419,6 +442,30 @@ def _timed(name, source, replaces, slab, launch_fn, wrapper_fn, plain_fn, bound,
                 bound_by=bound_by, library_ms=None)
 
 
+def _check_replayed(name, wrapper, plain, slabs, labels, count):
+    """The wrapper captured into a CUDA graph on a static slab, replayed on
+    each slab copied in: bitwise against the plain version (the launches
+    the frame-phase graph makes).  Returns the worst |kernel - plain|."""
+    import torch
+
+    static = slabs[0].clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        wrapper(static)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = wrapper(static)
+    err = 0.0
+    for slab, label in zip(slabs, labels):
+        static.copy_(slab)
+        graph.replay()
+        err = max(err, _check_kernel(name, f"{label}, launched from a graph replay", out,
+                                     plain(slab), count(out)))
+    return err
+
+
 def phase_kernels(seq):
     import torch
 
@@ -445,6 +492,10 @@ def phase_kernels(seq):
                                          fast_band.fast_bands_plain(noise, *args),
                                          int((out_k[2] > 0).sum())))
             outs = fast_band.empty_outputs(slab)
+            err = max(err, _check_replayed(
+                "fast_band", lambda x: fast_band.fast_nms_bands_hi_lo(x, *args),
+                lambda x: fast_band.fast_bands_plain(x, *args), (slab, noise),
+                ("chunk", "noise"), lambda o: int((o[2] > 0).sum())))
             bound, old_bound = fast_band_bound_ms(slab, *args)
             results["fast_band"] = _timed(
                 "fast_band", "self_commit_orb_slam2_tpu_torch/csrc/fast_band.cu",
@@ -464,6 +515,10 @@ def phase_kernels(seq):
             err = max(err, _check_kernel("fast_nms", "noise", out_k,
                                          fast_nms.fast_nms_plain(noise, *thr),
                                          int((out_k[1] > 0).sum())))
+            err = max(err, _check_replayed(
+                "fast_nms", lambda x: fast_nms.fast_nms_hi_lo(x, *thr),
+                lambda x: fast_nms.fast_nms_plain(x, *thr), (slab, noise), ("chunk", "noise"),
+                lambda o: int((o[1] > 0).sum())))
             hi, lo = torch.empty_like(slab), torch.empty_like(slab)
             results["fast_nms"] = _timed(
                 "fast_nms", "self_commit_orb_slam2_tpu_torch/csrc/fast_nms.cu",
@@ -493,8 +548,7 @@ def phase_path(seq, kernels, label: str, cell_size: int, mapping: bool, own: str
     ts = seq.timestamps
 
     with pipeline.timed_mapping_passes() as pass_s:  # count and time them
-        for k in kernels.values():
-            k.launches = 0
+        _reset_launches(kernels)
         sess = slam.open_stream("rgbd", CHUNK)
         warm = 1 + CHUNK  # the initializing frame + the first chunk
         sess.feed((images[:warm], depths[:warm]), ts[:warm])
@@ -505,7 +559,7 @@ def phase_path(seq, kernels, label: str, cell_size: int, mapping: bool, own: str
         sess.finish()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        launches = {k.name: k.launches for k in kernels.values()}
+        launches = _launches(kernels)
 
     n_timed = N_FRAMES - warm
     fps = n_timed / dt
@@ -555,7 +609,10 @@ def _clone_state(x):
 
 
 def _graph_note(g) -> str:
-    return (f"tracking eager {g['eager_ms']:.1f} / graphed {g['graph_ms']:.1f} ms per frame, "
+    f = g["frame"]
+    return (f"frame phase eager {f['eager_ms']:.2f} / graphed {f['graph_ms']:.2f} ms per frame "
+            f"({f['syncs'][False]:.2f} / {f['syncs'][True]:.2f} host syncs), "
+            f"tracking eager {g['eager_ms']:.1f} / graphed {g['graph_ms']:.1f} ms per frame, "
             f"host syncs {g['per'][False]['syncs']:.2f} / {g['per'][True]['syncs']:.2f}, "
             f"kernels {g['per'][False]['kernels']:.0f} / {g['per'][True]['kernels']:.0f} per "
             f"frame, capture {g['capture_s']:.1f} s, bitwise {g['bitwise']}")
@@ -597,12 +654,12 @@ def phase_graph(label, cfg, sensor, arrays, ts, mapping):
             1e-3 if a.dtype == np.uint16 else 1.0)) for a in arrays), float(ts[i]))
         i += 1
     sess = slam.open_stream(sensor, CHUNK)
-    chunks = []
+    hosts = []
     for c in range(GRAPH_CHUNKS):
         s = i + CHUNK * c
         n_live = 1 if c == GRAPH_CHUNKS - 1 else CHUNK
-        chunks.append(sess.frame_fn(slam.config, sess._upload(
-            [a[s:s + n_live] for a in arrays], list(ts[s:s + n_live]))))
+        hosts.append(sess._upload([a[s:s + n_live] for a in arrays], list(ts[s:s + n_live])))
+    chunks, frame = _frame_phase_graphed_vs_eager(label, slam, sess, hosts)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sg.capture(slam.map, slam.carry, chunks[0][0].select(0), mapping)
@@ -675,7 +732,64 @@ def phase_graph(label, cfg, sensor, arrays, ts, mapping):
             f"{label} graphs: {traces[True]['replays']} replays graphed, "
             f"{traces[False]['replays']} eager in the profiled frame")
     return dict(eager_ms=ms[False], graph_ms=ms[True], per=per, capture_s=capture_s,
-                idle={g: traces[g]["idle"] for g in traces}, **worst)
+                idle={g: traces[g]["idle"] for g in traces}, frame=frame, **worst)
+
+
+def _same_tensors(a, b) -> bool:
+    import torch
+    from torch.utils._pytree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(x.dtype == y.dtype and torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def _frame_phase_graphed_vs_eager(label, slam, sess, hosts):
+    """The streamed frame phase of each packed host chunk op by op
+    (frames_*_packed on a device copy of the chunk) and through the System's
+    frame-phase graph (models/program_graphs.py; upload from a pinned
+    buffer included), both from the same bytes: hard, bitwise equal.  Prints
+    ms a frame each way (host clock, synced around each chunk, the first
+    graphed call, which captures, apart) and host syncs a frame (cuda sync
+    debug mode, one chunk each way).  Returns the op-by-op outputs."""
+    import torch
+
+    cfg, sensor = slam.config, sess.sensor
+    eager = lambda h: sess.frame_fn(cfg, torch.from_numpy(h).cuda())   # noqa: E731
+    graphed = lambda h: slam._frame_phase(sensor, h)                    # noqa: E731
+    t0 = time.perf_counter()
+    first = graphed(hosts[0])          # the first run, then the capture
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    outs, secs, bitwise = [], {False: 0.0, True: 0.0}, _same_tensors(first, eager(hosts[0]))
+    for h in hosts[1:]:
+        for g in (False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = (graphed if g else eager)(h)
+            torch.cuda.synchronize()
+            secs[g] += time.perf_counter() - t0
+            if not g:
+                ref = out
+        bitwise = bitwise and _same_tensors(out, ref)
+    for h in hosts:
+        outs.append(eager(h))
+    dev_buf = torch.from_numpy(hosts[1]).cuda()
+    _, syncs_e = _count_syncs(lambda: sess.frame_fn(cfg, dev_buf))
+    _, syncs_g = _count_syncs(lambda: graphed(hosts[1]))
+    n = CHUNK * (len(hosts) - 1)
+    ms = {g: secs[g] / n * 1e3 for g in secs}
+    progs = slam.step_graph.frames.programs
+    sy = {False: sum(syncs_e.values()) / CHUNK, True: sum(syncs_g.values()) / CHUNK}
+    print(f"[{label} graphs] frame phase: op by op {ms[False]:.3f} / graphed {ms[True]:.3f} ms "
+          f"per frame (host clock, synced per chunk, {n} frame slots, upload included "
+          f"graphed), host syncs per frame {sy[False]:.2f} {dict(syncs_e)} / {sy[True]:.2f} "
+          f"{dict(syncs_g)} (sync debug mode); first run and capture {capture_s:.2f} s; "
+          f"{sum(p.replays for p in progs)} replays; bitwise over {len(hosts)} chunks "
+          f"{bitwise}")
+    require(bitwise, f"{label} graphs: the frame phase graphed differs from op by op")
+    require(sy[True] == 0, f"{label} graphs: the graphed frame phase made host syncs {syncs_g}")
+    return outs, dict(eager_ms=ms[False], graph_ms=ms[True], syncs=sy, bitwise=bitwise)
 
 
 def _bench_config(vocab=None):
@@ -772,13 +886,12 @@ def phase_path3(seq, kernels, vocab):
     blank, no_depth = np.zeros_like(seq.images[0]), np.zeros_like(seq.depths[0])
 
     def counts_ok(n_extract: int, where: str):
-        got = {k.name: k.launches for k in kernels.values()}
+        got = _launches(kernels)
         require(got == {"fast_band": n_extract, "fast_nms": 0},
                 f"{label} {where}: launches {got}, want fast_band {n_extract}, fast_nms 0")
 
     with pipeline.timed_mapping_passes() as pass_s:
-        for k in kernels.values():
-            k.launches = 0
+        _reset_launches(kernels)
         relocalization.reset_counts()
 
         # (a) the steady stream
@@ -1058,8 +1171,7 @@ def phase_path_stereo(label, seq, cfg, n_stream, ate_limit, kernels):
                 f"{label}: the rectification maps are not on the card")
     il, ir, ts = _u8(seq.images), _u8(seq.right_images), seq.timestamps
     with pipeline.timed_mapping_passes() as pass_s:
-        for k in kernels.values():
-            k.launches = 0
+        _reset_launches(kernels)
         relocalization.reset_counts()
         sess = slam.open_stream("stereo", CHUNK)
         warm = 1 + CHUNK
@@ -1079,7 +1191,7 @@ def phase_path_stereo(label, seq, cfg, n_stream, ate_limit, kernels):
             torch.cuda.synchronize()
             per_frame_s.append(time.perf_counter() - t0)
             require(slam.state == STATE_OK, f"{label}: lost at per-frame pair {i}")
-        launches = {k.name: k.launches for k in kernels.values()}
+        launches = _launches(kernels)
         attempts, _ = relocalization.counts()
     fps = (n_stream - warm) / dt
     _, est = slam.get_trajectory()
@@ -1205,8 +1317,7 @@ def phase_path5(seq, kernels, vocab):
     mono_init.try_initialize = timed_try
     try:
         with pipeline.timed_mapping_passes() as pass_s:
-            for k in kernels.values():
-                k.launches = 0
+            _reset_launches(kernels)
             relocalization.reset_counts()
             slam.track_batch_mono(images[:first], ts[:first], chunk=CHUNK)
             torch.cuda.synchronize()
@@ -1215,7 +1326,7 @@ def phase_path5(seq, kernels, vocab):
             slam.track_batch_mono(images[first:], ts[first:], chunk=CHUNK)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
-            launches = {k.name: k.launches for k in kernels.values()}
+            launches = _launches(kernels)
             attempts, _ = relocalization.counts()
     finally:
         mono_init.try_initialize = inner
@@ -1282,8 +1393,7 @@ def _stream_loop(label, slam, seq6, kernels, ph, n=N_LOOP):
     ts = seq6.timestamps
     inject = make_injector(keep_recent=6)
     dD = torch.linalg.matrix_power(se3_increment(DRIFT_TWIST).double(), CHUNK).float().cuda()
-    for k in kernels.values():
-        k.launches = 0
+    _reset_launches(kernels)
     relocalization.reset_counts()
     sess = slam.open_stream("rgbd", CHUNK)
     t_start = time.perf_counter()
@@ -1307,7 +1417,7 @@ def _stream_loop(label, slam, seq6, kernels, ph, n=N_LOOP):
     torch.cuda.synchronize()
     chunk_ms.append((time.perf_counter() - t0) * 1e3)
     stream_s = time.perf_counter() - t_start
-    launches = {k.name: k.launches for k in kernels.values()}
+    launches = _launches(kernels)
     attempts, _ = relocalization.counts()
     _, est = slam.get_trajectory()
     raw = np.stack([T for _, T in slam.trajectory])
@@ -1351,20 +1461,24 @@ def phase_path6(seq6, kernels, vocab):
     require(lc is not None and lc.enabled and cfg.tracking.enable_loop_gba
             and cfg.tracking.loop_consistency_th == 3, f"{label}: System(cfg) built no closer")
     _b1_on_loop_frames(label, seq6, cfg.orb)
+    # as bench.py does (bench.py:122-123): the closer's graphs are captured
+    # here, on throwaway state, and the stream replays them
+    t0 = time.perf_counter()
+    slam.warm_start()
+    warm_s = time.perf_counter() - t0
 
-    # the first correction's inputs and its pose graph's, for the card / CPU check
+    # the first correction's inputs, for the card / CPU check: the closer
+    # hands them to its correction graph (whose replays run no Python)
     captured = {}
-    orig_correct, orig_graph = loop_closing.correct_loop, loop_closing.optimize_pose_graph
+    cg = slam.step_graph.closer
+    graph_correct = cg.correct
 
-    def spy_correct(config, m, kf_id, det):
-        captured.setdefault("correct", (_to(m, "cpu"), kf_id.cpu(), _to(det, "cpu")))
-        return orig_correct(config, m, kf_id, det)
+    def spy_correct(m, slot, det):
+        captured.setdefault("correct", (_to(m, "cpu"), torch.tensor(slot, dtype=torch.int32),
+                                        _to(det, "cpu")))
+        return graph_correct(m, slot, det)
 
-    def spy_graph(*args, **kw):
-        captured.setdefault("graph", ([a.cpu() for a in args], kw))
-        return orig_graph(*args, **kw)
-
-    loop_closing.correct_loop, loop_closing.optimize_pose_graph = spy_correct, spy_graph
+    cg.correct = spy_correct
     try:
         with loop_closing.timed_phases() as ph, pipeline.timed_mapping_passes() as pass_s:
             run = _stream_loop(label, slam, seq6, kernels, ph)
@@ -1394,10 +1508,23 @@ def phase_path6(seq6, kernels, vocab):
                 require(slam.state == STATE_OK, f"{label}: lost at per-frame frame {j}")
                 if lc.n_big_changes > n_stream_closures:
                     break
-            launches_all = {k.name: k.launches for k in kernels.values()}
+            launches_all = _launches(kernels)
             attempts_all, _ = relocalization.counts()
     finally:
-        loop_closing.correct_loop, loop_closing.optimize_pose_graph = orig_correct, orig_graph
+        cg.correct = graph_correct
+    if "correct" in captured:   # the pose graph's inputs, from that correction op by op
+        orig_graph = loop_closing.optimize_pose_graph
+
+        def spy_graph(*args, **kw):
+            captured.setdefault("graph", ([a.cpu() for a in args], kw))
+            return orig_graph(*args, **kw)
+
+        loop_closing.optimize_pose_graph = spy_graph
+        try:
+            m0, kf0, det0 = captured["correct"]
+            loop_closing.correct_loop(slam.config, _to(m0, "cuda"), kf0.cuda(), _to(det0, "cuda"))
+        finally:
+            loop_closing.optimize_pose_graph = orig_graph
 
     n_timed = N_LOOP - 1 - CHUNK
     fps = N_LOOP / stream_s
@@ -1408,6 +1535,8 @@ def phase_path6(seq6, kernels, vocab):
           f"of {cfg.caps.max_keyframes}), points {n_pt}, closures {n_stream_closures}, map_changed "
           f"{changed}, last GBA {gba_info}; ATE corrected {ate:.6f} m, raw per-frame "
           f"{ate_raw:.6f} m; relocalization attempts {attempts}; launches {launches}")
+    print(f"[{label}] warm_start {warm_s:.2f} s before the stream (the closer's, the frame "
+          f"phase's and the step's captures)")
     print(f"[{label}] stream {stream_s:.3f} s = {fps:.2f} frames/s (host clock, synced per chunk); "
           f"median chunk {med:.1f} ms; mapping passes {len(pass_s)}, mean "
           f"{np.mean(pass_s) * 1e3:.1f} ms; {n_timed} frames after the first chunk")
@@ -1441,6 +1570,29 @@ def phase_path6(seq6, kernels, vocab):
             f"{N_PER_FRAME_MAX} frames")
     require("correct" in captured and "graph" in captured, f"{label}: no correction captured")
     stages = phase_loop_stages(cfg, captured)
+    stages.update(phase_loop_graphs(slam, captured))
+
+    # the same stream with the closer op by op (its graphs off, the step's on):
+    # the same closures at the same frames
+    slam_e = System(cfg)
+    slam_e._loop_closer.graphs = None
+    slam_e.warm_start()
+    with loop_closing.timed_phases() as ph_e:
+        run_e = _stream_loop(label, slam_e, seq6, kernels, ph_e)
+    frames_g = [f for _, f, _ in events]
+    frames_e = [f for _, f, _ in run_e["events"]]
+    med_e = float(np.median(run_e["chunk_ms"][4:]))
+    stalls_e = [float(np.max(run_e["chunk_ms"][max(c - 1, 0): c + 3]) - med_e)
+                for c, _, _ in run_e["events"]]
+    print(f"[{label}] the stream again with the closer op by op: {run_e['closures']} closures at "
+          f"frames {frames_e} (graphed: {n_stream_closures} at {frames_g}); "
+          f"{N_LOOP / run_e['stream_s']:.2f} frames/s; stalls {[round(x, 1) for x in stalls_e]} "
+          f"ms; " + "; ".join(f"{k} {len(v)} calls, mean {np.mean(v):.1f} ms"
+                              for k, v in ph_e.items())
+          + f"; ATE {run_e['ate']:.6f} m (graphed {ate:.6f} m)")
+    require(run_e["closures"] == n_stream_closures and frames_e == frames_g,
+            f"{label}: the closer op by op closed at {frames_e}, graphed at {frames_g}")
+    stages.update(eager_ph=ph_e, eager_fps=N_LOOP / run_e["stream_s"], eager_stalls=stalls_e)
     return want, fps, ate, ate_raw, n_stream_closures, stream_ph, stages
 
 
@@ -1485,8 +1637,9 @@ def phase_loop_stages(cfg, captured):
     t0 = time.perf_counter()
     d_cpu = loop_closing.detect_and_verify(cfg, m, kf, sets=sets)
     cpu_detect_ms = (time.perf_counter() - t0) * 1e3
+    sets_c = sets.cuda()
     d_card, det_syncs = _count_syncs(
-        lambda: loop_closing.detect_and_verify(cfg, m_c, kf_c, sets=sets.cuda()))
+        lambda: loop_closing.detect_and_verify(cfg, m_c, kf_c, sets=sets_c))
     torch.cuda.synchronize()
     dS = float((d_card.S_cur_cand.cpu() - d_cpu.S_cur_cand).abs().max())
     print(f"[{label}] detect_and_verify from the first closure's state (keyframe {int(kf)}): card "
@@ -1515,6 +1668,9 @@ def phase_loop_stages(cfg, captured):
           f"{sum(det_syncs.values())} {dict(det_syncs)}; correct_loop "
           f"{sum(corr_syncs.values())} {dict(corr_syncs)}")
     require(dT <= 1e-3 and p_ok and obs >= 0.999, f"{label}: correct_loop differs")
+    require(sum(det_syncs.values()) == 0 and sum(corr_syncs.values()) == 0,
+            f"{label}: detect_and_verify or correct_loop made the host wait: {det_syncs} "
+            f"{corr_syncs}")
 
     args, kw = captured["graph"]
     ref_g = optimize_pose_graph(*args, **kw)
@@ -1533,6 +1689,117 @@ def phase_loop_stages(cfg, captured):
     require(dG <= 1e-3, f"{label}: optimize_pose_graph differs by {dG}")
     return dict(pose_graph_ms=t_ms, d_pose_graph=dG, d_correct=dT,
                 syncs=(sum(det_syncs.values()), sum(corr_syncs.values())))
+
+
+def phase_loop_graphs(slam, captured):
+    """Path 6's graph phase: detection and correction through the stream's
+    own closer graphs (models/program_graphs.py) against the same calls op
+    by op, from the first closure's captured state on the card.  Detection:
+    3 calls each way from one generator state (the graph's registered
+    generator, an eager copy of its state): hard, bitwise.  Correction: 3
+    calls each way from the same inputs: hard, bitwise or within the card
+    against CPU bounds of phase_loop_stages (index_add_ sums in no fixed
+    order on the card); the op-by-op run against itself is printed as the
+    noise floor.  ms per call each way (host clock, synced), host syncs per
+    call (sync debug mode; hard: 0 graphed), and optimize_pose_graph alone
+    and the correction's replay under torch.profiler: device kernels, busy
+    time and the top device operators."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from self_commit_orb_slam2_tpu_torch.models import loop_closing
+    from self_commit_orb_slam2_tpu_torch.ops.optim.pose_graph import optimize_pose_graph
+    from self_commit_orb_slam2_tpu_torch.utils.profiling import trace_counts
+
+    label = "path 6 graphs"
+    cfg, cg, gen = slam.config, slam.step_graph.closer, slam._loop_gen
+    m, kf, det0 = (_to(x, "cuda") if not torch.is_tensor(x) else x.cuda()
+                   for x in captured["correct"])
+    slot = int(kf)
+    require(cg.detect_program is not None and cg.detect_program.graph is not None
+            and cg.correct_program is not None and cg.correct_program.graph is not None,
+            f"{label}: the stream captured no closer graph")
+    r0 = (cg.detect_program.replays, cg.correct_program.replays)
+    state0 = gen.get_state()
+    ge = torch.Generator(device="cuda")
+    ge.set_state(state0)
+    ms, bitwise = {"detect": {}, "correct": {}}, True
+
+    def timed(fn, reps=3):
+        outs = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            outs.append(fn())
+        torch.cuda.synchronize()
+        return outs, (time.perf_counter() - t0) / reps * 1e3
+
+    de, ms["detect"][False] = timed(lambda: loop_closing.detect_and_verify(cfg, m, kf, ge))
+    dg, ms["detect"][True] = timed(lambda: cg.detect(m, slot, gen))
+    bitwise = all(_same_tensors(a, b) for a, b in zip(de, dg))
+    _, syncs_de = _count_syncs(lambda: loop_closing.detect_and_verify(cfg, m, kf, ge))
+    _, syncs_dg = _count_syncs(lambda: cg.detect(m, slot, gen))
+    require(torch.equal(ge.get_state(), gen.get_state()), f"{label}: the generators diverged")
+    gen.set_state(state0)
+
+    me, ms["correct"][False] = timed(lambda: loop_closing.correct_loop(cfg, m, kf, det0))
+    mg, ms["correct"][True] = timed(lambda: cg.correct(m, slot, det0))
+    _, syncs_ce = _count_syncs(lambda: loop_closing.correct_loop(cfg, m, kf, det0))
+    _, syncs_cg = _count_syncs(lambda: cg.correct(m, slot, det0))
+
+    def diff(a, b):
+        dT = float((a.kf_Tcw - b.kf_Tcw).abs().max())
+        dp = (a.pt_pos - b.pt_pos).abs()
+        rel = float((dp / (2e-3 + 1e-3 * b.pt_pos.abs())).max())
+        obs = float((a.kf_obs_pt == b.kf_obs_pt).float().mean())
+        return dT, rel, obs
+
+    noise = diff(me[1], me[0])
+    worst = max((diff(g, me[0]) for g in mg), key=lambda d: (d[0], d[1], -d[2]))
+    c_bitwise = all(_same_tensors(g, me[0]) for g in mg)
+
+    args, kw = captured["graph"]
+    args = [a.cuda() for a in args]
+    optimize_pose_graph(*args, **kw)
+    prof_rows = {}
+    for what, fn in (("optimize_pose_graph op by op", lambda: optimize_pose_graph(*args, **kw)),
+                     ("correction replay", lambda: cg.correct(m, slot, det0))):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        c = trace_counts(prof, wall)
+        top = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0),
+                     key=lambda e: -e.self_device_time_total)[:6]
+        prof_rows[what] = c
+        print(f"[{label}] {what} under torch.profiler: wall {wall * 1e3:.1f} ms, device busy "
+              f"{c['busy_ms']:.2f} ms, {c['kernels']:.0f} device kernels, idle share "
+              f"{c['idle']:.3f}; top device operators: " + "; ".join(
+                  f"{e.key} {e.self_device_time_total / 1e3:.2f} ms x{e.count}" for e in top))
+    replays = (cg.detect_program.replays - r0[0], cg.correct_program.replays - r0[1])
+    print(f"[{label}] detection from the first closure's state (keyframe {slot}): op by op "
+          f"{ms['detect'][False]:.1f} / graphed {ms['detect'][True]:.1f} ms per call (host "
+          f"clock, synced, 3 calls), bitwise {bitwise}, found {bool(dg[0].found)}; host syncs "
+          f"per call {sum(syncs_de.values())} {dict(syncs_de)} / {sum(syncs_dg.values())} "
+          f"{dict(syncs_dg)}; capture {cg.detect_program.capture_s:.2f} s")
+    print(f"[{label}] correction: op by op {ms['correct'][False]:.1f} / graphed "
+          f"{ms['correct'][True]:.1f} ms per call; bitwise {c_bitwise}; graphed against op by "
+          f"op: max |pose difference| {worst[0]:.2e}, points at {worst[1]:.3f} of the bound, "
+          f"observations equal on {worst[2]:.5f}; op by op against itself {noise[0]:.2e}, "
+          f"{noise[1]:.3f}, {noise[2]:.5f}; host syncs per call {sum(syncs_ce.values())} "
+          f"{dict(syncs_ce)} / {sum(syncs_cg.values())} {dict(syncs_cg)}; capture "
+          f"{cg.correct_program.capture_s:.2f} s; replays here {replays}")
+    require(bitwise, f"{label}: detection graphed differs from op by op")
+    require(c_bitwise or (worst[0] <= 1e-3 and worst[1] <= 1.0 and worst[2] >= 0.999),
+            f"{label}: correction graphed differs from op by op: {worst}")
+    require(sum(syncs_dg.values()) == 0 and sum(syncs_cg.values()) == 0,
+            f"{label}: a replay made host syncs: {syncs_dg} {syncs_cg}")
+    return dict(graph_detect_ms=ms["detect"], graph_correct_ms=ms["correct"],
+                graph_syncs=(sum(syncs_de.values()), sum(syncs_ce.values()),
+                             sum(syncs_dg.values()), sum(syncs_cg.values())),
+                prof=prof_rows)
 
 
 # ---------------------------------------------------------------- path 7
@@ -1673,14 +1940,13 @@ def _run_driver(label, argv, kernels):
     from self_commit_orb_slam2_tpu_torch import run_slam
     from self_commit_orb_slam2_tpu_torch.utils import datasets
 
-    for k in kernels.values():
-        k.launches = 0
+    _reset_launches(kernels)
     decodes = dict(datasets.DECODES)
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         rc = run_slam.main(argv)
     text = out.getvalue()
-    launches = {k.name: k.launches for k in kernels.values()}
+    launches = _launches(kernels)
     require(rc == 0, f"{label}: run_slam returned {rc}:\n{text}")
     nums = dict(
         frames=int(re.search(r"frames: (\d+)", text).group(1)),
@@ -1864,8 +2130,7 @@ def phase_path7(seq, kitti, euroc, kernels, vocab, workdir):
                 stream_slam.write_frame(w, "rgbd", float(seq.timestamps[i]), seq.images[i],
                                         seq.depths[i])
 
-    for k in kernels.values():
-        k.launches = 0
+    _reset_launches(kernels)
     sender = threading.Thread(target=send)
     sender.start()
     import io
@@ -1877,7 +2142,7 @@ def phase_path7(seq, kitti, euroc, kernels, vocab, workdir):
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     sender.join(timeout=60)
-    launches = {k.name: k.launches for k in kernels.values()}
+    launches = _launches(kernels)
     b1 += launches["fast_band"]
     poses_out.seek(0)
     recs = []
@@ -1977,6 +2242,7 @@ def phase_path8a(seq6, kernels, vocab):
     require(loop_closing._needs_sharded_gba(slam.config, slam.map),
             f"{label}: {cfg.caps.max_keyframes} x {cfg.caps.max_points} takes the dense GBA")
     _b1_on_loop_frames(label, seq6, cfg.orb)
+    slam.warm_start()   # as bench.py does: the captures before the stream
     gba = []
     orig = loop_closing.run_sharded_gba
 
@@ -2122,8 +2388,7 @@ def phase_path8c(fleet_seqs, kernels, seq, cfg3, map3):
     cfg = _bench_config()
     fleet = FleetTracker(cfg, n_streams=N_FLEET)
     arr = lambda f, sl: np.stack([getattr(q, f)[sl] for q in fleet_seqs])  # noqa: E731
-    for k in kernels.values():
-        k.launches = 0
+    _reset_launches(kernels)
     t0 = time.perf_counter()
     fleet.initialize(arr("images", 0), arr("depths", 0), arr("timestamps", 0))
     torch.cuda.synchronize()
@@ -2135,7 +2400,7 @@ def phase_path8c(fleet_seqs, kernels, seq, cfg3, map3):
                                        arr("timestamps", sl)))
         chunk_s.append(time.perf_counter() - t1)
     total_s = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in kernels.values()}
+    launches = _launches(kernels)
     poses = np.concatenate(poses, axis=1)
     est = np.concatenate([np.broadcast_to(np.eye(4, dtype=np.float32), (N_FLEET, 1, 4, 4)),
                           poses], axis=1)
@@ -2323,8 +2588,7 @@ def _mono_stream(label, slam, seq9, kernels, ph):
     inject = make_injector(keep_recent=6)
     dD = torch.linalg.matrix_power(se3_increment(MONO_TWIST).double(), CHUNK).float().cuda()
     s_chunk = MONO_SCALE ** CHUNK
-    for k in kernels.values():
-        k.launches = 0
+    _reset_launches(kernels)
     relocalization.reset_counts()
     sess = slam.open_stream("mono", CHUNK)
     t_start = time.perf_counter()
@@ -2348,7 +2612,7 @@ def _mono_stream(label, slam, seq9, kernels, ph):
     torch.cuda.synchronize()
     chunk_ms.append((time.perf_counter() - t0) * 1e3)
     stream_s = time.perf_counter() - t_start
-    launches = {k.name: k.launches for k in kernels.values()}
+    launches = _launches(kernels)
     attempts, _ = relocalization.counts()
     _, est = slam.get_trajectory()
     require(0 < len(est) <= n and np.all(np.isfinite(est)), f"{label}: bad trajectory")
@@ -2375,6 +2639,7 @@ def phase_path9a(seq9, kernels, vocab):
         lc = slam._loop_closer
         require(not loops or (lc is not None and lc.enabled),
                 f"{label}: System(cfg) built no closer")
+        slam.warm_start()   # as bench.py does: the captures before the stream
         with loop_closing.timed_phases() as ph, pipeline.timed_mapping_passes() as pass_s:
             run = _mono_stream(label, slam, seq9, kernels, ph)
         run.update(state=slam.state, phases={k: list(v) for k, v in ph.items()},
@@ -2383,6 +2648,19 @@ def phase_path9a(seq9, kernels, vocab):
             scales = [float(det.S_cur_cand[7]) for det in lc.corrections]
         runs[loops] = run
     on, off = runs[True], runs[False]
+    # with loop closing again, the closer op by op (its graphs off, the step's on)
+    slam_e = System(cfg)
+    slam_e._loop_closer.graphs = None
+    slam_e.warm_start()
+    with loop_closing.timed_phases() as ph_e:
+        run_e = _mono_stream(label, slam_e, seq9, kernels, ph_e)
+    frames_on, frames_e = ([f for _, f, _ in r["events"]] for r in (on, run_e))
+    print(f"[{label}] loop closing on, the closer op by op: {run_e['closures']} closures at "
+          f"frames {frames_e} (graphed: {on['closures']} at {frames_on}), Sim3-aligned ATE "
+          f"{run_e['ate']:.6f} m, {N_MONO_LOOP / run_e['stream_s']:.2f} frames/s; " + "; ".join(
+              f"{k} {len(v)} calls, mean {np.mean(v):.1f} ms" for k, v in ph_e.items()))
+    require(run_e["closures"] == on["closures"] and frames_e == frames_on,
+            f"{label}: the closer op by op closed at {frames_e}, graphed at {frames_on}")
     med = float(np.median(on["chunk_ms"][4:]))
     stalls = [float(np.max(on["chunk_ms"][max(c - 1, 0): c + 3]) - med)
               for c, _, _ in on["events"]]
@@ -2487,13 +2765,12 @@ def phase_path9b(seq9b, kernels):
     _b1_on_loop_frames(label, seq9b, cfg.orb, at=40)
     slam.warm_start()   # the step graphs' capture: start-up, outside the timed frames
     with pipeline.timed_mapping_passes() as pass_s:
-        for k in kernels.values():
-            k.launches = 0
+        _reset_launches(kernels)
         relocalization.reset_counts()
         t0 = time.perf_counter()
         live_max, n_lost, _ = _bounded_pass(slam, seq9b, count_drops=False)
         dt = time.perf_counter() - t0
-        launches = {k.name: k.launches for k in kernels.values()}
+        launches = _launches(kernels)
         attempts, _ = relocalization.counts()
     m = slam.map
     total, live, culled = int(m.n_kf), int(m.kf_valid.sum()), int(m.n_culled)
@@ -2636,7 +2913,16 @@ def main() -> int:
                        f"(raw {raw6:.6f} m), detection {mean6['detect']:.1f} ms per keyframe, "
                        f"correction {mean6['correct']:.1f} ms, GBA slice "
                        f"{mean6['gba_slice']:.1f} ms, merge {mean6['merge']:.1f} ms, pose graph "
-                       f"on the card {stages['pose_graph_ms']:.1f} ms")
+                       f"on the card {stages['pose_graph_ms']:.1f} ms; with the closer op by op "
+                       f"{stages['eager_fps']:.2f} frames/s, detection "
+                       f"{np.mean(stages['eager_ph'].get('detect', [np.nan])):.1f} ms, correction "
+                       f"{np.mean(stages['eager_ph'].get('correct', [np.nan])):.1f} ms; from one "
+                       f"state op by op / graphed: detection "
+                       f"{stages['graph_detect_ms'][False]:.1f} / "
+                       f"{stages['graph_detect_ms'][True]:.1f} ms, correction "
+                       f"{stages['graph_correct_ms'][False]:.1f} / "
+                       f"{stages['graph_correct_ms'][True]:.1f} ms, host syncs "
+                       f"{stages['graph_syncs']}")
         lap("path 6")
         with tempfile.TemporaryDirectory() as workdir:
             n7, rows7 = phase_path7(seq, kitti, euroc, kernels, vocab, workdir)
@@ -2706,6 +2992,10 @@ def main() -> int:
             "launches_path4a", "launches_path4b", "launches_path5", "launches_path6",
             "launches_path7", "launches_path8", "launches_path9", "shapes")
     print(f"[summary] {card}: {'; '.join(summary)}")
+    print("[kernels] launches: each wrapper counts where it launches its kernel; inside a CUDA "
+          "graph capture that launch is only recorded, so the counts below are the wrappers' "
+          "own, less the recordings, plus graph replays x launches per capture "
+          "(models/program_graphs.py)")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results.values()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

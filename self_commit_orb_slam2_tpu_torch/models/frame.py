@@ -13,6 +13,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.camera import CameraParams, backproject, undistort_points
+from ..ops.constants import scale_factors
 from ..ops.matching import stereo as stereo_ops
 from ..ops.orb import extractor as orb_extractor
 from ..ops.orb.pyramid import level_shapes
@@ -107,7 +108,7 @@ def make_frames_stereo_batch(config: SlamConfig, images_l: torch.Tensor,
     sm = stereo_ops.match_stereo(
         fl.xy, fl.level, fl.desc, fl.valid, fr.xy, fr.level, fr.desc, fr.valid,
         slabs[:B], slabs[B:], cam.bf, cam.baseline,  # minZ = b (reference Frame.cc:1033)
-        torch.from_numpy(config.orb.scale_factors()).to(images_l.device), dims)
+        scale_factors(config.orb, images_l.device), dims)
     return _frame(config, fl, sm.u_right, sm.depth)
 
 

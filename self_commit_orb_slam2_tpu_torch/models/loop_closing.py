@@ -63,6 +63,7 @@ import torch
 from ..ops import bow as bow_ops
 from ..ops import se3, sim3
 from ..ops.camera import in_frustum
+from ..ops.constants import log_scale_factor, scale_factors, sigma2
 from ..ops.indexing import nonzero_padded, row, set_drop, top_k
 from ..ops.matching import core as mcore
 from ..ops.optim.bundle_adjust import bundle_adjust
@@ -354,7 +355,7 @@ def _search_and_fuse_loop(config: SlamConfig, m: MapState, kf_id: torch.Tensor,
     cam = config.camera
     K, P, N = m.max_kf, m.max_pt, m.feat_cap
     dev = m.kf_valid.device
-    sf = torch.from_numpy(config.orb.scale_factors()).to(dev)
+    sf = scale_factors(config.orb, dev)
     bounds = (0.0, float(cam.width), 0.0, float(cam.height))
 
     counts = ms.covisibility_row_cached(m, row(m.kf_obs_pt, kf_id))
@@ -381,7 +382,7 @@ def _search_and_fuse_loop(config: SlamConfig, m: MapState, kf_id: torch.Tensor,
         1, torch.where(obs_rows >= 0, obs_rows, P).long(), True)
     vis = vis & cand_ok & grp_ok[:, None] & ~have.gather(1, cand_c.expand(G, CAP))
     ratio = torch.clamp_min(maxd / 1.2, 1e-6) / torch.clamp_min(dist, 1e-6)
-    log_sf = torch.log(torch.tensor(config.orb.scale_factor, dtype=torch.float32, device=dev))
+    log_sf = log_scale_factor(config.orb.scale_factor, dev)
     lvl = torch.clamp(torch.ceil(torch.log(ratio) / log_sf).to(torch.int32), 0,
                       config.orb.n_levels - 1)
     mm = mcore.mutual_best_match(
@@ -489,10 +490,10 @@ def _gba(config: SlamConfig, m: MapState, kf_Tcw, pt_pos, anchor_kf, n_pre: int,
     K = m.max_kf
     dev = m.kf_valid.device
     obs_uvr = torch.cat([m.kf_xy, m.kf_uright[..., None]], dim=-1)
-    sigma2 = torch.from_numpy(config.orb.sigma2()).to(dev)[m.kf_level.long()]
+    sigma2_kf = sigma2(config.orb, dev)[m.kf_level.long()]
     idx = torch.arange(K, device=dev)
     kf_free = m.kf_valid & (idx != anchor_kf) & (idx != 0)
-    ba = bundle_adjust(config.camera, kf_Tcw, pt_pos, m.kf_obs_pt, obs_uvr, sigma2,
+    ba = bundle_adjust(config.camera, kf_Tcw, pt_pos, m.kf_obs_pt, obs_uvr, sigma2_kf,
                        m.kf_feat_valid & m.kf_valid[:, None], kf_free, m.pt_valid,
                        n_iters_pre=n_pre, n_iters_post=n_post, ur_weight=config.ur_weight)
     return ba.kf_Tcw, ba.pt_pos
@@ -532,12 +533,12 @@ def run_sharded_gba(config: SlamConfig, m: MapState, anchor_kf):
     mesh = make_mesh(MeshSpec(n_map=1, n_blk=n))
     dev = m.kf_valid.device
     obs_uvr = torch.cat([m.kf_xy, m.kf_uright[..., None]], dim=-1)
-    sigma2 = torch.from_numpy(config.orb.sigma2()).to(dev)[m.kf_level.long()]
+    sigma2_kf = sigma2(config.orb, dev)[m.kf_level.long()]
     idx = torch.arange(m.max_kf, device=dev)
     kf_free = m.kf_valid & (idx != int(anchor_kf)) & (idx != 0)
     res = distributed_bundle_adjust(
         mesh, config.camera, *(x[None] for x in (
-            m.kf_Tcw, m.pt_pos, m.kf_obs_pt, obs_uvr, sigma2,
+            m.kf_Tcw, m.pt_pos, m.kf_obs_pt, obs_uvr, sigma2_kf,
             m.kf_feat_valid & m.kf_valid[:, None] & (m.kf_obs_pt >= 0), kf_free, m.pt_valid)),
         n_iters=10, ur_weight=config.ur_weight)
     return res.kf_Tcw[0], res.pt_pos[0]
@@ -591,7 +592,11 @@ def _clone_map(m: MapState) -> MapState:
 class LoopCloser:
     """Loop detection, consistency chaining, correction and the sliced
     global BA of one System (reference LoopClosing thread).  `generator`
-    drives the Sim3 RANSAC and must live on the map's device."""
+    drives the Sim3 RANSAC and must live on the map's device.  With
+    `graphs` set (a program_graphs.CloserGraphs, which the System sets from
+    its step graphs) detection and correction run through it: replayed CUDA
+    graphs on the card, the same calls on static buffers on the CPU; None
+    runs them op by op."""
 
     MAX_DETECT = 4              # keyframes per detection part
     MAX_PENDING_DETS = 0        # groups left queued by a non-blocking resolve
@@ -616,6 +621,7 @@ class LoopCloser:
         # the LoopDetection of every correction applied, in order, on the
         # device (each closure's Sim3 S_cur_cand, its scale at [7])
         self.corrections: list = []
+        self.graphs = None
         # groups within one part are detected against one pre-correction
         # map; the COOLDOWN check discards the rest after a mid-part
         # correction only while MAX_DETECT < COOLDOWN
@@ -624,8 +630,9 @@ class LoopCloser:
     def warmup(self, m: MapState) -> None:
         """One detection, correction, both GBA slice kinds and a merge on a
         throwaway copy of `m`, results discarded (the JAX closer compiles its
-        programs here; the port warms its device libraries), with a
-        generator of its own so that the closer's draws are not moved."""
+        programs here; the port warms its device libraries and, with graphs,
+        captures detection and correction), with a generator of its own so
+        that the closer's draws are not moved."""
         if not self.enabled:
             return
         dev = m.kf_valid.device
@@ -633,6 +640,8 @@ class LoopCloser:
         zero = torch.zeros((), dtype=torch.int32, device=dev)
         det = detect_and_verify(self.config, m, zero, gen)
         out = correct_loop(self.config, _clone_map(m), zero, det)
+        if self.graphs is not None:
+            self.graphs.capture(m, 0, self.generator, gen)
         if self.config.tracking.enable_loop_gba and not _needs_sharded_gba(self.config, out):
             T, p = out.kf_Tcw.clone(), out.pt_pos.clone()
             for huber in (True, False):
@@ -664,9 +673,12 @@ class LoopCloser:
             dets = []
             for _, s in part:
                 with _phase("detect", m.kf_valid):
-                    dets.append(detect_and_verify(
-                        self.config, m, torch.tensor(s, dtype=torch.int32, device=dev),
-                        self.generator))
+                    if self.graphs is not None:
+                        dets.append(self.graphs.detect(m, s, self.generator))
+                    else:
+                        dets.append(detect_and_verify(
+                            self.config, m, torch.full((), s, dtype=torch.int32, device=dev),
+                            self.generator))
             self._pending_dets.append((part, LoopDetection(*map(torch.stack, zip(*dets)))))
 
     def pending(self) -> int:
@@ -771,9 +783,11 @@ class LoopCloser:
                     slot = ms.latest_kf(m)
                     before = row(m.kf_Tcw, slot)
                     det = LoopDetection(*(x[i] for x in dets))
-                    m = correct_loop(self.config, m,
-                                     torch.tensor(s, dtype=torch.int32, device=m.kf_valid.device),
-                                     det)
+                    if self.graphs is not None:
+                        m = self.graphs.correct(m, s, det)
+                    else:
+                        m = correct_loop(self.config, m, torch.full(
+                            (), s, dtype=torch.int32, device=m.kf_valid.device), det)
                     fired.append((slot, before, row(m.kf_Tcw, slot)))
                 self.corrections.append(det)
                 self._dispatch_gba(m, cand)

@@ -40,6 +40,11 @@ On the CPU the same runner calls the captured functions on the same static
 buffers instead of replaying them: the plain version, which the tests hold
 bitwise against pipeline.track_step.  On a CUDA device it replays, or
 raises: nothing falls back to eager execution when a capture fails.
+
+The runner also holds the System's other captured programs, in the same
+graph pool (models/program_graphs.py): `frames`, the streamed frame phase,
+and `closer`, the loop closer's detection and correction.  A System with
+step_graph = None runs all of them op by op.
 """
 
 from __future__ import annotations
@@ -56,6 +61,7 @@ from .config import SlamConfig
 from .frame import FrameData
 from .map_state import MapState
 from .pipeline import StepCore, TrackCarry
+from .program_graphs import CloserGraphs, FrameGraphs, GraphPool, no_collection
 
 WARMUP_ITERS = 2  # eager runs of both parts on a side stream before a capture
 INFO_WIDTH = 40   # columns of a packed StepInfo (pipeline.pack_infos)
@@ -119,6 +125,9 @@ class StepGraph:
         self._core_out: _CoreOut | None = None
         self._tail_row: torch.Tensor | None = None
         self._published: TrackCarry | None = None   # the carry last handed out
+        self.pool = GraphPool()   # every graph of this System captures into it
+        self.frames = FrameGraphs(config, self.device, self.pool)
+        self.closer = CloserGraphs(config, self.device, self.pool)
 
     @property
     def graphed(self) -> bool:
@@ -199,11 +208,11 @@ class StepGraph:
             main.wait_stream(side)
             _copy_into(S, saved)
             del saved
-            pool = torch.cuda.graph_pool_handle()
+            pool = self.pool()
             core, tail = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
-            with torch.cuda.graph(core, pool=pool):
+            with no_collection(), torch.cuda.graph(core, pool=pool):
                 self._core_out = self._run_core()
-            with torch.cuda.graph(tail, pool=pool):
+            with no_collection(), torch.cuda.graph(tail, pool=pool):
                 self._tail_row = self._run_tail()
         torch.cuda.synchronize(self.device)
         self._graphs = (core, tail)

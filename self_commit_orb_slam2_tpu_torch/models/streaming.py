@@ -107,7 +107,8 @@ class StreamSession:
         self._tail = [a[n_full * C:] for a in self._tail]
         self._tail_ts = self._tail_ts[n_full * C:]
 
-    def _upload(self, arrs: list, ts: list) -> torch.Tensor:
+    def _upload(self, arrs: list, ts: list) -> np.ndarray:
+        """The packed host chunk of these frames, padded to C with the last."""
         n_live = len(ts)
         pad = self.C - n_live
         if pad:
@@ -115,12 +116,10 @@ class StreamSession:
             ts = list(ts) + [ts[-1]] * pad
         valid = np.zeros(self.C, bool)
         valid[:n_live] = True
-        buf = self.pack(*arrs, np.asarray(ts, np.float32), valid)
-        return torch.from_numpy(buf).to(self.sys.device)
+        return self.pack(*arrs, np.asarray(ts, np.float32), valid)
 
-    def _dispatch(self, buf: torch.Tensor, ts_live: list) -> None:
-        cfg = self.sys.config
-        frames, ts, valid = self.frame_fn(cfg, buf)
+    def _dispatch(self, host_buf: np.ndarray, ts_live: list) -> None:
+        frames, ts, valid = self.sys._frame_phase(self.sensor, host_buf)
         packed = self.sys._batch_steps(frames, ts, valid, self.loc)
         n_live = len(ts_live)
         self._all_ts.extend(ts_live)

@@ -113,22 +113,34 @@ class System:
         self._batch_chunk = 4  # frames per streamed chunk (the JAX package's default)
         self._loop_closer = (loop_closing.LoopCloser(config, self._loop_gen)
                              if enable_loop_closing else None)
-        # SLAM-mode tracking steps through captured CUDA graphs on the card
-        # (models/step_graph.py); None: pipeline.track_step, op by op (the
-        # CPU's default; tests set a CPU StepGraph here to run its plain version)
-        self.step_graph: Optional[StepGraph] = (
-            StepGraph(config, self.device) if self.device.type == "cuda" else None)
+        # SLAM-mode tracking steps, the streamed frame phase and the closer's
+        # detection and correction through captured CUDA graphs on the card
+        # (models/step_graph.py, models/program_graphs.py); None: all op by
+        # op (the CPU's default; tests set a CPU StepGraph here to run its
+        # plain versions)
+        self.step_graph = StepGraph(config, self.device) if self.device.type == "cuda" else None
         self._last_big_change = 0
         # seconds per tracked frame: one entry per track_* call, and a chunked
         # batch's time spread evenly over its frames (kept across reset())
         self.timings: list[float] = []
         self.reset()
 
+    @property
+    def step_graph(self) -> Optional[StepGraph]:
+        return self._step_graph
+
+    @step_graph.setter
+    def step_graph(self, sg: Optional[StepGraph]) -> None:
+        self._step_graph = sg
+        if self._loop_closer is not None:
+            self._loop_closer.graphs = sg.closer if sg is not None else None
+
     def warm_start(self) -> None:
         """Warm the loop closer's device libraries (LoopCloser.warmup, with
-        the closer on), prime the streaming pipeline and capture the step's
-        CUDA graphs, before the first real frame: the runtime analogue of
-        the reference's seconds-long ORBvoc load at startup
+        the closer on; with the graphs, it captures detection and
+        correction), prime the streaming pipeline and capture the frame
+        phase's and the step's CUDA graphs, before the first real frame: the
+        runtime analogue of the reference's seconds-long ORBvoc load at startup
         (src/System.cc:77-89).  Optional; without it the first chunk and the
         first closure pay the kernel builds, the libraries' start-up and the
         capture.  Touches neither the map, the carry, the trajectory nor the
@@ -147,7 +159,7 @@ class System:
         sensor = cfg.sensor
         H, W = int(cfg.camera.height), int(cfg.camera.width)
         C = self._batch_chunk
-        pack, frame_fn = _SENSORS[sensor]
+        pack, _ = _SENSORS[sensor]
         planes = [np.zeros((C, H, W), np.uint8)]
         if sensor != "mono":
             planes.append(np.zeros((C, H, W), np.uint16 if sensor == "rgbd" else np.uint8))
@@ -156,7 +168,7 @@ class System:
         gen = torch.Generator(device=self.device).manual_seed(0)
         carry = None
         for _ in range(PRIME_CHUNKS):
-            frames, ts, valid = frame_fn(cfg, torch.from_numpy(host_buf).to(self.device))
+            frames, ts, valid = self._frame_phase(sensor, host_buf)
             if carry is None:
                 carry = pipeline.init_carry(cfg, frames.select(0))
             m, carry, packed = pipeline.batch_steps_frames(
@@ -458,6 +470,13 @@ class System:
                 localization_only=self.localization_only, generator=self._stream_gen)
             row = pipeline.pack_infos([info])[0].cpu().numpy()
         return pipeline.unpack_infos(row[None])
+
+    def _frame_phase(self, sensor: str, host_buf: np.ndarray):
+        """A packed host chunk uploaded and built into (frames, ts, valid):
+        through the frame-phase graph of the step graphs, else op by op."""
+        if self.step_graph is not None:
+            return self.step_graph.frames(sensor, host_buf)
+        return _SENSORS[sensor][1](self.config, torch.from_numpy(host_buf).to(self.device))
 
     def _batch_steps(self, frames: frame_mod.FrameData, ts: torch.Tensor,
                      valid: torch.Tensor, localization_only: bool) -> torch.Tensor:

@@ -5,14 +5,20 @@ A tensor made from host data inside a step (`torch.tensor(...)`,
 is a copy from pageable host memory on the card: the stream waits for it,
 and a CUDA graph cannot capture it.  The step's constants are built here
 once per value, dtype and device and shared; callers read them and never
-write into them.
+write into them.  Each is built from Python values (`torch.tensor` of a
+nested list), so on the meta device no operand lies on the CPU.
 """
 
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
+
+_DTYPES = {np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64,
+           np.dtype(np.int32): torch.int32, np.dtype(np.int64): torch.int64,
+           np.dtype(np.bool_): torch.bool}
 
 
 @functools.lru_cache(maxsize=None)
@@ -49,3 +55,24 @@ def inverse_camera_matrix(cam, device: torch.device) -> torch.Tensor:
     """[3, 3] float32 K^-1, computed on the device (inv_ex: no error check,
     so no sync)."""
     return torch.linalg.inv_ex(camera_matrix(cam, device))[0]
+
+
+def _from_array(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    return torch.tensor(a.reshape(-1).tolist(), dtype=_DTYPES[a.dtype],
+                        device=device).reshape(a.shape)
+
+
+@functools.lru_cache(maxsize=None)
+def _arrays(fn, args: tuple, device: torch.device):
+    out = fn(*args)
+    if isinstance(out, tuple):
+        return tuple(_from_array(a, device) for a in out)
+    return _from_array(out, device)
+
+
+def from_numpy(fn, *args, device):
+    """fn(*args) -- a numpy array, or a tuple of them, from a module-level
+    function of hashable arguments -- as tensors of the same dtypes and
+    shapes on `device`, built once per (fn, args, device)."""
+    return _arrays(fn, args, torch.device(device))

@@ -14,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..constants import constant
 from .core import TH_HIGH, TH_LOW
 from .hamming import INVALID_DIST, hamming_table
 
@@ -82,8 +83,8 @@ def match_stereo(xy_l: torch.Tensor, level_l: torch.Tensor, desc_l: torch.Tensor
     win = 2 * SAD_HALF + 1          # 11
     wr = win + 2 * SLIDE            # 21-wide right strip
     L, H0, W0 = slab_l.shape[1:]
-    lh = torch.tensor([d[0] for d in level_dims], dtype=torch.int32, device=dev)[ll]
-    lw = torch.tensor([d[1] for d in level_dims], dtype=torch.int32, device=dev)[ll]
+    lh = constant(tuple(int(d[0]) for d in level_dims), torch.int32, dev)[ll]
+    lw = constant(tuple(int(d[1]) for d in level_dims), torch.int32, dev)[ll]
 
     # .to(int32) truncates toward zero, as the JAX package's astype does
     su = (xy_l[..., 0] * inv_scale[ll]).to(torch.int32)

@@ -23,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from .. import se3, sim3
+from ..constants import constant
 from ..camera import CameraParams
 from .robust import huber_weight
 
@@ -92,7 +93,7 @@ def optimize_sim3(cam: CameraParams,
                                                                 valid))
     dev, f32 = S12_init.device, torch.float32
     args = (p1, p2, uv1, uv2)
-    dof_mask = torch.tensor([1.0] * 6 + [0.0 if fix_scale else 1.0], dtype=f32, device=dev)
+    dof_mask = constant((1.0,) * 6 + (0.0 if fix_scale else 1.0,), f32, dev)
     eye7 = torch.eye(7, dtype=f32, device=dev)
     frozen = torch.diag(1.0 - dof_mask)
 

@@ -20,10 +20,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..constants import constant, from_numpy
 from .brief_pattern import BIT_PATTERN_31
 
 # [512, 2] sample points: pairs interleaved (a0, b0, a1, b1, ...).
 _PATTERN_XY = BIT_PATTERN_31.reshape(512, 2).astype(np.float32)
+
+
+def _pattern_xy() -> np.ndarray:
+    return _PATTERN_XY
 
 
 def pack_bits(samples: torch.Tensor) -> torch.Tensor:
@@ -38,7 +43,7 @@ def pack_bits(samples: torch.Tensor) -> torch.Tensor:
 def rotated_pattern(angle: torch.Tensor):
     """The 512 pattern points rotated by each angle [N] and rounded:
     (rx, ry), [N, 512] each."""
-    pat = torch.from_numpy(_PATTERN_XY).to(angle.device)
+    pat = from_numpy(_pattern_xy, device=angle.device)
     px, py = pat[None, :, 0], pat[None, :, 1]
     ca, sa = torch.cos(angle)[:, None], torch.sin(angle)[:, None]
     return torch.round(px * ca - py * sa), torch.round(px * sa + py * ca)
@@ -50,7 +55,8 @@ def describe_slab(blurred: torch.Tensor, xy: torch.Tensor, level: torch.Tensor,
     slab in one gather: xy [N, 2] slice-local positions, level [N], angle
     [N] radians; sample coordinates clip to each slice's own level_dims."""
     L, h, w = blurred.shape
-    dims = torch.tensor(level_dims, dtype=torch.int64, device=blurred.device)
+    dims = constant(tuple(tuple(int(v) for v in d) for d in level_dims), torch.int64,
+                    blurred.device)
     lv = level.to(torch.int64)
     hs, ws = dims[lv, 0], dims[lv, 1]
     rx, ry = rotated_pattern(angle)

@@ -18,6 +18,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..constants import constant, from_numpy
 from ..indexing import top_k
 
 
@@ -55,10 +56,7 @@ def _top_cells(best: torch.Tensor, x_all: torch.Tensor, y_all: torch.Tensor,
     y = torch.gather(y_all, 1, idx)
 
     dev = best.device
-    g_np, r_np, live_np = _layout(tuple(int(b) for b in budgets), kmax)
-    g = torch.from_numpy(g_np).to(dev)
-    r = torch.from_numpy(r_np).to(dev)
-    live = torch.from_numpy(live_np).to(dev)
+    g, r, live = from_numpy(_layout, tuple(int(b) for b in budgets), kmax, device=dev)
     resp = torch.where(live, top[g, r], 0.0)
     return SlabKeypoints(
         xy=torch.stack([torch.where(live, x[g, r], 0.0),
@@ -71,10 +69,10 @@ def _top_cells(best: torch.Tensor, x_all: torch.Tensor, y_all: torch.Tensor,
 
 @functools.lru_cache(maxsize=8)
 def _border_mask(G: int, H0: int, W0: int, dims: tuple, border: int,
-                 device: str) -> torch.Tensor:
+                 device: torch.device) -> torch.Tensor:
     """[G, H0, W0] bool: inside slice g's own level dims minus `border`,
     built on the device once per shape (cached; callers only read it)."""
-    d = torch.tensor(dims, dtype=torch.int64, device=device)     # [G, 2]
+    d = constant(dims, torch.int64, device)                      # [G, 2]
     rows = torch.arange(H0, device=device)[None, :, None]
     cols = torch.arange(W0, device=device)[None, None, :]
     return ((rows >= border) & (rows < d[:, 0, None, None] - border)
@@ -90,7 +88,7 @@ def select_keypoints_slab(score_hi: torch.Tensor, score_lo: torch.Tensor,
     multiple of the cell."""
     G, H0, W0 = score_hi.shape
     dims = tuple((int(h), int(w)) for h, w in level_dims)
-    mask = _border_mask(G, H0, W0, dims, border, str(score_hi.device))
+    mask = _border_mask(G, H0, W0, dims, border, score_hi.device)
     ph = (-H0) % cell
     pw = (-W0) % cell
     ncy, ncx = (H0 + ph) // cell, (W0 + pw) // cell

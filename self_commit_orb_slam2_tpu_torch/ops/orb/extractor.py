@@ -20,6 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..constants import scale_factors
 from . import brief, detect, fast_band, fast_nms, orientation, pyramid, sample
 
 
@@ -132,7 +133,7 @@ def extract_batch(images: torch.Tensor, config: OrbConfig):
     capL = sum(budgets)
     pad = config.feat_capacity() - capL
     lvl = kps.level % L   # stacked slice index (b*L + l) -> octave
-    scales = torch.from_numpy(config.scale_factors()).to(images.device)
+    scales = scale_factors(config, images.device)
 
     def rs(x):
         x = x.reshape(B, capL, *x.shape[1:])

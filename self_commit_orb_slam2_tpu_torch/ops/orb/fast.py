@@ -93,7 +93,7 @@ def fast_response(image: torch.Tensor, threshold: float) -> torch.Tensor:
     h, w = image.shape[-2:]
     padded = _pad_edge(image, 3)
     p = image
-    t = torch.tensor(threshold, dtype=torch.float32, device=image.device)
+    t = float(threshold)   # a fill of the ops below, never a copy of host data
     hi = p + t
     lo = p - t
     bits_b = torch.zeros(p.shape, dtype=torch.int32, device=p.device)

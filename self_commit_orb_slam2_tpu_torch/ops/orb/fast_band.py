@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ...kernels import CudaKernel, check_launch
+from ..constants import constant
 from .fast_nms import check_thresholds, fast_nms_plain
 
 BAND = 16    # rows per band
@@ -155,8 +156,8 @@ def level_valid_mask(h: int, w: int, H0p: int, dims, border: int, n_levels: int,
     slc = rows // H0p
     row_in = rows - slc * H0p
     lvl = slc % n_levels
-    dims_t = torch.tensor([list(d) for d in dims[:n_levels]], dtype=torch.int64,
-                          device=device)
+    dims_t = constant(tuple(tuple(int(v) for v in d) for d in dims[:n_levels]),
+                      torch.int64, torch.device(device))
     hr = dims_t[lvl, 0]
     wr = dims_t[lvl, 1]
     return ((row_in >= border) & (row_in < hr - border)

@@ -18,6 +18,8 @@ import functools
 import numpy as np
 import torch
 
+from ..constants import from_numpy
+
 HALF_PATCH = 15  # reference HALF_PATCH_SIZE (src/ORBextractor.cc:92)
 
 
@@ -33,12 +35,20 @@ _DX = (np.arange(-HALF_PATCH, HALF_PATCH + 1)[None, :] * _MASK).astype(np.float3
 _DY = (np.arange(-HALF_PATCH, HALF_PATCH + 1)[:, None] * _MASK).astype(np.float32)
 
 
+def _moment_arrays():
+    return _DX, _DY
+
+
+def moment_kernels(device):
+    """The [31, 31] float32 x and y moment kernels on `device`."""
+    return from_numpy(_moment_arrays, device=device)
+
+
 def angle_map(image: torch.Tensor) -> torch.Tensor:
     """Dense orientation map [H, W] in radians for every pixel (zero-padded
     31x31 correlations, as the JAX package's "SAME" convolution)."""
     img4 = image[None, None]
-    kx = torch.from_numpy(_DX).to(image.device)[None, None]
-    ky = torch.from_numpy(_DY).to(image.device)[None, None]
+    kx, ky = (k[None, None] for k in moment_kernels(image.device))
     m10 = torch.nn.functional.conv2d(img4, kx, padding=HALF_PATCH)[0, 0]
     m01 = torch.nn.functional.conv2d(img4, ky, padding=HALF_PATCH)[0, 0]
     return torch.atan2(m01, m10)
@@ -76,10 +86,20 @@ def _moment_map(image: torch.Tensor, kernel_key: str) -> torch.Tensor:
     cols, rows = _separable_factors(kernel_key)
     out = torch.zeros((h, w), dtype=torch.float32, device=image.device)
     for r in range(cols.shape[1]):
-        Bv = torch.from_numpy(_band_matrix(h, tuple(cols[:, r].tolist()))).to(image.device)
-        Bh = torch.from_numpy(_band_matrix(w, tuple(rows[r].tolist()))).to(image.device)
+        Bv = from_numpy(_band_matrix, h, tuple(cols[:, r].tolist()), device=image.device)
+        Bh = from_numpy(_band_matrix, w, tuple(rows[r].tolist()), device=image.device)
         out = out + torch.matmul(torch.matmul(Bv, image), Bh.T)
     return out
+
+
+def _disc_offsets(w: int) -> np.ndarray:
+    """[961] int64 flat offsets of the 31x31 taps in a row of width w."""
+    d = np.arange(-HALF_PATCH, HALF_PATCH + 1)
+    return (d[:, None] * w + d[None, :]).reshape(-1)
+
+
+def _moment_columns() -> np.ndarray:
+    return np.stack([_DX.reshape(-1), _DY.reshape(-1)], axis=-1)
 
 
 def keypoint_angles_slab(slab: torch.Tensor, xy: torch.Tensor,
@@ -90,15 +110,13 @@ def keypoint_angles_slab(slab: torch.Tensor, xy: torch.Tensor,
     of a valid keypoint lands inside its slice; an invalid row's taps are
     clamped to the slab (its angle is never read)."""
     L, h, w = slab.shape
-    d = np.arange(-HALF_PATCH, HALF_PATCH + 1)
-    off = torch.from_numpy((d[:, None] * w + d[None, :]).reshape(-1)).to(slab.device)
+    off = from_numpy(_disc_offsets, w, device=slab.device)
     xi = xy[:, 0].to(torch.int64)
     yi = xy[:, 1].to(torch.int64)
     base = level.to(torch.int64) * (h * w) + yi * w + xi
     lin = torch.clamp(base[:, None] + off[None, :], 0, slab.numel() - 1)
     patches = slab.reshape(-1)[lin]                                 # [N, 961]
-    kern = torch.from_numpy(np.stack([_DX.reshape(-1), _DY.reshape(-1)], axis=-1)).to(
-        slab.device)                                                # [961, 2]
+    kern = from_numpy(_moment_columns, device=slab.device)          # [961, 2]
     m = torch.matmul(patches, kern)
     return torch.atan2(m[:, 1], m[:, 0])
 

@@ -14,6 +14,8 @@ import functools
 import numpy as np
 import torch
 
+from ..constants import from_numpy
+
 
 def level_shapes(height: int, width: int, n_levels: int, scale: float) -> list[tuple[int, int]]:
     shapes = []
@@ -43,8 +45,8 @@ def resize_linear(image: torch.Tensor, shape: tuple[int, int]) -> torch.Tensor:
     """Bilinear resize of [..., H, W] via two banded matmuls."""
     h_in, w_in = image.shape[-2:]
     h_out, w_out = shape
-    Rv = torch.from_numpy(_resize_matrix(h_out, h_in)).to(image.device)
-    Rh = torch.from_numpy(_resize_matrix(w_out, w_in)).to(image.device)
+    Rv = from_numpy(_resize_matrix, h_out, h_in, device=image.device)
+    Rh = from_numpy(_resize_matrix, w_out, w_in, device=image.device)
     return torch.matmul(torch.matmul(Rv, image), Rh.T)
 
 
@@ -85,8 +87,8 @@ def gaussian_blur(image: torch.Tensor, ksize: int = 7, sigma: float = 2.0) -> to
     BORDER_REFLECT_101; edge-replicate here, as in the JAX package: the
     difference stays in the outer 3 px, inside the keypoint border)."""
     h, w = image.shape[-2:]
-    Bv = torch.from_numpy(_blur_matrix(h, ksize, sigma)).to(image.device)
-    Bh = torch.from_numpy(_blur_matrix(w, ksize, sigma)).to(image.device)
+    Bv = from_numpy(_blur_matrix, h, ksize, sigma, device=image.device)
+    Bh = from_numpy(_blur_matrix, w, ksize, sigma, device=image.device)
     return torch.matmul(torch.matmul(Bv, image), Bh.T)
 
 

@@ -19,8 +19,9 @@ import functools
 import numpy as np
 import torch
 
+from ..constants import from_numpy
 from .brief import pack_bits, rotated_pattern
-from .orientation import _DX, _DY, HALF_PATCH
+from .orientation import HALF_PATCH, moment_kernels
 
 PATCH = 48
 
@@ -76,7 +77,7 @@ def orient_and_describe(slab: torch.Tensor, xy: torch.Tensor,
     colidx = x0[:, None] + iota[None, :]
     raw = slab.reshape(L * H0, W0)[rowidx[:, :, None], colidx[:, None, :]]
 
-    Bm = torch.from_numpy(_patch_blur_matrix(ps)).to(dev)
+    Bm = from_numpy(_patch_blur_matrix, ps, device=dev)
     blur = torch.matmul(torch.matmul(Bm, raw), Bm.T)
 
     # orientation: 31x31 disc moments from the raw patch
@@ -85,8 +86,9 @@ def orient_and_describe(slab: torch.Tensor, xy: torch.Tensor,
     ox = (xi - x0)[:, None] + d[None, :]
     p31 = _gather_patch(raw, oy[:, :, None].expand(N, 31, 31),
                         ox[:, None, :].expand(N, 31, 31))
-    m10 = torch.sum(p31 * torch.from_numpy(_DX).to(dev), dim=(1, 2))
-    m01 = torch.sum(p31 * torch.from_numpy(_DY).to(dev), dim=(1, 2))
+    kx, ky = moment_kernels(dev)
+    m10 = torch.sum(p31 * kx, dim=(1, 2))
+    m01 = torch.sum(p31 * ky, dim=(1, 2))
     angle = torch.atan2(m01, m10)
 
     # rotated BRIEF from the blurred patch

@@ -21,10 +21,18 @@ from . import se3
 _EPS = 1e-8
 
 
+def _scales(s, like: torch.Tensor, shape) -> torch.Tensor:
+    """s (a tensor, or a Python number as a device fill, never a copy of
+    host data) as `like`'s dtype on its device, expanded to `shape`."""
+    if torch.is_tensor(s):
+        return s.to(dtype=like.dtype, device=like.device).expand(shape)
+    return like.new_full(tuple(shape), float(s))
+
+
 def make(R: torch.Tensor, t: torch.Tensor, s) -> torch.Tensor:
     """Pack rotation [..., 3, 3], translation [..., 3], scale [...] -> [..., 8]."""
     q = se3.rot_to_quat(R)
-    s = torch.as_tensor(s, dtype=R.dtype, device=R.device).expand(q.shape[:-1])
+    s = _scales(s, R, q.shape[:-1])
     return torch.cat([q, t.expand(*q.shape[:-1], 3), s[..., None]], dim=-1)
 
 
@@ -50,8 +58,7 @@ def to_matrix(S: torch.Tensor) -> torch.Tensor:
 
 
 def from_se3(T: torch.Tensor, s=1.0) -> torch.Tensor:
-    return make(T[..., :3, :3], T[..., :3, 3],
-                torch.as_tensor(s, dtype=T.dtype, device=T.device).expand(T.shape[:-2]))
+    return make(T[..., :3, :3], T[..., :3, 3], _scales(s, T, T.shape[:-2]))
 
 
 def to_se3(S: torch.Tensor) -> torch.Tensor:

@@ -7,12 +7,14 @@ Runs a port path (the bench's capacities, chunk 4, loop closing off) on
 generate_sequence frames: path 1 (RGB-D 640x480, 1000 features, 16-px cells,
 mapping off) by default, path 2 (8-px cells, mapping on) with --path2, path
 4 (a) (stereo at KITTI geometry, 1241x376, 2000 features, mapping on, no
-vocabulary) with --stereo.  The tracking phase runs as the System runs it:
-through the step's CUDA graphs (models/step_graph.py), captured during the
-first chunk; with --eager through pipeline.batch_steps_frames, op by op.
+vocabulary) with --stereo.  The frame phase and the tracking phase run as
+the System runs them: through the CUDA graphs of models/program_graphs.py
+and models/step_graph.py, captured during the first chunk; with --eager op
+by op (frames_*_packed, pipeline.batch_steps_frames).
 Then over `n_chunks` steady chunks (default 2):
-  * host-clock time of the frame phase (frames_rgbd_packed or
-    frames_stereo_packed; with --stereo also of the stereo matcher alone, on
+  * host-clock time of the frame phase (the chunk's upload included;
+    graphed, also the op-by-op frames_*_packed on the same chunk, after the
+    same synchronize; with --stereo also of the stereo matcher alone, on
     the chunk's own features) and the tracking phase, each ending in
     cuda.synchronize, and of the mapping passes inside the tracking phase
     (synced around each pass; graphed, the keyframe graph's replay, which
@@ -89,7 +91,6 @@ def main(n_chunks: int = 2, path2: bool = False, stereo: bool = False,
     sess = slam.open_stream(cfg.sensor, CHUNK)
     sess.feed((images[:1 + CHUNK], second[:1 + CHUNK]), seq.timestamps[:1 + CHUNK])
     torch.cuda.synchronize()
-    frame_phase = sess.frame_fn
     name = "4a" if stereo else 2 if path2 else 1
 
     def chunk_buf(k):
@@ -98,15 +99,21 @@ def main(n_chunks: int = 2, path2: bool = False, stereo: bool = False,
                             list(seq.timestamps[s:s + CHUNK]))
 
     # host-clock phase split
-    frame_s, track_s, match_ms = [], [], []
+    frame_s, track_s, match_ms, eager_frame_s = [], [], [], []
     with pipeline.timed_mapping_passes() as map_s:
         for k in range(n_chunks):
             buf = chunk_buf(k)
             if stereo:
-                match_ms.append(_stereo_match_ms(cfg, buf))
+                match_ms.append(_stereo_match_ms(cfg, torch.from_numpy(buf).cuda()))
+            if slam.step_graph is not None:   # the same chunk op by op, for comparison
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sess.frame_fn(cfg, torch.from_numpy(buf).cuda())
+                torch.cuda.synchronize()
+                eager_frame_s.append(time.perf_counter() - t0)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            frames, ts, valid = frame_phase(cfg, buf)
+            frames, ts, valid = slam._frame_phase(cfg.sensor, buf)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             slam._batch_steps(frames, ts, valid, False)
@@ -120,8 +127,11 @@ def main(n_chunks: int = 2, path2: bool = False, stereo: bool = False,
     mode = "eager" if eager else "graphed"
     sg = slam.step_graph
     if sg is not None:
+        frame_capture_s = sum(p.capture_s for p in sg.frames.programs)
         print(f"path {name}: step graphs captured {sg.captures} time(s) in "
-              f"{sg.capture_s:.2f} s (host clock)")
+              f"{sg.capture_s:.2f} s, the frame phase's in {frame_capture_s:.2f} s (host "
+              f"clock); the frame phase op by op on the same chunks: "
+              f"{np.mean(eager_frame_s) / CHUNK * 1e3:.3f} ms/frame")
     print(f"path {name} ({mode}): frame phase: {np.mean(frame_s) / CHUNK * 1e3:.3f} "
           f"ms/frame, tracking phase: {np.mean(track_s) / CHUNK * 1e3:.3f} ms/frame, of "
           f"which mapping {sum(map_s) / (n_chunks * CHUNK) * 1e3:.3f} ms/frame "
@@ -132,18 +142,19 @@ def main(n_chunks: int = 2, path2: bool = False, stereo: bool = False,
 
     bufs = [chunk_buf(n_chunks + k) for k in range(n_chunks)]
     torch.cuda.synchronize()
-    r0 = sg.replays if sg is not None else 0
+    r0 = (sg.replays + sum(p.replays for p in sg.frames.programs)) if sg is not None else 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for buf in bufs:
-            frames, ts, valid = frame_phase(cfg, buf)
+            frames, ts, valid = slam._frame_phase(cfg.sensor, buf)
             slam._batch_steps(frames, ts, valid, False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
     c = trace_counts(prof, wall)
     n_fr = n_chunks * CHUNK
-    replays = (sg.replays - r0) if sg is not None else 0
+    replays = (sg.replays + sum(p.replays for p in sg.frames.programs) - r0
+               if sg is not None else 0)
     print(f"profiled {n_fr} frames ({mode}): wall {wall * 1e3:.1f} ms, device busy "
           f"{c['busy_ms']:.1f} ms, idle share {c['idle']:.3f}, {c['kernels'] / n_fr:.0f} "
           f"device kernels, {replays / n_fr:.2f} graph replays, {c['syncs'] / n_fr:.2f} host "

@@ -22,6 +22,16 @@ def cuda():
     return torch.device("cuda")
 
 
+def _device_launches(kernel) -> int:
+    """The kernel's launches on the card: its wrapper's count, less the
+    launches a CUDA graph capture only recorded, plus those graph replays
+    made (models/program_graphs.py)."""
+    from self_commit_orb_slam2_tpu_torch.models import program_graphs
+
+    return (kernel.launches - program_graphs.LAUNCHES_AT_CAPTURE[kernel.name]
+            + program_graphs.LAUNCHES_REPLAYED[kernel.name])
+
+
 def _image(kind: str, h: int, w: int) -> np.ndarray:
     """Test images, made with numpy from a seed."""
     rng = np.random.default_rng(0)
@@ -416,7 +426,8 @@ def test_initialize_two_view_on_card_matches_cpu(cuda):
 @pytest.mark.parametrize("sensor", ["stereo", "mono"])
 def test_stereo_and_mono_systems_stream_on_card(cuda, sensor):
     """A short stereo and a short mono run at 320x240 on the card: the band
-    kernel once per extraction call, STATE_OK, a sane trajectory."""
+    kernel once per extraction call (launched eagerly or from a frame-phase
+    replay), STATE_OK, a sane trajectory."""
     from self_commit_orb_slam2_tpu_torch.models import config
     from self_commit_orb_slam2_tpu_torch.models.system import STATE_OK, System
     from self_commit_orb_slam2_tpu_torch.ops.camera import CameraParams
@@ -436,7 +447,7 @@ def test_stereo_and_mono_systems_stream_on_card(cuda, sensor):
         tracking=config.TrackingConfig(max_frames_between_kf=8, kf_ref_ratio_stereo=0.8),
         sensor=sensor)
     slam = System(cfg, enable_loop_closing=False)
-    before = fast_band.kernel.launches
+    before = _device_launches(fast_band.kernel)
     if stereo:
         poses = slam.track_batch_stereo(seq.images, seq.right_images, seq.timestamps)
     else:
@@ -446,7 +457,7 @@ def test_stereo_and_mono_systems_stream_on_card(cuda, sensor):
     assert slam.map.kf_Tcw.device.type == cuda.type
     assert slam.state == STATE_OK and lag <= (0 if stereo else 6)
     assert len(poses) == len(est) - 1
-    assert fast_band.kernel.launches - before == (lag + 1) + -(-len(poses) // 4)
+    assert _device_launches(fast_band.kernel) - before == (lag + 1) + -(-len(poses) // 4)
     assert ate_rmse(est, seq.poses_gt[lag:], with_scale=not stereo) < 0.05
 
 
@@ -788,6 +799,7 @@ def test_warm_start_captures_and_touches_no_state(cuda):
     slam.warm_start()
     sg = slam.step_graph
     assert sg.captures == 1 and sg.replays == 0
+    assert [p.graph is not None for p in sg.frames.programs] == [True]   # the frame phase's
     assert slam.carry is None and slam.trajectory == []
     assert all(torch.equal(a, b) for a, b in zip(map0, slam.map))
     assert all(torch.equal(s, g.get_state()) for s, g in zip(before, gens))
@@ -795,3 +807,118 @@ def test_warm_start_captures_and_touches_no_state(cuda):
     _, est = slam.get_trajectory()
     assert sg.captures == 1 and sg.replays >= 12
     assert slam.state == STATE_OK and ate_rmse(est, seq.poses_gt) < 0.02
+
+
+def test_frame_graph_replays_equal_eager(cuda):
+    """The streamed frame phase through the System's frame-phase graph (the
+    band kernel at 16-px cells, the NMS kernel at 8-px cells, both launched
+    from replays) against frames_rgbd_packed op by op on the same packed
+    chunks: bitwise; each replay makes its capture's one kernel launch."""
+    from self_commit_orb_slam2_tpu_torch.models import pipeline, program_graphs
+    from self_commit_orb_slam2_tpu_torch.models.system import System
+
+    cfg, seq, _ = _graph_setup(cuda, n_frames=12)
+    for cell, kernel in ((16, fast_band.kernel), (8, fast_nms.kernel)):
+        c = cfg._replace(orb=cfg.orb._replace(cell_size=cell))
+        slam = System(c, enable_loop_closing=False)
+        program_graphs.LAUNCHES_REPLAYED.clear()
+        for k in range(3):
+            sl = slice(4 * k, 4 * k + 4)
+            host = pipeline.pack_rgbd_chunk(
+                np.clip(seq.images[sl], 0, 255).astype(np.uint8),
+                np.clip(seq.depths[sl] * 1e3, 0, 65535).astype(np.uint16),
+                seq.timestamps[sl].astype(np.float32), np.ones(4, bool))
+            want = pipeline.frames_rgbd_packed(slam.config, torch.from_numpy(host).to(cuda))
+            got = slam._frame_phase("rgbd", host)
+            assert all(torch.equal(a, b) for a, b in zip(
+                torch.utils._pytree.tree_leaves(got), torch.utils._pytree.tree_leaves(want))), k
+        prog, = slam.step_graph.frames.programs
+        assert prog.graph is not None and prog.replays == 2
+        assert prog.per_replay == {kernel.name: 1}
+        assert program_graphs.LAUNCHES_REPLAYED[kernel.name] == 2
+
+
+def _loop_state(cuda):
+    from self_commit_orb_slam2_tpu_torch.models import map_state as ms
+
+    slam = _loop_world(cuda)
+    return slam, slam.map, int(ms.latest_kf(slam.map))
+
+
+def test_closer_graphs_replay_equal_eager_from_cloned_states(cuda):
+    """Loop detection and correction through the System's closer graphs
+    against the same calls op by op, from one loop state: three detections
+    from one generator state (the graph's registered generator, an eager
+    copy of its state) bitwise; corrections with poses within 1e-3 and
+    points within 2e-3 m + 1e-3 relative (index_add_ sums in no fixed order
+    on the card), observations equal on >= 99.9%."""
+    from self_commit_orb_slam2_tpu_torch.models import loop_closing
+
+    slam, m, kf = _loop_state(cuda)
+    cfg, cg, gen = slam.config, slam.step_graph.closer, slam._loop_gen
+    kf_t = torch.tensor(kf, dtype=torch.int32, device=cuda)
+    ge = torch.Generator(device=cuda)
+    ge.set_state(gen.get_state())
+    for i in range(3):
+        want = loop_closing.detect_and_verify(cfg, _clone_tree(m), kf_t, ge)
+        got = cg.detect(m, kf, gen)
+        assert all(torch.equal(a, b) for a, b in zip(want, got)), i
+    assert cg.detect_program.graph is not None and cg.detect_program.replays >= 2
+    assert torch.equal(ge.get_state(), gen.get_state())
+    det = got
+    for i in range(2):
+        want = loop_closing.correct_loop(cfg, _clone_tree(m), kf_t, det)
+        got = cg.correct(m, kf, det)
+        assert torch.allclose(got.kf_Tcw, want.kf_Tcw, atol=1e-3), i
+        assert torch.allclose(got.pt_pos, want.pt_pos, atol=2e-3, rtol=1e-3), i
+        assert (got.kf_obs_pt == want.kf_obs_pt).float().mean() >= 0.999, i
+    assert cg.correct_program.graph is not None
+
+
+def test_detect_and_correct_run_without_a_sync(cuda):
+    """detect_and_verify (drawing its minimal sets on the card),
+    correct_loop and the frame phase op by op on the card under
+    torch.cuda.set_sync_debug_mode("error"): no operation in them waits for
+    the card."""
+    from self_commit_orb_slam2_tpu_torch.models import loop_closing, pipeline
+
+    slam, m, kf = _loop_state(cuda)
+    cfg = slam.config
+    kf_t = torch.tensor(kf, dtype=torch.int32, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    det = loop_closing.detect_and_verify(cfg, m, kf_t, gen)
+    seq_images = np.zeros((4, 240, 320), np.uint8)
+    host = pipeline.pack_rgbd_chunk(seq_images, np.zeros((4, 240, 320), np.uint16),
+                                    np.zeros(4, np.float32), np.ones(4, bool))
+    buf = torch.from_numpy(host).to(cuda)
+    pipeline.frames_rgbd_packed(cfg, buf)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loop_closing.detect_and_verify(cfg, m, kf_t, gen)
+        m2 = loop_closing.correct_loop(cfg, m, kf_t, det)
+        pipeline.frames_rgbd_packed(cfg, buf)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(m2.n_loop) == int(m.n_loop) + 1
+
+
+def test_warm_start_captures_the_closer_graphs_and_touches_no_state(cuda):
+    """With the vocabulary (loop closing on), warm_start also captures the
+    closer's detection and correction graphs on a throwaway copy: the map
+    and every generator of the engine are untouched, and the first real
+    detection replays."""
+    from self_commit_orb_slam2_tpu_torch.models.system import System
+
+    slam = System(_loop_config())
+    gens = (slam._stream_gen, slam._reloc_gen, slam._mono_gen, slam._loop_gen)
+    before = [g.get_state() for g in gens]
+    map0 = _clone_tree(slam.map)
+    slam.warm_start()
+    cg = slam.step_graph.closer
+    assert cg.detect_program.graph is not None and cg.correct_program.graph is not None
+    assert cg.detect_program.replays == 0 and cg.correct_program.replays == 0
+    assert cg.detect_program.generator is slam._loop_gen
+    assert slam.carry is None and slam.trajectory == []
+    assert all(torch.equal(a, b) for a, b in zip(map0, slam.map))
+    assert all(torch.equal(s, g.get_state()) for s, g in zip(before, gens))
