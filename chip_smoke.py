@@ -37,17 +37,29 @@ Phases (any failure exits non-zero and prints no result):
   5. vocabulary: the bundled vocabulary (k=10, L=6) is loaded and moved to
      the card; transform + sparse_bow of one extracted frame on the card must
      equal the same calls on the CPU (words, nodes, ids exactly; weights
-     within 1e-6); ms per call; the three batched eigh calls of a
-     relocalization, timed;
+     within 1e-6); ms per call; the three batched symmetric eigenproblems of
+     a relocalization by the port's float64 Jacobi sweeps, op by op and from
+     a CUDA graph, beside torch.linalg.eigh (the library call) on the same
+     inputs;
   6. path 3: one System with the vocabulary, 16-px cells, local mapping on,
      with the launch, mapping-pass and relocalization counts set to 0 before:
        a. 1 + 40 frames streamed: STATE_OK, >= 2 keyframes, ATE < 0.01 m, a
           BoW row and node ids in every keyframe, no relocalization attempt;
        b. one batch of 3 blank frames, frame 20 three times, frame 21 twice:
-          recovers inside the batch, within 0.05 m of its own estimate;
-       c. per frame: 3 blank frames (LOST), then frame 24 until it recovers;
-       d. localization mode over frames 25 to 40: STATE_OK throughout, no
-          keyframe and no point added, within 0.05 m of the estimates of (a);
+          recovers inside the batch, within 0.05 m of its own estimate, one
+          replay of the lost graph per relocalization;
+       c. per frame: 3 blank frames (LOST), then frame 24 until it recovers,
+          through the lost graph and the relocalization graph;
+          then one relocalization from one state, op by op against the
+          relocalization graph: the same success, Tcw bitwise (else within
+          1e-5), inliers within 2, ms a call each, 0 host syncs in a replay;
+       d. localization mode over frames 25 to 40 through the loc_core graph
+          (captured by activate_localization_mode), then the same frames op
+          by op from the same state: STATE_OK throughout, no keyframe and no
+          point added, the map unchanged, poses bitwise (else within 1e-5),
+          within 0.05 m of the estimates of (a), ms a frame each way;
+       d'. a kidnap inside localization mode: 3 blank frames, then mapped
+          frames until it recovers through loc_lost, within 0.05 m;
        e. save_map, load_map into a second System: every field equal.
   7. the band kernel at the stereo paths' slab shapes (first pair 16 slices,
      chunk 64 slices, of 384x1241 and of 480x752): bitwise against the plain
@@ -130,10 +142,13 @@ Phases (any failure exits non-zero and prints no result):
           map's not above; the pose graph's and the BA's ms, peak memory;
        c. FleetTracker serving 4 RGB-D streams (generate_sequence seeds 5 to
           8, 1 + 24 frames each, 640x480, 1000 features, the bench's
-          capacities, chunks of 4): each STATE_OK with ATE < 0.01 m, stream 0
+          capacities, chunks of 4), through its per-stream graph runners and
+          op by op in one call: each STATE_OK with ATE < 0.01 m, stream 0
           within 5e-2 of a solo System on its frames, B1 once per stream per
-          extraction call; frames/s per stream and for the fleet; then
-          initialize_localization of 2 streams on path 3's saved map;
+          extraction call; frames/s per stream and for the fleet each way;
+          then initialize_localization of 2 streams on path 3's saved map and
+          2 chunks of localization mode (loc_core replays), graphed and op by
+          op: every pose within 0.05 m;
        d. NCCL at a world of one rank (hosts.initialize over a file://
           rendezvous): the distributed BA and pose graph at
           __graft_entry__.py's shapes equal the same calls with no process
@@ -662,7 +677,7 @@ def phase_graph(label, cfg, sensor, arrays, ts, mapping):
     chunks, frame = _frame_phase_graphed_vs_eager(label, slam, sess, hosts)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sg.capture(slam.map, slam.carry, chunks[0][0].select(0), mapping)
+    sg.capture(slam.map, slam.carry, chunks[0][0].select(0), mapping, slam._stream_gen)
     capture_s = time.perf_counter() - t0
 
     def run(c, graphed):
@@ -723,7 +738,8 @@ def phase_graph(label, cfg, sensor, arrays, ts, mapping):
               f"device kernels, {per[g]['replays']:.0f} graph replays, {per[g]['syncs']:.0f} host "
               f"syncs, {per[g]['memcpy']:.0f} cudaMemcpy calls, idle share {t['idle']:.3f} "
               f"(device busy {t['busy_ms']:.2f} ms, under the profiler)")
-    print(f"[{label} graphs] capture {capture_s:.2f} s (warm-up x2 + both graphs); graphed "
+    print(f"[{label} graphs] capture {capture_s:.2f} s (warm-up x2 + the SLAM-mode graphs: "
+          f"{sorted(sg._graphs)}); graphed "
           f"against eager over {n_timed + 1} frames from the same states: bitwise "
           f"{worst['bitwise']}, worst pose {worst['pose']:.3e}, worst inliers "
           f"{worst['inliers']}; {int(slam.map.kf_valid.sum())} keyframes; the phase took "
@@ -848,17 +864,62 @@ def phase_vocabulary(seq):
     ms_s = _event_time_ms(lambda: bow.sparse_bow(on_card, words_c, T))
     print(f"[vocabulary] transform {ms_t:.3f} ms + sparse_bow {ms_s:.3f} ms per call at "
           f"{frame.capacity} descriptors (CUDA events, after a warm-up)")
-    # the three batched eigh calls of one relocalization (5 candidates x 256 sets)
+    eig = _eigensolvers()
+    return vocab, ms_t + ms_s, eig
+
+
+def _graph_time_ms(fn, reps: int = 5) -> float:
+    """CUDA-event time per replay of fn captured into a CUDA graph (after a
+    warm-up run on a side stream)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return _event_time_ms(graph.replay, reps)
+
+
+def _eigensolvers():
+    """The three batched symmetric eigenproblems of one relocalization (5
+    candidates x 256 sets): EPnP's [1280, 3, 3] covariances (every
+    eigenpair) and [1280, 12, 12] M'M (the smallest eigenvector), Horn's
+    [1280, 4, 4] (the largest), each by the port's float64 Jacobi sweeps
+    (ops/solvers/jacobi.py) op by op and from a CUDA graph, beside
+    torch.linalg.eigh (the library call, which reads its error code back to
+    the host and so cannot be captured) on the same inputs; and the
+    solver's worst eigenvector against float64 eigh, up to sign."""
+    import torch
+
+    from self_commit_orb_slam2_tpu_torch.ops.solvers import epnp, horn, jacobi
+
+    solvers = {3: lambda a: jacobi.eigh(a, epnp.COV_SWEEPS)[1],
+               12: lambda a: jacobi.extreme_eigenvector(a, epnp.KERNEL_SWEEPS, largest=False),
+               4: horn.top_eigenvector}
     g = torch.Generator(device="cuda").manual_seed(0)
-    eigh_ms = []
-    for n in (3, 12, 4):
+    out = {}
+    for n, solve in solvers.items():
         a = torch.randn(1280, n, n, device="cuda", generator=g)
         sym = a @ a.transpose(1, 2)
-        eigh_ms.append(_event_time_ms(lambda sym=sym: torch.linalg.eigh(sym), reps=5))
-    print(f"[vocabulary] torch.linalg.eigh on the card, library "
-          f"{torch.backends.cuda.preferred_linalg_library()}: [1280, 3, 3] {eigh_ms[0]:.3f} ms, "
-          f"[1280, 12, 12] {eigh_ms[1]:.3f} ms, [1280, 4, 4] {eigh_ms[2]:.3f} ms")
-    return vocab, ms_t + ms_s
+        lib_ms = _event_time_ms(lambda sym=sym: torch.linalg.eigh(sym), reps=5)
+        op_ms = _event_time_ms(lambda sym=sym: solve(sym), reps=5)
+        graph_ms = _graph_time_ms(lambda sym=sym: solve(sym), reps=5)
+        got = solve(sym).double()
+        want = torch.linalg.eigh(sym.double())[1]
+        want = {3: want, 12: want[..., :, 0], 4: want[..., :, -1]}[n]
+        dim = -2 if n == 3 else -1
+        err = float(torch.minimum((got - want).norm(dim=dim), (got + want).norm(dim=dim)).max())
+        out[n] = dict(lib_ms=lib_ms, op_ms=op_ms, graph_ms=graph_ms, err=err)
+        print(f"[vocabulary] [1280, {n}, {n}]: Jacobi (float64) {op_ms:.3f} ms op by op, "
+              f"{graph_ms:.3f} ms from a CUDA graph; torch.linalg.eigh (library "
+              f"{torch.backends.cuda.preferred_linalg_library()}) {lib_ms:.3f} ms (CUDA events, "
+              f"after a warm-up); worst eigenvector against float64 eigh {err:.2e} (fp32 "
+              f"inputs, up to sign)")
+    return out
 
 
 def _centre(T):
@@ -935,22 +996,30 @@ def phase_path3(seq, kernels, vocab):
         counts_ok(n_extract, "(a)")
         launches_a = n_extract
 
-        # (b) kidnapped and returned inside one batch
+        # (b) kidnapped and returned inside one batch, through the lost graph
+        sg = slam.step_graph
+        require(sg is not None and sg.graphed, f"{label}: the System has no CUDA StepGraph")
+        lost0 = sg.part_replays["lost"]
         imgs = np.stack([blank] * 3 + [seq.images[20]] * 3 + [seq.images[21]] * 2)
         deps = np.stack([no_depth] * 3 + [seq.depths[20]] * 3 + [seq.depths[21]] * 2)
         poses = slam.track_batch_rgbd(imgs, deps, np.arange(8) / 30.0 + 10.0, chunk=CHUNK)
         attempts_b, ok_b = relocalization.counts()
         d_b = float(np.linalg.norm(_centre(poses[-3]) - _centre(own[20])))
+        lost_b = sg.part_replays["lost"] - lost0
         print(f"[{label}] (b) batch of 3 blank + 5 mapped frames: state {slam.state}, "
-              f"relocalization attempts {attempts_b}, successes {ok_b}, recovered centre "
-              f"{d_b:.4f} m from the earlier estimate of frame 20")
+              f"relocalization attempts {attempts_b}, successes {ok_b}, lost-graph replays "
+              f"{lost_b}, recovered centre {d_b:.4f} m from the earlier estimate of frame 20")
         require(slam.state == STATE_OK, f"{label} (b): not recovered inside the batch")
         require(attempts_b >= 1 and ok_b >= 1, f"{label} (b): no relocalization success")
+        require(lost_b == attempts_b, f"{label} (b): {lost_b} lost-graph replays for "
+                f"{attempts_b} relocalizations")
         require(d_b < 0.05, f"{label} (b): recovered {d_b:.4f} m away")
         n_extract += 2
         counts_ok(n_extract, "(b)")
 
-        # (c) kidnapped and returned with per-frame calls
+        # (c) kidnapped and returned with per-frame calls: the lost graph in
+        # the step, then the relocalization graph on the host's retry
+        lost0 = sg.part_replays["lost"]
         for j in range(3):
             slam.track_rgbd(blank, no_depth, 20.0 + j)
             n_extract += 1
@@ -962,47 +1031,131 @@ def phase_path3(seq, kernels, vocab):
                 break
         attempts_c, ok_c = relocalization.counts()
         d_c = float(np.linalg.norm(_centre(T) - _centre(own[24])))
+        prog = sg.reloc.program
         print(f"[{label}] (c) per frame, 3 blank then frame 24: state {slam.state} after "
               f"{j + 1} tries, attempts {attempts_c - attempts_b}, successes {ok_c - ok_b}, "
-              f"recovered centre {d_c:.4f} m from the earlier estimate")
+              f"lost-graph replays {sg.part_replays['lost'] - lost0}, relocalization-graph "
+              f"replays {prog.replays if prog else 0}, recovered centre {d_c:.4f} m from the "
+              "earlier estimate")
         require(slam.state == STATE_OK, f"{label} (c): not recovered")
         require(ok_c - ok_b >= 1, f"{label} (c): no relocalization success")
+        require(sg.part_replays["lost"] - lost0 >= 3 and prog is not None
+                and prog.graph is not None and prog.replays >= 2,
+                f"{label} (c): the kidnap did not go through the lost and relocalization graphs")
         require(d_c < 0.05, f"{label} (c): recovered {d_c:.4f} m away")
         counts_ok(n_extract, "(c)")
 
-        # one relocalization, timed (host clock, synced both sides)
-        gen = torch.Generator(device="cuda").manual_seed(1)
-        reloc_s = []
+        # one relocalization from one state, op by op against the System's
+        # relocalization graph (host clock, synced both sides)
+        frame_r = slam.carry.last_frame
+        gen = slam._reloc_gen
+        ge = torch.Generator(device="cuda")
+        ge.set_state(gen.get_state())
+        reloc_s, outs = {False: [], True: []}, {False: [], True: []}
         for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            r = relocalization.relocalize(slam.config, slam.map, slam.carry.last_frame, gen)
-            torch.cuda.synchronize()
-            reloc_s.append(time.perf_counter() - t0)
-            require(bool(r.success), f"{label}: the timed relocalization failed")
-        reloc_ms = float(np.median(reloc_s)) * 1e3
+            for graphed in (False, True):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs[graphed].append(
+                    sg.reloc.relocalize(slam.map, frame_r, gen) if graphed
+                    else relocalization.relocalize(slam.config, slam.map, frame_r, ge))
+                torch.cuda.synchronize()
+                reloc_s[graphed].append(time.perf_counter() - t0)
+        worst_T, worst_inl, reloc_bitwise = 0.0, 0, True
+        for e, g in zip(outs[False], outs[True]):
+            require(bool(e.success) and bool(g.success), f"{label}: a timed relocalization failed")
+            reloc_bitwise = reloc_bitwise and _same_tensors(e, g)
+            worst_T = max(worst_T, float((e.Tcw - g.Tcw).abs().max()))
+            worst_inl = max(worst_inl, abs(int(e.n_inliers) - int(g.n_inliers)))
+        _, syncs_r = _count_syncs(lambda: sg.reloc.relocalize(slam.map, frame_r, gen))
+        reloc_ms = {g: float(np.median(v)) * 1e3 for g, v in reloc_s.items()}
         attempts_t, _ = relocalization.counts()
-        print(f"[{label}] one relocalization of a mapped frame: {reloc_ms:.1f} ms (median of "
-              f"3, host clock, synced both sides; {int(r.n_inliers)} inliers)")
+        print(f"[{label}] one relocalization of a mapped frame from one state: op by op "
+              f"{reloc_ms[False]:.1f} ms, graphed {reloc_ms[True]:.1f} ms (median of 3, host "
+              f"clock, synced both sides; {int(outs[True][0].n_inliers)} inliers); bitwise "
+              f"{reloc_bitwise}, worst Tcw {worst_T:.2e}, inliers {worst_inl}; host syncs in a "
+              f"replay {sum(syncs_r.values())} {dict(syncs_r)} (sync debug mode)")
+        require(reloc_bitwise or (worst_T <= GRAPH_POSE_TOL and worst_inl <= GRAPH_INLIER_TOL),
+                f"{label}: the relocalization graph differs from op by op: Tcw {worst_T:.2e}, "
+                f"inliers {worst_inl}")
+        require(sum(syncs_r.values()) == 0,
+                f"{label}: the relocalization graph made host syncs {dict(syncs_r)}")
 
-        # (d) localization mode
-        slam.activate_localization_mode()
+        # (d) localization mode through the graphs, then the same frames op by
+        # op on the state before them
+        before = (_clone_state(slam.map), _clone_state(slam.carry), slam.state,
+                  slam._stream_gen.get_state(), slam._reloc_gen.get_state())
         n_kf_d, n_pt_d, n_pass_d = slam.n_keyframes(), slam.n_points(), len(pass_s)
-        worst = 0.0
-        for i in range(25, n_a):
-            T = slam.track_rgbd(seq.images[i], seq.depths[i], 30.0 + i / 30.0)
-            n_extract += 1
-            require(slam.state == STATE_OK, f"{label} (d): lost at frame {i}")
-            worst = max(worst, float(np.linalg.norm(_centre(T) - _centre(own[i]))))
+        t0 = time.perf_counter()
+        slam.activate_localization_mode()     # captures loc_core and loc_lost
+        torch.cuda.synchronize()
+        loc_capture_s = time.perf_counter() - t0
+        loc = {}
+        for graphed in (True, False):
+            if not graphed:
+                slam.step_graph = None
+                slam.map, slam.carry, slam.state = before[:3]
+                slam._stream_gen.set_state(before[3])
+                slam._reloc_gen.set_state(before[4])
+            poses_d, secs = [], []
+            for i in range(25, n_a):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                poses_d.append(slam.track_rgbd(seq.images[i], seq.depths[i], 30.0 + i / 30.0))
+                secs.append(time.perf_counter() - t0)
+                n_extract += 1
+                require(slam.state == STATE_OK, f"{label} (d): lost at frame {i}")
+            loc[graphed] = (np.stack(poses_d), float(np.median(secs)) * 1e3)
+            if graphed:
+                require(_same_tensors(slam.map, before[0]), f"{label} (d): the map changed")
+        slam.step_graph = sg
         attempts_d, ok_d = relocalization.counts()
+        worst = max(float(np.linalg.norm(_centre(T) - _centre(own[i])))
+                    for i, T in zip(range(25, n_a), loc[True][0]))
+        d_pose = float(np.abs(loc[True][0] - loc[False][0]).max())
+        loc_bitwise = bool(np.array_equal(loc[True][0], loc[False][0]))
+        loc_ms = {g: loc[g][1] for g in loc}
         print(f"[{label}] (d) localization mode, frames 25 to {n_a - 1}: state {slam.state}, "
               f"keyframes added {slam.n_keyframes() - n_kf_d}, points added "
               f"{slam.n_points() - n_pt_d}, worst centre {worst:.4f} m from the estimates of "
-              f"(a), relocalization attempts {attempts_d - attempts_t}")
+              f"(a), relocalization attempts {attempts_d - attempts_t}; graphed (loc_core "
+              f"replays {sg.part_replays['loc_core']}, capture {loc_capture_s:.2f} s) against op "
+              f"by op: poses bitwise {loc_bitwise}, worst {d_pose:.2e}; ms a frame (track_rgbd, "
+              f"host clock, synced, median) graphed {loc_ms[True]:.1f}, op by op "
+              f"{loc_ms[False]:.1f}")
         require(slam.n_keyframes() == n_kf_d and slam.n_points() == n_pt_d
                 and len(pass_s) == n_pass_d, f"{label} (d): the map changed")
+        require(sg.part_replays["loc_core"] >= n_a - 25,
+                f"{label} (d): localization mode did not go through the graphs")
+        require(loc_bitwise or d_pose <= GRAPH_POSE_TOL,
+                f"{label} (d): graphed poses {d_pose:.2e} from op by op")
         require(worst < 0.05, f"{label} (d): {worst:.4f} m from the estimates of (a)")
         counts_ok(n_extract, "(d)")
+
+        # (d') a kidnap inside localization mode, through loc_lost
+        loc_lost0 = sg.part_replays["loc_lost"]
+        for j in range(3):
+            slam.track_rgbd(blank, no_depth, 40.0 + j)
+            n_extract += 1
+        require(slam.state == STATE_LOST, f"{label} (d'): blank frames did not lose tracking")
+        for j, i in enumerate((32, 33, 34)):
+            T = slam.track_rgbd(seq.images[i], seq.depths[i], 41.0 + j)
+            n_extract += 1
+            if slam.state == STATE_OK:
+                break
+        d_k = float(np.linalg.norm(_centre(T) - _centre(own[i])))
+        print(f"[{label}] (d') localization mode, 3 blank frames then frame {i}: state "
+              f"{slam.state} after {j + 1} tries, loc_lost replays "
+              f"{sg.part_replays['loc_lost'] - loc_lost0}, recovered centre {d_k:.4f} m from the "
+              f"earlier estimate; keyframes added {slam.n_keyframes() - n_kf_d}")
+        require(slam.state == STATE_OK and d_k < 0.05,
+                f"{label} (d'): not recovered within 0.05 m ({d_k:.4f} m)")
+        require(sg.part_replays["loc_lost"] - loc_lost0 >= 4,
+                f"{label} (d'): the kidnap did not go through loc_lost")
+        require(slam.n_keyframes() == n_kf_d and slam.n_points() == n_pt_d,
+                f"{label} (d'): the map changed")
+        counts_ok(n_extract, "(d')")
+        attempts_d, ok_d = relocalization.counts()
         slam.deactivate_localization_mode()
 
     # (e) checkpoint round trip into a second System
@@ -1022,8 +1175,9 @@ def phase_path3(seq, kernels, vocab):
             f"{label} (e): the loaded System is not LOST on the card")
     print(f"[{label}] counts: fast_band launches {n_extract} ({launches_a} in (a)), fast_nms 0; "
           f"mapping passes {len(pass_s)}; relocalization attempts {attempts_d}, "
-          f"successes {ok_d} (the 3 timed calls included)")
-    return n_extract, fps, ate, reloc_ms, other.map
+          f"successes {ok_d} (the 7 timed and counted calls included)")
+    return n_extract, fps, ate, dict(reloc_ms=reloc_ms, reloc_syncs=sum(syncs_r.values()),
+                                     loc_ms=loc_ms), other.map
 
 
 def _u8(images) -> np.ndarray:
@@ -2373,22 +2527,15 @@ def phase_path8b(cfg, m, workdir):
                 peak=max(p for v in timed.values() for _, p in v), before=before, after=after)
 
 
-def phase_path8c(fleet_seqs, kernels, seq, cfg3, map3):
-    """FleetTracker serving N_FLEET RGB-D streams on the card at the bench's
-    operating point (world 1: every stream on this rank), against a solo
-    System on stream 0's frames; then 2 localization streams on path 3's
-    saved map."""
+def _fleet_stream(fleet, fleet_seqs, graphed: bool):
+    """One FleetTracker run over the N_FLEET streams (graphed: its runners;
+    else step_graphs = None, op by op): (poses [S, F, 4, 4] with frame 0's
+    identity, seconds in all, seconds after the first chunk, chunks)."""
     import torch
 
-    from self_commit_orb_slam2_tpu_torch.models.system import System
-    from self_commit_orb_slam2_tpu_torch.parallel.fleet import FleetTracker
-    from self_commit_orb_slam2_tpu_torch.utils.evaluation import ate_rmse
-
-    label = "path 8c"
-    cfg = _bench_config()
-    fleet = FleetTracker(cfg, n_streams=N_FLEET)
+    if not graphed:
+        fleet.step_graphs = None
     arr = lambda f, sl: np.stack([getattr(q, f)[sl] for q in fleet_seqs])  # noqa: E731
-    _reset_launches(kernels)
     t0 = time.perf_counter()
     fleet.initialize(arr("images", 0), arr("depths", 0), arr("timestamps", 0))
     torch.cuda.synchronize()
@@ -2400,59 +2547,127 @@ def phase_path8c(fleet_seqs, kernels, seq, cfg3, map3):
                                        arr("timestamps", sl)))
         chunk_s.append(time.perf_counter() - t1)
     total_s = time.perf_counter() - t0
-    launches = _launches(kernels)
-    poses = np.concatenate(poses, axis=1)
     est = np.concatenate([np.broadcast_to(np.eye(4, dtype=np.float32), (N_FLEET, 1, 4, 4)),
-                          poses], axis=1)
-    ates = [float(ate_rmse(est[s], q.poses_gt)) for s, q in enumerate(fleet_seqs)]
-    steady = sum(chunk_s[1:])
-    n_steady = N_FLEET_FRAMES - 1 - CHUNK
-    print(f"[{label}] FleetTracker, {N_FLEET} RGB-D streams {WIDTH}x{HEIGHT}, {N_FEATURES} "
-          f"features, capacities {cfg.caps.max_keyframes} / {cfg.caps.max_points}, mapping on, "
-          f"world 1 (every stream on this rank), 1 + {N_FLEET_FRAMES - 1} frames each in chunks "
-          f"of {CHUNK}: state_ok {fleet.state_ok.tolist()}, keyframes "
-          f"{fleet.n_keyframes().tolist()}, ATE {[round(a, 6) for a in ates]} m; launches "
-          f"{launches}")
-    print(f"[{label}] {total_s:.3f} s in all: {N_FLEET_FRAMES / total_s:.2f} frames/s per "
-          f"stream, {N_FLEET * N_FLEET_FRAMES / total_s:.2f} for the fleet; steady (after the "
-          f"first chunk) {n_steady / steady:.2f} per stream, {N_FLEET * n_steady / steady:.2f} "
-          "for the fleet (host clock, track_chunk returns the poses on the host)")
-    want = N_FLEET * (1 + len(chunk_s))
-    require(launches == {"fast_band": want, "fast_nms": 0},
-            f"{label}: launches {launches}, want fast_band {want} (once per stream per "
-            "extraction call), fast_nms 0")
-    require(fleet.state_ok.all(), f"{label}: a stream lost tracking")
-    require(max(ates) < ATE_LIMIT_M, f"{label}: ATE {ates}")
+                          np.concatenate(poses, axis=1)], axis=1)
+    return est, total_s, sum(chunk_s[1:]), len(chunk_s)
+
+
+def phase_path8c(fleet_seqs, kernels, seq, cfg3, map3):
+    """FleetTracker serving N_FLEET RGB-D streams on the card at the bench's
+    operating point (world 1: every stream on this rank), through its
+    per-stream runners (step graphs and frame-phase graphs) and op by op in
+    one call, against a solo System on stream 0's frames; then 2
+    localization streams on path 3's saved map, brought up by
+    initialize_localization and tracked for 2 chunks in localization mode,
+    graphed and op by op."""
+    import torch
+
+    from self_commit_orb_slam2_tpu_torch.models.system import System
+    from self_commit_orb_slam2_tpu_torch.parallel.fleet import FleetTracker
+    from self_commit_orb_slam2_tpu_torch.utils.evaluation import ate_rmse
+
+    label = "path 8c"
+    cfg = _bench_config()
+    runs, n_launch = {}, 0
+    for graphed in (True, False):
+        fleet = FleetTracker(cfg, n_streams=N_FLEET)
+        _reset_launches(kernels)
+        est, total_s, steady, n_chunks = _fleet_stream(fleet, fleet_seqs, graphed)
+        launches = _launches(kernels)
+        ates = [float(ate_rmse(est[s], q.poses_gt)) for s, q in enumerate(fleet_seqs)]
+        n_steady = N_FLEET_FRAMES - 1 - CHUNK
+        r = dict(est=est, ates=ates, fps_stream=N_FLEET_FRAMES / total_s,
+                 fps_fleet=N_FLEET * N_FLEET_FRAMES / total_s, steady_stream=n_steady / steady,
+                 steady_fleet=N_FLEET * n_steady / steady)
+        replays = (sum(sg.replays for sg in fleet.step_graphs) if graphed else 0)
+        way = "graphed" if graphed else "op by op"
+        print(f"[{label}] FleetTracker {way}, {N_FLEET} RGB-D streams {WIDTH}x{HEIGHT}, "
+              f"{N_FEATURES} features, capacities {cfg.caps.max_keyframes} / "
+              f"{cfg.caps.max_points}, mapping on, world 1 (every stream on this rank), 1 + "
+              f"{N_FLEET_FRAMES - 1} frames each in chunks of {CHUNK}: state_ok "
+              f"{fleet.state_ok.tolist()}, keyframes {fleet.n_keyframes().tolist()}, ATE "
+              f"{[round(a, 6) for a in ates]} m; launches {launches}; step-graph replays "
+              f"{replays}")
+        print(f"[{label}] {way}: {total_s:.3f} s in all: {r['fps_stream']:.2f} frames/s per "
+              f"stream, {r['fps_fleet']:.2f} for the fleet; steady (after the first chunk) "
+              f"{r['steady_stream']:.2f} per stream, {r['steady_fleet']:.2f} for the fleet (host "
+              "clock, track_chunk returns the poses on the host)")
+        want = N_FLEET * (1 + n_chunks)
+        n_launch += want
+        require(launches == {"fast_band": want, "fast_nms": 0},
+                f"{label} {way}: launches {launches}, want fast_band {want} (once per stream "
+                "per extraction call), fast_nms 0")
+        require(fleet.state_ok.all(), f"{label} {way}: a stream lost tracking")
+        require(max(ates) < ATE_LIMIT_M, f"{label} {way}: ATE {ates}")
+        require(not graphed or replays >= N_FLEET * (N_FLEET_FRAMES - 1),
+                f"{label}: the fleet's chunks did not replay the step graphs")
+        runs[graphed] = r
+    d_ways = float(np.abs(runs[True]["est"] - runs[False]["est"]).max())
+    print(f"[{label}] graphed against op by op: max |pose difference| {d_ways:.2e}")
 
     solo = System(cfg, enable_loop_closing=False)
     q = fleet_seqs[0]
     solo.track_batch_rgbd(q.images, q.depths, q.timestamps)
     _, est_solo = solo.get_trajectory()
     n = min(len(est_solo), N_FLEET_FRAMES)
-    diff = float(np.abs(est_solo[:n] - est[0, :n]).max())
-    print(f"[{label}] stream 0 against a solo System(cfg, enable_loop_closing=False) on its "
-          f"frames: max |pose difference| {diff:.2e}")
+    diff = float(np.abs(est_solo[:n] - runs[True]["est"][0, :n]).max())
+    print(f"[{label}] stream 0 (graphed) against a solo System(cfg, enable_loop_closing=False) "
+          f"on its frames: max |pose difference| {diff:.2e}")
     require(diff < 5e-2, f"{label}: stream 0 differs from the solo System by {diff}")
 
-    starts = [10, 30]
-    loc = FleetTracker(cfg3, n_streams=2, localization_only=True)
-    t1 = time.perf_counter()
-    ok = loc.initialize_localization(map3, seq.images[starts], seq.depths[starts],
-                                     np.zeros(2, np.float32))
-    torch.cuda.synchronize()
-    loc_ms = (time.perf_counter() - t1) * 1e3
+    starts = np.array([10, 30])
     T0_inv = np.linalg.inv(seq.poses_gt[0])
-    errs = [float(np.linalg.norm(loc.trajectories[i][0][1][:3, 3]
-                                 - (seq.poses_gt[s] @ T0_inv)[:3, 3]))
-            for i, s in enumerate(starts)]
-    print(f"[{label}] initialize_localization of 2 streams (frames {starts}) on path 3's saved "
-          f"map: success {ok.tolist()}, translation within {[round(e, 4) for e in errs]} m of "
-          f"the ground truth, {loc_ms:.1f} ms for both (host clock, synced)")
-    require(ok.all(), f"{label}: localization bring-up failed ({ok.tolist()})")
-    require(max(errs) < 0.05, f"{label}: relocalized {errs} m away")
-    return dict(launches=want, fps_stream=N_FLEET_FRAMES / total_s,
-                fps_fleet=N_FLEET * N_FLEET_FRAMES / total_s, ates=ates,
-                steady_stream=n_steady / steady, steady_fleet=N_FLEET * n_steady / steady)
+    gt_t = lambda i: (seq.poses_gt[i] @ T0_inv)[:3, 3]   # noqa: E731  path 3's map frame
+    loc_runs = {}
+    for graphed in (True, False):
+        way = "graphed" if graphed else "op by op"
+        loc = FleetTracker(cfg3, n_streams=2, localization_only=True)
+        if not graphed:
+            loc.step_graphs = None
+        _reset_launches(kernels)
+        t1 = time.perf_counter()
+        ok = loc.initialize_localization(map3, seq.images[starts], seq.depths[starts],
+                                         np.zeros(2, np.float32))
+        torch.cuda.synchronize()
+        loc_ms = (time.perf_counter() - t1) * 1e3
+        errs = [float(np.linalg.norm(loc.trajectories[i][0][1][:3, 3] - gt_t(s)))
+                for i, s in enumerate(starts)]
+        chunk_s, worst = [], 0.0
+        for lo in (1, 1 + CHUNK):
+            idx = starts[:, None] + np.arange(lo, lo + CHUNK)
+            t1 = time.perf_counter()
+            poses = loc.track_chunk(seq.images[idx], seq.depths[idx], np.zeros(idx.shape))
+            chunk_s.append(time.perf_counter() - t1)
+            worst = max(worst, max(float(np.linalg.norm(poses[i, b][:3, 3] - gt_t(idx[i, b])))
+                                   for i in range(2) for b in range(CHUNK)))
+        launches = _launches(kernels)
+        want = 2 * (1 + len(chunk_s))
+        n_launch += want
+        loc_runs[graphed] = np.stack([np.stack([T for _, T in tr]) for tr in loc.trajectories])
+        replays = sum(sg.part_replays["loc_core"] for sg in loc.step_graphs) if graphed else 0
+        capture_note = ", the graphs' capture included" if graphed else ""
+        print(f"[{label}] localization serving {way}: initialize_localization of 2 streams "
+              f"(frames {starts.tolist()}) on path 3's saved map: success {ok.tolist()}, "
+              f"translation within {[round(e, 4) for e in errs]} m of the ground truth, "
+              f"{loc_ms:.1f} ms for both (host clock, synced{capture_note}); then "
+              f"2 chunks of {CHUNK} in localization mode: worst translation {worst:.4f} m, "
+              f"{2 * CHUNK * 2 / sum(chunk_s):.2f} frames/s for both streams, state_ok "
+              f"{loc.state_ok.tolist()}, loc_core replays {replays}; launches {launches}")
+        require(ok.all(), f"{label} {way}: localization bring-up failed ({ok.tolist()})")
+        require(max(errs) < 0.05 and worst < 0.05,
+                f"{label} {way}: relocalized {errs} m, tracked {worst:.4f} m away")
+        require(loc.state_ok.all(), f"{label} {way}: a localization stream lost tracking")
+        require(launches == {"fast_band": want, "fast_nms": 0},
+                f"{label} {way}: launches {launches}, want fast_band {want}")
+        require(not graphed or replays == 2 * 2 * CHUNK,
+                f"{label}: localization serving did not replay loc_core")
+    d_loc = float(np.abs(loc_runs[True] - loc_runs[False]).max())
+    print(f"[{label}] localization serving graphed against op by op: max |pose difference| "
+          f"{d_loc:.2e}")
+    g, e = runs[True], runs[False]
+    return dict(launches=n_launch, fps_stream=g["fps_stream"], fps_fleet=g["fps_fleet"],
+                ates=g["ates"] + e["ates"], steady_stream=g["steady_stream"],
+                steady_fleet=g["steady_fleet"], eager=e)
 
 
 def _graft_problem(device):
@@ -2865,12 +3080,18 @@ def main() -> int:
             results[own]["launches"] = n
             summary.append(f"{label} {fps:.2f} frames/s, ATE {ate:.6f} m, " + _graph_note(g))
             lap(label)
-        vocab, bow_ms = phase_vocabulary(seq)
-        n3, fps3, ate3, reloc_ms, map3 = phase_path3(seq, kernels, vocab)
+        vocab, bow_ms, eig = phase_vocabulary(seq)
+        n3, fps3, ate3, r3, map3 = phase_path3(seq, kernels, vocab)
         results["fast_band"]["launches_path3"] = n3
         results["fast_nms"]["launches_path3"] = 0
-        summary.append(f"path 3 {fps3:.2f} frames/s, ATE {ate3:.6f} m, BoW of a frame "
-                       f"{bow_ms:.3f} ms, one relocalization {reloc_ms:.1f} ms")
+        summary.append(
+            f"path 3 {fps3:.2f} frames/s, ATE {ate3:.6f} m, BoW of a frame {bow_ms:.3f} ms, one "
+            f"relocalization op by op / graphed {r3['reloc_ms'][False]:.1f} / "
+            f"{r3['reloc_ms'][True]:.1f} ms ({r3['reloc_syncs']} host syncs graphed), a "
+            f"localization-mode frame {r3['loc_ms'][False]:.1f} / {r3['loc_ms'][True]:.1f} ms, "
+            f"Jacobi op by op / graphed / eigh " + ", ".join(
+                f"[1280, {n}, {n}] {e['op_ms']:.3f} / {e['graph_ms']:.3f} / {e['lib_ms']:.3f} ms"
+                for n, e in eig.items()))
         lap("vocabulary and path 3")
 
         t0 = time.perf_counter()
@@ -2955,9 +3176,11 @@ def main() -> int:
             f"GiB, stall {r8a['stall']:.1f} ms; path 8b refine_maps pose graph "
             f"{r8b['pg_ms'][0]:.1f} ms, BA {r8b['ba_ms'][0]:.1f} ms per map, peak "
             f"{r8b['peak'] / 2**30:.3f} GiB, perturbed map {r8b['before'][1]:.4f} -> "
-            f"{r8b['after'][1]:.4f} px^2; path 8c {N_FLEET} streams {r8c['fps_stream']:.2f} "
-            f"frames/s each, {r8c['fps_fleet']:.2f} for the fleet (steady "
-            f"{r8c['steady_stream']:.2f} / {r8c['steady_fleet']:.2f}), ATE max "
+            f"{r8b['after'][1]:.4f} px^2; path 8c {N_FLEET} streams graphed / op by op "
+            f"{r8c['fps_stream']:.2f} / {r8c['eager']['fps_stream']:.2f} frames/s each, "
+            f"{r8c['fps_fleet']:.2f} / {r8c['eager']['fps_fleet']:.2f} for the fleet (steady "
+            f"{r8c['steady_stream']:.2f} / {r8c['eager']['steady_stream']:.2f} and "
+            f"{r8c['steady_fleet']:.2f} / {r8c['eager']['steady_fleet']:.2f}), ATE max "
             f"{max(r8c['ates']):.6f} m; path 8d NCCL world of 1 ok")
         r9a = phase_path9a(seq6, kernels, vocab)
         lap("path 9a")

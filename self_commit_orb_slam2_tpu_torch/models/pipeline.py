@@ -13,11 +13,12 @@ between them.  step_core and keyframe_tail build no tensor from host data
 (ops/constants.py holds the step's constants) and read nothing back, so a
 CUDA System replays each as a captured graph (models/step_graph.py).
 
-Host reads per SLAM-mode frame: one, the flags (the keyframe flag and,
-with a vocabulary, the "wants relocalization" flag, in one transfer).  A
-frame that relocalizes reads once more (the keyframe decision after the
-recovered pose) beside the reads inside relocalize(); a localization-mode
-frame once more, to decide whether local-map tracking runs.
+Host reads per frame: one, the flags (the keyframe flag and, with a
+vocabulary, the "wants relocalization" flag, in one transfer).  A frame
+that relocalizes reads once more (the keyframe decision after the recovered
+pose).  Localization mode (_localization_core) and the LOST branch
+(relocalize_branch) read nothing themselves, so the graphs capture them
+too.
 
 With a vocabulary the LOST branch relocalizes inside the stream (reference
 Tracking.cc:523-629, :2030), drawing its RANSAC sets from a torch.Generator
@@ -211,8 +212,8 @@ def _echo_local_map(config: SlamConfig, m: MapState, res) -> tracking.LocalMapRe
                               dtype=torch.int32, device=dev),
         found_pt_mask=res.obs_pt >= 0,
         ref_kf=ms.latest_kf(m),
-        ref_shared=_scalar(0, torch.int32, dev),
-        ref_total=_scalar(1, torch.int32, dev),
+        ref_shared=torch.zeros((), dtype=torch.int32, device=dev),
+        ref_total=torch.ones((), dtype=torch.int32, device=dev),
     )
 
 
@@ -228,6 +229,8 @@ class StepCore(NamedTuple):
     need_kf: torch.Tensor      # bool: the keyframe decision
     want_reloc: torch.Tensor   # bool: the LOST branch would run
     vo_now: torch.Tensor       # bool: localization-mode map support lost
+    relocated: torch.Tensor    # bool: the LOST branch recovered the pose
+                               # (False before it runs)
 
 
 def _birth(m: MapState, obs_pt: torch.Tensor) -> torch.Tensor:
@@ -276,7 +279,8 @@ def step_core(config: SlamConfig, m: MapState, carry: TrackCarry,
     need_kf = _need_keyframe(config, m, carry, frame, lres) & ok
     vo_now = torch.zeros((), dtype=torch.bool, device=frame.xy.device)
     carry_out, info = _advance(m, carry, frame, lres, ok, need_kf, vo_now)
-    return StepCore(carry_out, info, lres, ok, need_kf, ~ok, vo_now)
+    return StepCore(carry_out, info, lres, ok, need_kf, ~ok, vo_now,
+                    torch.zeros((), dtype=torch.bool, device=frame.xy.device))
 
 
 def _localization_core(config: SlamConfig, m: MapState, carry: TrackCarry,
@@ -286,20 +290,22 @@ def _localization_core(config: SlamConfig, m: MapState, carry: TrackCarry,
     depth (UpdateLastFrame, :1247-1350); carry.vo is the reference's mbVO
     "map support lost" flag; local-map tracking is skipped while map
     support is lost (:648-655), and relocalization runs alongside the VO
-    motion model, its solution preferred (:568-624).  Never a keyframe."""
+    motion model, its solution preferred (:568-624).  Never a keyframe.
+    The JAX package's lax.cond over local-map tracking is a select over
+    both results here, so nothing is read back to the host and a CUDA graph
+    captures it (models/step_graph.py)."""
     res = _motion_hypotheses(tracking.track_motion_loc, config, m, carry, frame)
     ok_mm = res.n_inliers > 20           # loc-mode motion-model return (:1427)
     vo_now = res.n_map_inliers < 10      # mbVO update (:1425-1426)
-    if bool(ok_mm & ~vo_now):            # host branch (lax.cond in JAX)
-        lres = tracking.track_local_map(config, m, frame, res.Tcw, res.obs_pt)
-        ok = lres.n_inliers >= config.tracking.min_inliers_local
-    else:
-        lres = _echo_local_map(config, m, res)
-        ok = ok_mm
-    need_kf = torch.zeros((), dtype=torch.bool, device=frame.xy.device)
+    local = ok_mm & ~vo_now              # local-map tracking runs (:648-655)
+    lres_map = tracking.track_local_map(config, m, frame, res.Tcw, res.obs_pt)
+    lres = select(local, lres_map, _echo_local_map(config, m, res))
+    ok = torch.where(local, lres_map.n_inliers >= config.tracking.min_inliers_local, ok_mm)
+    dev = frame.xy.device
+    need_kf = torch.zeros((), dtype=torch.bool, device=dev)
     carry_out, info = _advance(m, carry, frame, lres, ok, need_kf, vo_now)
     return StepCore(carry_out, info, lres, ok, need_kf, ~ok | carry.vo | ~carry.state_ok,
-                    vo_now)
+                    vo_now, torch.zeros((), dtype=torch.bool, device=dev))
 
 
 def relocalize_branch(config: SlamConfig, m: MapState, carry: TrackCarry,
@@ -310,8 +316,9 @@ def relocalize_branch(config: SlamConfig, m: MapState, carry: TrackCarry,
     whenever LOST, src/Tracking.cc:523-629, :2030): relocalize the frame
     against the map, drawing from `generator`, and redo the keyframe
     decision and the carry from the recovered pose.  `carry` is the carry
-    the step started from."""
-    r = relocalization.relocalize(config, m, frame, generator)
+    the step started from.  Like step_core it reads nothing back to the
+    host; it counts no relocalization (relocalization.record: the callers)."""
+    r = relocalization.relocalize_uncounted(config, m, frame, generator)
     relocated = r.success
     ok = core.ok | relocated
     lres = core.lres._replace(
@@ -320,7 +327,7 @@ def relocalize_branch(config: SlamConfig, m: MapState, carry: TrackCarry,
         n_inliers=torch.where(relocated, r.n_inliers, core.lres.n_inliers))
     need_kf = _need_keyframe(config, m, carry, frame, lres, localization_only) & ok
     carry_out, info = _advance(m, carry, frame, lres, ok, need_kf, core.vo_now, relocated)
-    return StepCore(carry_out, info, lres, ok, need_kf, core.want_reloc, core.vo_now)
+    return StepCore(carry_out, info, lres, ok, need_kf, core.want_reloc, core.vo_now, relocated)
 
 
 def keyframe_tail(config: SlamConfig, m: MapState, carry: TrackCarry, frame: FrameData,
@@ -359,6 +366,7 @@ def track_step(config: SlamConfig, m: MapState, carry: TrackCarry,
         want, make_kf = torch.stack([core.want_reloc, core.need_kf]).tolist()
     if want:
         core = relocalize_branch(config, m, carry, frame, core, generator, localization_only)
+        relocalization.record(core.relocated)
         make_kf = bool(core.need_kf)
     if not make_kf:
         return m, core.carry, core.info

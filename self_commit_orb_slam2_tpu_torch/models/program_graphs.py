@@ -1,10 +1,12 @@
-"""The frame phase, loop detection and loop correction as captured CUDA graphs.
+"""The frame phase, loop detection, loop correction and relocalization as
+captured CUDA graphs.
 
-Counterparts of three more of the JAX package's compiled programs (beside
+Counterparts of four more of the JAX package's compiled programs (beside
 the step, models/step_graph.py): the batched frame phase, one per sensor
 (its System's _frame_fns), loop detection for one keyframe and loop
-correction (its loop closer's _jit_detect and _jit_correct).  Each is a
-Program: a function of static input buffers that
+correction (its loop closer's _jit_detect and _jit_correct), and
+relocalization of one frame (its System's _jit_reloc).  Each is a Program:
+a function of static input buffers that
 
   * at its first run executes eagerly on a side stream (the call's result,
     and the warm-up of the libraries it uses), then is captured into a
@@ -23,7 +25,8 @@ replay; the step graphs' own outputs are read within the step that replays
 them.  No replay therefore overwrites a tensor that is still to be read.
 
 Random draws.  Detection draws its RANSAC sets from the closer's
-torch.Generator.  That generator is registered with the detection graph, so
+torch.Generator, relocalization from the System's.  Each generator is
+registered with its graph, so
 each replay draws from the generator's state at that moment and advances it
 as the eager call would: replay k draws what eager call k draws.  The
 capture itself leaves the generator's state as it found it.
@@ -50,8 +53,9 @@ import torch
 from torch.utils._pytree import tree_leaves, tree_map
 
 from ..ops.orb import fast_band, fast_nms
-from . import loop_closing
+from . import loop_closing, relocalization
 from .config import SlamConfig
+from .frame import FrameData
 from .map_state import MapState
 from .streaming import _SENSORS
 
@@ -299,3 +303,52 @@ class CloserGraphs:
         det = self.detect_program.capture(generator, warm_generator)
         self._load_det(det)
         self.correct_program.capture()
+
+
+def _relocalize(config: SlamConfig, m: MapState, frame: FrameData, generator):
+    return relocalization.relocalize_uncounted(config, m, frame, generator)
+
+
+class RelocGraphs:
+    """relocalization.relocalize as a Program on a static map and a static
+    frame, both copied in before each run (device to device).  Its RANSAC
+    draws come from the generator of its first run, registered with the
+    graph."""
+
+    def __init__(self, config: SlamConfig, device: torch.device, pool):
+        self.config = config
+        self.device = torch.device(device)
+        self._pool = pool
+        self._statics: tuple | None = None   # (map, frame)
+        self.program: Program | None = None
+
+    @property
+    def programs(self) -> list:
+        return [self.program] if self.program is not None else []
+
+    def _load(self, m: MapState, frame: FrameData) -> None:
+        if self._statics is None or not _same_layout(self._statics, (m, frame)):
+            self._statics = (_clone(m), _clone(frame))
+            self.program = Program(functools.partial(_relocalize, self.config), self._statics,
+                                   self.device, self._pool)
+        else:
+            _copy_into(self._statics, (m, frame))
+
+    def relocalize(self, m: MapState, frame: FrameData,
+                   generator: torch.Generator | None) -> relocalization.RelocResult:
+        """relocalization.relocalize(config, m, frame, generator), counted."""
+        self._load(m, frame)
+        res = self.program.run(generator)
+        relocalization.record(res.success)
+        return res
+
+    def capture(self, m: MapState, frame: FrameData, generator: torch.Generator | None,
+                warm_generator: torch.Generator | None) -> None:
+        """Capture the program on (m, frame) (on the card; nothing on the
+        CPU): the eager first run draws from warm_generator and counts
+        nothing; the graph is bound to `generator`, whose state is left as
+        it was."""
+        if self.device.type != "cuda":
+            return
+        self._load(m, frame)
+        self.program.capture(generator, warm_generator)

@@ -19,12 +19,18 @@ src/KeyFrameDatabase.cc:252-374):
     count lands in [30, 50);
   * accept at >= 50 inliers (reference :2218).
 
-The JAX package vmaps one function over the five candidates.  Here the
-matching and refinement loop over the candidates and the RANSAC of all of
-them runs as one batch.  Candidates that retrieval left inactive are skipped
-(they score 0 in the JAX package); reading which are active costs the one
-host sync of a relocalization.  The minimal sets come from a
-torch.Generator the caller owns.
+As in the JAX package, the BoW matching and the refinement are vmapped
+over the five candidates (torch.vmap), and the RANSAC of all of them runs
+as one batch.  As there, every candidate runs, and those that
+retrieval left inactive are masked out (no BoW match, no inlier vote), so
+nothing is read back to the host: relocalize_uncounted builds no tensor
+from host data and reads nothing, and a CUDA graph captures it
+(models/program_graphs.py RelocGraphs, models/step_graph.py).  The minimal
+sets come from a torch.Generator the caller owns.
+
+relocalize counts its calls (counts()); relocalize_uncounted does not,
+because Python state in a captured function runs once, at capture: the
+graph runners count each replay with record().
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops import bow as bow_ops
-from ..ops import se3
+from ..ops import constants, se3
 from ..ops.camera import project
 from ..ops.indexing import indicator, row, select, set_drop, top_k
 from ..ops.matching import core as mcore
@@ -50,8 +56,9 @@ from .tracking import _observations, _scatter_matches
 N_CANDIDATES = 5
 N_GROUP = 8   # candidates entering covisibility-group accumulation
 
-# relocalize() calls since reset_counts(), and the success flag of each of
-# the latest ones (0-d tensors, kept unread so that counting costs no sync)
+# relocalizations recorded since reset_counts(), and the success flag of
+# each of the latest ones (0-d tensors, kept unread so that counting costs
+# no sync, or host bools)
 attempts = 0
 _success_log: collections.deque = collections.deque(maxlen=4096)
 
@@ -60,6 +67,13 @@ def reset_counts() -> None:
     global attempts
     attempts = 0
     _success_log.clear()
+
+
+def record(success) -> None:
+    """Count one relocalization and its success flag (a 0-d tensor or a bool)."""
+    global attempts
+    attempts += 1
+    _success_log.append(success)
 
 
 def counts() -> tuple[int, int]:
@@ -116,24 +130,31 @@ def detect_reloc_candidates(config: SlamConfig, m: MapState,
 def relocalize(config: SlamConfig, m: MapState, frame: FrameData,
                generator: torch.Generator | None = None,
                min_accept: int = 50) -> RelocResult:
-    """Recover the pose of `frame` against the map.  `generator` drives the
-    RANSAC draws and must live on the frame's device (None: the global one)."""
-    global attempts
+    """Recover the pose of `frame` against the map, and count the attempt.
+    `generator` drives the RANSAC draws and must live on the frame's device
+    (None: the global one)."""
+    res = relocalize_uncounted(config, m, frame, generator, min_accept)
+    record(res.success)
+    return res
+
+
+def relocalize_uncounted(config: SlamConfig, m: MapState, frame: FrameData,
+                         generator: torch.Generator | None = None,
+                         min_accept: int = 50) -> RelocResult:
+    """relocalize without counting: no host read, no tensor from host data."""
     if config.vocab is None:
         raise ValueError("relocalization requires a vocabulary")
-    attempts += 1
     vocab = config.vocab
     cam = config.camera
     dev = frame.xy.device
     N = frame.capacity
-    sigma2 = torch.from_numpy(config.orb.sigma2()).to(dev)[frame.level.long()]
-    scale_factors = torch.from_numpy(config.orb.scale_factors()).to(dev)
+    sigma2 = constants.sigma2(config.orb, dev)[frame.level.long()]
+    scale_factors = constants.scale_factors(config.orb, dev)
     obs = _observations(frame)
 
     words, nodes = bow_ops.transform(vocab, frame.desc, frame.valid)
     q_ids, q_vals = bow_ops.sparse_bow(vocab, words, config.bow_top)
     cand_kf, cand_active = detect_reloc_candidates(config, m, q_ids, q_vals)
-    live = [c for c, a in enumerate(cand_active.tolist()) if a]   # the host sync
 
     def optimize(Tcw0, obs_pt):
         pts_w = m.pt_pos[torch.clamp(obs_pt, 0, m.max_pt - 1).long()]
@@ -166,13 +187,13 @@ def relocalize(config: SlamConfig, m: MapState, frame: FrameData,
         new_obs = _scatter_matches(N, match, ids.to(torch.int32))
         return optimize(Tcw, torch.where(obs_pt >= 0, obs_pt, new_obs))
 
-    def bow_matches(kf_id):
+    def bow_matches(kf_id, active):
         """SearchByBoW: descriptor match constrained to identical mid-level
-        vocabulary nodes, only keyframe features that carry a map point ->
-        per-frame-feature matched point id [N]."""
+        vocabulary nodes, only keyframe features that carry a map point (none
+        for an inactive candidate) -> per-frame-feature matched point id [N]."""
         kf_obs = row(m.kf_obs_pt, kf_id)
         kf_node = row(m.kf_node, kf_id)
-        kf_has_pt = (kf_obs >= 0) & row(m.kf_feat_valid, kf_id)
+        kf_has_pt = (kf_obs >= 0) & row(m.kf_feat_valid, kf_id) & active
         node_mask = (kf_node[:, None] == nodes[None, :]) & (kf_node >= 0)[:, None]
         match = mcore.mutual_best_match(row(m.kf_desc, kf_id), frame.desc, node_mask,
                                         kf_has_pt, frame.valid,
@@ -200,26 +221,20 @@ def relocalize(config: SlamConfig, m: MapState, frame: FrameData,
         return pick(narrow, proj_round(kf_id, opt_n.Tcw, obs2, 3.0, 64),
                         (opt_n, obs2))
 
-    n_inl = torch.zeros(N_CANDIDATES, dtype=torch.int32, device=dev)
-    Tcws = torch.eye(4, dtype=torch.float32, device=dev).repeat(N_CANDIDATES, 1, 1)
-    obs_out = torch.full((N_CANDIDATES, N), NO_POINT, dtype=torch.int32, device=dev)
-    if live:
-        kfs = [cand_kf[c] for c in live]
-        obs0 = torch.stack([bow_matches(kf) for kf in kfs])          # [C, N]
-        pts_w = m.pt_pos[torch.clamp(obs0, 0, m.max_pt - 1).long()]  # [C, N, 3]
-        pnp = pnp_ransac_batch(cam, pts_w, frame.xy, obs0 >= 0, sigma2, generator,
-                               min_inliers=10)
-        for j, (c, kf) in enumerate(zip(live, kfs)):
-            opt_f, obs_f = refine(kf, pnp.Tcw[j], obs0[j])
-            n_inl[c] = opt_f.n_inliers * pnp.success[j].to(torch.int32)
-            Tcws[c] = opt_f.Tcw
-            obs_out[c] = obs_f
+    obs0 = torch.vmap(bow_matches)(cand_kf, cand_active)                   # [C, N]
+    pts_w = m.pt_pos[torch.clamp(obs0, 0, m.max_pt - 1).long()]              # [C, N, 3]
+    pnp = pnp_ransac_batch(cam, pts_w, frame.xy, obs0 >= 0, sigma2, generator,
+                           min_inliers=10)
+    opt, obs_f = torch.vmap(refine)(cand_kf, pnp.Tcw, obs0)
+    # an inactive candidate votes nothing and hands on the identity, no points
+    n_inl = opt.n_inliers * (pnp.success & cand_active).to(torch.int32)
+    eye = torch.eye(4, dtype=torch.float32, device=dev)
+    Tcws = torch.where(cand_active[:, None, None], opt.Tcw, eye)
+    obs_out = torch.where(cand_active[:, None], obs_f, NO_POINT)
     best = torch.argmax(n_inl)
-    res = RelocResult(
+    return RelocResult(
         success=row(n_inl, best) >= min_accept,
         Tcw=row(Tcws, best),
         obs_pt=row(obs_out, best),
         n_inliers=row(n_inl, best),
     )
-    _success_log.append(res.success)
-    return res

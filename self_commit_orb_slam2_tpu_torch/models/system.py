@@ -113,7 +113,8 @@ class System:
         self._batch_chunk = 4  # frames per streamed chunk (the JAX package's default)
         self._loop_closer = (loop_closing.LoopCloser(config, self._loop_gen)
                              if enable_loop_closing else None)
-        # SLAM-mode tracking steps, the streamed frame phase and the closer's
+        # the tracking steps (both modes, the LOST branch included), the
+        # streamed frame phase, the per-frame relocalization and the closer's
         # detection and correction through captured CUDA graphs on the card
         # (models/step_graph.py, models/program_graphs.py); None: all op by
         # op (the CPU's default; tests set a CPU StepGraph here to run its
@@ -139,12 +140,13 @@ class System:
         """Warm the loop closer's device libraries (LoopCloser.warmup, with
         the closer on; with the graphs, it captures detection and
         correction), prime the streaming pipeline and capture the frame
-        phase's and the step's CUDA graphs, before the first real frame: the
-        runtime analogue of the reference's seconds-long ORBvoc load at startup
-        (src/System.cc:77-89).  Optional; without it the first chunk and the
-        first closure pay the kernel builds, the libraries' start-up and the
-        capture.  Touches neither the map, the carry, the trajectory nor the
-        engine's random streams."""
+        phase's and the step's CUDA graphs (with a vocabulary, the LOST
+        branch's and the per-frame relocalization's too), before the first
+        real frame: the runtime analogue of the reference's seconds-long
+        ORBvoc load at startup (src/System.cc:77-89).  Optional; without it
+        the first chunk and the first closure pay the kernel builds, the
+        libraries' start-up and the capture.  Touches neither the map, the
+        carry, the trajectory nor the engine's random streams."""
         if self._loop_closer is not None and self._loop_closer.enabled:
             self._loop_closer.warmup(self.map)
         self._prime_stream()
@@ -153,8 +155,9 @@ class System:
         """Build the kernels and push PRIME_CHUNKS dummy packed chunks (valid
         False: the steps take only their pass-through branch) through upload,
         the streamed frame phase and batch_steps_frames, on a scratch map and
-        carry with a generator of their own; then capture the step graphs on
-        that scratch state."""
+        carry with a generator of their own; then capture the step graphs
+        (of the current mode) and, with a vocabulary, the relocalization
+        graph on that scratch state."""
         cfg = self.config
         sensor = cfg.sensor
         H, W = int(cfg.camera.height), int(cfg.camera.width)
@@ -176,7 +179,10 @@ class System:
                 localization_only=self.localization_only, generator=gen)
         packed.cpu()  # waits for the device
         if self.step_graph is not None:
-            self.step_graph.capture(m, carry, frames.select(0), self.enable_mapping)
+            self.step_graph.capture(m, carry, frames.select(0), self.enable_mapping,
+                                    self._stream_gen, self.localization_only)
+            if cfg.vocab is not None:
+                self.step_graph.reloc.capture(m, frames.select(0), self._reloc_gen, gen)
 
     # ------------------------------------------------------------- public API
 
@@ -243,8 +249,13 @@ class System:
 
     def activate_localization_mode(self) -> None:
         """Reference System::ActivateLocalizationMode (src/System.cc:346):
-        track against the map as it is; no keyframes, no mapping."""
+        track against the map as it is; no keyframes, no mapping.  With the
+        graphs and a tracked frame, the localization-mode graphs are
+        captured here, outside any frame."""
         self.localization_only = True
+        if self.step_graph is not None and self.carry is not None:
+            self.step_graph.prepare(self.map, self.carry, self.carry.last_frame,
+                                    self.enable_mapping, self._stream_gen, True)
 
     def deactivate_localization_mode(self) -> None:
         self.localization_only = False
@@ -395,11 +406,15 @@ class System:
     def _relocalize_last_frame(self) -> None:
         """Reference: Tracking falls back to Relocalization when LOST
         (src/Tracking.cc:523-629, :2030).  One more attempt on the frame the
-        step just lost, from the host-side stream; on success the carry
-        restarts from the recovered pose with the velocity cleared."""
+        step just lost, from the host-side stream (through the relocalization
+        graph with the graphs); on success the carry restarts from the
+        recovered pose with the velocity cleared."""
         m = self.map
-        reloc = relocalization.relocalize(self.config, m, self.carry.last_frame,
-                                          self._reloc_gen)
+        if self.step_graph is not None:
+            reloc = self.step_graph.reloc.relocalize(m, self.carry.last_frame, self._reloc_gen)
+        else:
+            reloc = relocalization.relocalize(self.config, m, self.carry.last_frame,
+                                              self._reloc_gen)
         if not bool(reloc.success):
             return
         dev = self.device
@@ -460,10 +475,10 @@ class System:
         flags on a frame that takes neither branch.  With no carry (a map
         loaded into a fresh System) track_step raises, as in the JAX
         package."""
-        if (self.step_graph is not None and not self.localization_only
-                and self.carry is not None):
+        if self.step_graph is not None and self.carry is not None:
             self.map, self.carry, row = self.step_graph.step(
-                self.map, self.carry, frame, ts, self.enable_mapping, self._stream_gen)
+                self.map, self.carry, frame, ts, self.enable_mapping, self._stream_gen,
+                self.localization_only)
         else:
             self.map, self.carry, info = pipeline.track_step(
                 self.config, self.map, self.carry, frame, ts, self.enable_mapping,
@@ -482,9 +497,10 @@ class System:
                      valid: torch.Tensor, localization_only: bool) -> torch.Tensor:
         """A chunk's tracking steps (StreamSession._dispatch) on the map and
         carry -> packed StepInfo [B, 40] on the device."""
-        if self.step_graph is not None and not localization_only:
+        if self.step_graph is not None:
             self.map, self.carry, packed = self.step_graph.batch_steps(
-                self.map, self.carry, frames, ts, valid, self.enable_mapping, self._stream_gen)
+                self.map, self.carry, frames, ts, valid, self.enable_mapping, self._stream_gen,
+                localization_only)
         else:
             self.map, self.carry, packed = pipeline.batch_steps_frames(
                 self.config, self.map, self.carry, frames, ts, valid, self.enable_mapping,

@@ -3,7 +3,7 @@
 Counterpart of the JAX package's ops/solvers/epnp.py (reference PnPsolver,
 src/PnPsolver.cc): EPnP (4 control points, barycentric coordinates, 12x12
 M'M eigendecomposition, compute_pose :684) wrapped in RANSAC (iterate :240).
-All hypotheses are solved in one batch (control-point PCA, eigh and Horn
+All hypotheses are solved in one batch (control-point PCA, M'M kernel and Horn
 alignment are batched) and the best inlier count wins.  As in the JAX
 package the betas case analysis is replaced by the dominant kernel vector
 with a closed-form scale; the winner is refined by the robust pose optimizer
@@ -16,8 +16,12 @@ Differences in form, not in result:
     instead of an all-zero one, which torch refuses, and fails through its
     inlier count as it does there;
   * pnp_ransac_batch solves several problems (relocalization candidates) in
-    one batch, so the three eigh calls see every hypothesis of every
-    candidate at once;
+    one batch, so the eigensolvers see every hypothesis of every candidate
+    at once;
+  * the two symmetric eigenproblems (the 3x3 point covariance, the 12x12
+    M'M) are solved by cyclic Jacobi in float64 (ops/solvers/jacobi.py),
+    not eigh, which reads its error code back to the host on the card: a
+    relocalization then runs in a captured CUDA graph;
   * a singular barycentric basis (a set that repeats a point, coplanar
     points) gives non-finite values through inv_ex without raising; such
     a hypothesis counts no inlier, because every comparison with NaN is
@@ -33,6 +37,11 @@ import torch
 from .. import se3
 from ..camera import CameraParams
 from .horn import horn_align
+from .jacobi import eigh, extreme_eigenvector
+
+# Jacobi sweeps of the two eigenproblems: both converge one sweep earlier on
+# EPnP's matrices (tests/test_torch_reloc_graph.py holds them to float64 eigh)
+COV_SWEEPS, KERNEL_SWEEPS = 5, 8
 
 
 class PnPResult(NamedTuple):
@@ -48,7 +57,7 @@ def _epnp_solve(pts_w: torch.Tensor, uv: torch.Tensor, cam: CameraParams):
     pts_w [B, n, 3], uv [B, n, 2] -> (R [B, 3, 3], t [B, 3]).
     """
     B, n, _ = pts_w.shape
-    # a set with a non-finite entry must lose, not raise: eigh refuses such input
+    # a set with a non-finite entry must lose (and poisons no other set)
     finite = (torch.all(torch.isfinite(pts_w.reshape(B, -1)), dim=1)
               & torch.all(torch.isfinite(uv.reshape(B, -1)), dim=1))
     pts_w = torch.where(finite[:, None, None], pts_w, 0.0)
@@ -58,7 +67,7 @@ def _epnp_solve(pts_w: torch.Tensor, uv: torch.Tensor, cam: CameraParams):
     c0 = torch.mean(pts_w, dim=1, keepdim=True)
     centered = pts_w - c0
     cov = torch.einsum("bni,bnj->bij", centered, centered) / n
-    vals, vecs = torch.linalg.eigh(cov)
+    vals, vecs = eigh(cov, COV_SWEEPS)
     # scale axes by sqrt(eigenvalue) (descending)
     axes = vecs * torch.sqrt(torch.clamp_min(vals, 1e-12))[..., None, :]
     ctrl_w = torch.cat(
@@ -90,8 +99,7 @@ def _epnp_solve(pts_w: torch.Tensor, uv: torch.Tensor, cam: CameraParams):
     M = torch.cat([Mu.reshape(B, n, 12), Mv.reshape(B, n, 12)], dim=1)
 
     MtM = torch.einsum("bki,bkj->bij", M, M)
-    _, evecs = torch.linalg.eigh(MtM)
-    kernel = evecs[..., :, 0]  # [B, 12]
+    kernel = extreme_eigenvector(MtM, KERNEL_SWEEPS, largest=False)  # [B, 12]
     ctrl_c = kernel.reshape(B, 4, 3)
 
     # resolve scale + sign: match inter-control-point distances; positive depth

@@ -8,63 +8,30 @@ hypotheses solve in one call.  The eigenvector's sign is free (q and -q give
 one rotation), so the result does not depend on the eigensolver.
 
 The symmetric 4x4 eigenproblem is solved by cyclic Jacobi in plain tensor
-ops (top_eigenvector), not torch.linalg.eigh: on the card eigh reads its
-error code back to the host, which stalls the stream and breaks a CUDA
-graph capture.  JACOBI_SWEEPS parallel-ordered sweeps (three rounds of two
-disjoint rotations each) in float64 converge on random and on nearly
-degenerate spectra, to well within fp32 eigh's error; a zero matrix (no
-weight) stays the identity and gives the identity rotation, which loses its
-RANSAC vote.
+ops (ops/solvers/jacobi.py), not torch.linalg.eigh: on the card eigh reads
+its error code back to the host, which stalls the stream and breaks a CUDA
+graph capture.  JACOBI_SWEEPS sweeps of three rounds of two disjoint
+rotations each, in float64, converge on random and on nearly degenerate
+spectra, to well within fp32 eigh's error; a zero matrix (no weight) stays
+the identity and gives the identity rotation, which loses its RANSAC vote.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from .. import se3
-from ..constants import from_numpy
+from .jacobi import extreme_eigenvector
 
 JACOBI_SWEEPS = 5
 # the rounds of a sweep: two disjoint (p, q) pairs each, every pair once
-_ROUNDS = ((0, 1, 2, 3), (0, 2, 1, 3), (0, 3, 1, 2))
-
-
-def _round_placements() -> np.ndarray:
-    """[3, 4, 4, 4] float64: for each round, where (c1, s1, c2, s2) go in
-    its rotation J (J[p, p] = J[q, q] = c, J[p, q] = s, J[q, p] = -s)."""
-    M = np.zeros((len(_ROUNDS), 4, 4, 4), np.float64)
-    for r, (p1, q1, p2, q2) in enumerate(_ROUNDS):
-        for k, (p, q) in enumerate(((p1, q1), (p2, q2))):
-            M[r, 2 * k, p, p] = M[r, 2 * k, q, q] = 1.0
-            M[r, 2 * k + 1, p, q], M[r, 2 * k + 1, q, p] = 1.0, -1.0
-    return M
+_ROUNDS = (((0, 1), (2, 3)), ((0, 2), (1, 3)), ((0, 3), (1, 2)))
 
 
 def top_eigenvector(A: torch.Tensor, sweeps: int = JACOBI_SWEEPS) -> torch.Tensor:
     """Unit eigenvector [..., 4] of the largest eigenvalue of symmetric
     [..., 4, 4] A, by cyclic Jacobi with no host read."""
-    dtype = A.dtype
-    A = A.to(torch.float64)
-    place = from_numpy(_round_placements, device=A.device)
-    V = torch.eye(4, dtype=torch.float64, device=A.device).expand(A.shape)
-    for _ in range(sweeps):
-        for r, (p1, q1, p2, q2) in enumerate(_ROUNDS):
-            app = torch.stack([A[..., p1, p1], A[..., p2, p2]], -1)
-            aqq = torch.stack([A[..., q1, q1], A[..., q2, q2]], -1)
-            apq = torch.stack([A[..., p1, q1], A[..., p2, q2]], -1)
-            # the smaller of the two angles that zero A[p, q] (Rutishauser)
-            live = apq != 0
-            tau = (aqq - app) / torch.where(live, 2.0 * apq, 1.0)
-            t = torch.where(tau >= 0, 1.0, -1.0) / (torch.abs(tau) + torch.sqrt(1.0 + tau * tau))
-            t = torch.where(live, t, 0.0)
-            c = torch.rsqrt(1.0 + t * t)
-            cs = torch.stack([c, t * c], -1).reshape(*c.shape[:-1], 4)   # c1, s1, c2, s2
-            J = torch.einsum("...k,kij->...ij", cs, place[r])
-            A = J.transpose(-1, -2) @ A @ J
-            V = V @ J
-    top = torch.argmax(torch.diagonal(A, dim1=-2, dim2=-1), dim=-1)
-    return torch.gather(V, -1, top[..., None, None].expand(*V.shape[:-1], 1))[..., 0].to(dtype)
+    return extreme_eigenvector(A, sweeps, largest=True, rounds=_ROUNDS)
 
 
 def horn_align(src: torch.Tensor, dst: torch.Tensor,

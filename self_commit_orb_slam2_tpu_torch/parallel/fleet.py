@@ -9,11 +9,17 @@ only collective is one all_gather of the packed per-frame infos per chunk,
 which gives every rank every stream's poses.
 
 Each rank runs its local streams one after another, each through its own
-pipeline.batch_steps_*_packed call, so every stream keeps its own keyframe
+frame phase and tracking steps, so every stream keeps its own keyframe
 branch (no vmap over streams, which in the JAX package would turn the
 keyframe cond into a select and run mapping on every stream every frame).
-Each stream draws its in-stream relocalization hypotheses from its own
-torch.Generator, seeded as System seeds its stream's (23), so stream s
+On the card each local stream has a runner of its own
+(models/step_graph.py StepGraph, with its FrameGraphs): its chunks replay
+captured CUDA graphs on the stream's static map, as a System's do, in SLAM
+and in localization mode.  step_graphs = None runs them op by op
+(pipeline.batch_steps_*_packed), the CPU's default; a list of CPU runners
+runs their plain versions.  Each stream draws its in-stream relocalization
+hypotheses from its own torch.Generator, seeded as System seeds its
+stream's (23) and registered with its runner's LOST graph, so stream s
 tracks as a System would on its frames.
 """
 
@@ -28,6 +34,7 @@ from ..models import frame as frame_mod
 from ..models import map_state as ms
 from ..models import pipeline
 from ..models.config import SlamConfig
+from ..models.step_graph import StepGraph
 from ..models.system import config_on_device, resolve_device
 from .mesh import Mesh, world
 
@@ -86,6 +93,11 @@ class FleetTracker:
         self._pack = pipeline.pack_rgbd_chunk if rgbd else pipeline.pack_stereo_chunk
         self._gens = [torch.Generator(device=self.device).manual_seed(23)
                       for _ in range(self.local)]
+        # one runner per local stream on the card (its static map is the
+        # stream's); None: op by op
+        self.step_graphs: Optional[list] = (
+            [StepGraph(self.config, self.device) for _ in range(self.local)]
+            if self.device.type == "cuda" else None)
 
     def _mine(self):
         return range(self.first, self.first + self.local)
@@ -110,6 +122,7 @@ class FleetTracker:
                 self._f32(b0[s]), torch.tensor(float(ts0[s]), device=self.device))
             self.maps.append(m)
             self.carries.append(carry)
+        self._prepare()
         for s in range(self.n_streams):
             self.trajectories[s].append((float(ts0[s]), _EYE.copy()))
 
@@ -151,10 +164,18 @@ class FleetTracker:
             self.maps.append(m)
             self.carries.append(carry)
             rows.append(torch.cat([carry.Tcw.reshape(16), ok.to(torch.float32)[None]]))
+        self._prepare()
         got = self._gather(rows)
         for s in range(self.n_streams):
             self.trajectories[s].append((float(ts0[s]), got[s, :16].reshape(4, 4)))
         return got[:, 16] > 0.5
+
+    def _prepare(self) -> None:
+        """Capture each local stream's step graphs of the fleet's mode on its
+        state (bring-up, so that no capture lands in a chunk)."""
+        for i, sg in enumerate(self.step_graphs or ()):
+            sg.prepare(self.maps[i], self.carries[i], self.carries[i].last_frame,
+                       self.run_mapping, self._gens[i], self.localization_only)
 
     def track_chunk(self, a: np.ndarray, b: np.ndarray, ts: np.ndarray) -> np.ndarray:
         """Advance all streams by one chunk.  a / b: [S, B, H, W]; ts: [S, B].
@@ -167,11 +188,18 @@ class FleetTracker:
             au = np.clip(a[s], 0, 255).astype(np.uint8)
             bu = (np.clip(np.asarray(b[s]) * 1e3, 0, 65535).astype(np.uint16)
                   if self.sensor == "rgbd" else np.clip(b[s], 0, 255).astype(np.uint8))
-            buf = torch.from_numpy(self._pack(au, bu, np.asarray(ts[s], np.float32), valid))
-            self.maps[i], self.carries[i], pk = self._batch(
-                self.config, self.maps[i], self.carries[i], buf.to(self.device),
-                self.run_mapping, localization_only=self.localization_only,
-                generator=self._gens[i])
+            host = self._pack(au, bu, np.asarray(ts[s], np.float32), valid)
+            if self.step_graphs is None:
+                self.maps[i], self.carries[i], pk = self._batch(
+                    self.config, self.maps[i], self.carries[i],
+                    torch.from_numpy(host).to(self.device), self.run_mapping,
+                    localization_only=self.localization_only, generator=self._gens[i])
+            else:
+                sg = self.step_graphs[i]
+                frames, tsd, vd = sg.frames(self.sensor, host)
+                self.maps[i], self.carries[i], pk = sg.batch_steps(
+                    self.maps[i], self.carries[i], frames, tsd, vd, self.run_mapping,
+                    self._gens[i], self.localization_only)
             packed.append(pk)
         packed = self._gather(packed)  # [S, B, 40] one fetch
         poses = np.zeros((S, B, 4, 4), np.float32)

@@ -1,4 +1,4 @@
-"""Frames/s of the op-by-op fleet (chip_smoke.py path 8 (c)), for any tree.
+"""Frames/s of the fleet (chip_smoke.py path 8 (c)), for any tree.
 
     python self_commit_orb_slam2_tpu_torch/tools/fleet_rate.py --root DIR \\
         [--frames FILE.npz] [--repeat N]
@@ -10,7 +10,11 @@ RGB-D streams (generate_sequence seeds 5 to 8, 1 + 24 frames each, 640x480,
 1000 features, capacities 64 / 16384 / 1024, mapping on, chunk 4) tracks
 every stream; prints its state, ATE per stream, and frames/s per stream and
 for the fleet, over the whole run and steady (after the first chunk),
-host clock (track_chunk returns the poses on the host), `repeat` times.
+host clock (track_chunk returns the poses on the host), `repeat` times,
+each way in turn: graphed (the FleetTracker's per-stream graph runners,
+captured in initialize, so inside the whole run) and eager (step_graphs =
+None: op by op).  A tree from before the runners runs op by op either way,
+and says so.
 The rendered frames are cached in FILE (rendered by DIR's own synthetic
 module when FILE is missing).  Needs a CUDA device.
 """
@@ -78,8 +82,12 @@ def main() -> int:
         orb=OrbConfig(n_features=N_FEATURES),
         caps=Capacities(max_keyframes=64, max_points=16384, local_points=1024),
         tracking=TrackingConfig(max_frames_between_kf=10), sensor="rgbd")
-    for r in range(a.repeat):
+    for r, way in ((r, w) for r in range(a.repeat) for w in ("graphed", "eager")):
         fleet = FleetTracker(cfg, n_streams=N_STREAMS)
+        if not hasattr(fleet, "step_graphs"):
+            way += " (a tree without runners: op by op)"
+        elif way == "eager":
+            fleet.step_graphs = None
         t0 = time.perf_counter()
         fleet.initialize(q["images"][:, 0], q["depths"][:, 0], q["timestamps"][:, 0])
         torch.cuda.synchronize()
@@ -97,7 +105,7 @@ def main() -> int:
         ates = [round(float(ate_rmse(est[s], q["poses_gt"][s])), 6) for s in range(N_STREAMS)]
         n_steady = N_FRAMES - 1 - CHUNK
         steady = sum(chunk_s[1:])
-        print(f"[fleet_rate] run {r}: state_ok {fleet.state_ok.tolist()}, ATE {ates} m; "
+        print(f"[fleet_rate] run {r} {way}: state_ok {fleet.state_ok.tolist()}, ATE {ates} m; "
               f"{total:.3f} s: {N_FRAMES / total:.3f} frames/s per stream, "
               f"{N_STREAMS * N_FRAMES / total:.3f} for the fleet; steady "
               f"{n_steady / steady:.3f} per stream, {N_STREAMS * n_steady / steady:.3f} for "

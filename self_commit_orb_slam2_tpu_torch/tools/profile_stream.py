@@ -1,16 +1,19 @@
 """Where the port's stream spends its time on the card.
 
-    python -m self_commit_orb_slam2_tpu_torch.tools.profile_stream [n_chunks] [--path2|--stereo]
-        [--eager]
+    python -m self_commit_orb_slam2_tpu_torch.tools.profile_stream [n_chunks]
+        [--path2|--stereo|--localization] [--eager]
 
 Runs a port path (the bench's capacities, chunk 4, loop closing off) on
 generate_sequence frames: path 1 (RGB-D 640x480, 1000 features, 16-px cells,
 mapping off) by default, path 2 (8-px cells, mapping on) with --path2, path
 4 (a) (stereo at KITTI geometry, 1241x376, 2000 features, mapping on, no
-vocabulary) with --stereo.  The frame phase and the tracking phase run as
-the System runs them: through the CUDA graphs of models/program_graphs.py
-and models/step_graph.py, captured during the first chunk; with --eager op
-by op (frames_*_packed, pipeline.batch_steps_frames).
+vocabulary) with --stereo, path 3's localization mode (path 1's images,
+the bundled vocabulary, mapping on while the first 1 + 4 frames build the
+map, then activate_localization_mode) with --localization.  The frame phase
+and the tracking phase run as the System runs them: through the CUDA
+graphs of models/program_graphs.py and models/step_graph.py, captured
+during the first chunk (localization mode's by activate_localization_mode);
+with --eager op by op (frames_*_packed, pipeline.batch_steps_frames).
 Then over `n_chunks` steady chunks (default 2):
   * host-clock time of the frame phase (the chunk's upload included;
     graphed, also the op-by-op frames_*_packed on the same chunk, after the
@@ -39,6 +42,7 @@ from ..ops.matching import stereo as stereo_ops
 from ..ops.orb import extractor, pyramid
 from ..models.config import Capacities, SlamConfig, TrackingConfig
 from ..models.system import System
+from ..ops import bow
 from ..ops.camera import CameraParams
 from ..ops.orb.extractor import OrbConfig
 from ..utils.profiling import trace_counts
@@ -68,7 +72,7 @@ def _stereo_match_ms(cfg: SlamConfig, buf: torch.Tensor) -> float:
 
 
 def main(n_chunks: int = 2, path2: bool = False, stereo: bool = False,
-         eager: bool = False) -> None:
+         eager: bool = False, localization: bool = False) -> None:
     n_frames = 1 + CHUNK * (1 + 2 * n_chunks)
     width, height, fx, n_features = (1241, 376, 718.9, 2000) if stereo else (640, 480,
                                                                              520.0, 1000)
@@ -81,8 +85,11 @@ def main(n_chunks: int = 2, path2: bool = False, stereo: bool = False,
                      caps=Capacities(max_keyframes=64, max_points=16384,
                                      local_points=1024),
                      tracking=TrackingConfig(max_frames_between_kf=10),
-                     sensor="stereo" if stereo else "rgbd")
-    slam = System(cfg, enable_mapping=path2 or stereo, enable_loop_closing=False)
+                     sensor="stereo" if stereo else "rgbd",
+                     vocab=(bow.load_vocabulary(bow.default_vocab_path()) if localization
+                            else None))
+    slam = System(cfg, enable_mapping=path2 or stereo or localization,
+                  enable_loop_closing=False)
     if eager:
         slam.step_graph = None
     images = np.clip(seq.images, 0, 255).astype(np.uint8)
@@ -91,7 +98,13 @@ def main(n_chunks: int = 2, path2: bool = False, stereo: bool = False,
     sess = slam.open_stream(cfg.sensor, CHUNK)
     sess.feed((images[:1 + CHUNK], second[:1 + CHUNK]), seq.timestamps[:1 + CHUNK])
     torch.cuda.synchronize()
-    name = "4a" if stereo else 2 if path2 else 1
+    name = "4a" if stereo else 2 if path2 else "3 (localization mode)" if localization else 1
+    if localization:
+        t0 = time.perf_counter()
+        slam.activate_localization_mode()
+        torch.cuda.synchronize()
+        print(f"path {name}: activate_localization_mode {time.perf_counter() - t0:.2f} s "
+              "(host clock; with the graphs, the capture of loc_core and loc_lost)")
 
     def chunk_buf(k):
         s = 1 + CHUNK * (1 + k)
@@ -116,7 +129,7 @@ def main(n_chunks: int = 2, path2: bool = False, stereo: bool = False,
             frames, ts, valid = slam._frame_phase(cfg.sensor, buf)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            slam._batch_steps(frames, ts, valid, False)
+            slam._batch_steps(frames, ts, valid, localization)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
             frame_s.append(t1 - t0)
@@ -147,7 +160,7 @@ def main(n_chunks: int = 2, path2: bool = False, stereo: bool = False,
         t0 = time.perf_counter()
         for buf in bufs:
             frames, ts, valid = slam._frame_phase(cfg.sensor, buf)
-            slam._batch_steps(frames, ts, valid, False)
+            slam._batch_steps(frames, ts, valid, localization)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
@@ -167,4 +180,5 @@ def main(n_chunks: int = 2, path2: bool = False, stereo: bool = False,
 if __name__ == "__main__":
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
     main(int(args[0]) if args else 2, path2="--path2" in sys.argv[1:],
-         stereo="--stereo" in sys.argv[1:], eager="--eager" in sys.argv[1:])
+         stereo="--stereo" in sys.argv[1:], eager="--eager" in sys.argv[1:],
+         localization="--localization" in sys.argv[1:])

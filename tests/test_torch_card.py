@@ -281,10 +281,11 @@ def test_transform_first_minimum_on_card(cuda):
 
 
 def test_epnp_eigh_shapes_on_card_match_cpu(cuda):
-    """1280 sets of 12 exact correspondences: the three batched eigh calls
-    ([1280, 3, 3], [1280, 12, 12], [1280, 4, 4]) run by the card's solver
-    give R and t within 1e-3 of the CPU's on at least 99% of the sets (the
-    rest are sets whose 12x12 kernel vector is badly separated in fp32)."""
+    """1280 sets of 12 exact correspondences: the three batched symmetric
+    eigenproblems ([1280, 3, 3], [1280, 12, 12], [1280, 4, 4]; float64
+    Jacobi since the relocalization graphs) run on the card give R and t
+    within 1e-3 of the CPU's on at least 99% of the sets (the rest are sets
+    whose 12x12 kernel vector is badly separated)."""
     from self_commit_orb_slam2_tpu_torch.ops import se3
     from self_commit_orb_slam2_tpu_torch.ops.camera import CameraParams
     from self_commit_orb_slam2_tpu_torch.ops.solvers import epnp
@@ -922,3 +923,149 @@ def test_warm_start_captures_the_closer_graphs_and_touches_no_state(cuda):
     assert slam.carry is None and slam.trajectory == []
     assert all(torch.equal(a, b) for a, b in zip(map0, slam.map))
     assert all(torch.equal(s, g.get_state()) for s, g in zip(before, gens))
+
+
+# ------------------------------------------- relocalization and localization graphs
+
+def _reloc_plan(slam, seq, cuda):
+    """(frame, ts, localization_only) of a kidnap in SLAM mode, then one in
+    localization mode, then two tracked localization-mode frames."""
+    from self_commit_orb_slam2_tpu_torch.models.frame import make_frame_rgbd
+
+    zeros = torch.zeros(seq.images[0].shape, dtype=torch.float32, device=cuda)
+    blank = make_frame_rgbd(slam.config, zeros, zeros)
+    frames = {i: _card_frame(slam.config, seq, i, cuda)[0] for i in (10, 11, 12)}
+    ts = torch.tensor(5.0, device=cuda)
+    return [(blank, ts, False), (frames[12], ts, False), (blank, ts, True),
+            (frames[10], ts, True), (frames[11], ts, True)]
+
+
+def test_lost_and_localization_graphs_replay_equal_eager(cuda):
+    """The small world's System on the card through a kidnap in SLAM mode
+    and one in localization mode, per frame: before each frame the map, the
+    carry and the stream generator are cloned and the frame runs through
+    pipeline.track_step op by op on the clone, then through the StepGraph
+    (core or loc_core, and the lost / loc_lost graph) on the live state:
+    bitwise, else poses within 1e-5 and inliers within 2, the same
+    keyframe decisions; both kidnaps recover through a LOST graph."""
+    from self_commit_orb_slam2_tpu_torch.models import pipeline
+
+    slam, seq = _small_world(cuda)
+    sg, gen = slam.step_graph, slam._stream_gen
+    plan = _reloc_plan(slam, seq, cuda)
+    ge = torch.Generator(device=cuda)
+    states = []
+    for k, (frame, ts, loc) in enumerate(plan):
+        ge.set_state(gen.get_state())
+        _, _, info_e = pipeline.track_step(slam.config, _clone_tree(slam.map),
+                                           _clone_tree(slam.carry), frame, ts, True,
+                                           localization_only=loc, generator=ge)
+        row_e = pipeline.pack_infos([info_e])[0].cpu().numpy()
+        slam.map, slam.carry, row_g = sg.step(slam.map, slam.carry, frame, ts, True, gen,
+                                              localization_only=loc)
+        if not np.array_equal(row_e, row_g):
+            assert np.abs(row_e[:32] - row_g[:32]).max() <= 1e-5, k
+            assert abs(row_e[32] - row_g[32]) <= 2, k
+        assert row_e[33] == row_g[33] and row_e[34] == row_g[34], k
+        assert torch.equal(ge.get_state(), gen.get_state()), k
+        states.append(bool(row_g[34] > 0.5))
+    assert states == [False, True, False, True, True]
+    assert sg.part_replays["lost"] == 2 and sg.part_replays["loc_lost"] >= 2
+    assert sg.part_replays["loc_core"] == 3
+
+
+def test_reloc_graph_replays_equal_eager(cuda):
+    """The System's relocalization graph against relocalize op by op, three
+    calls each from one generator state: the same success, Tcw bitwise
+    (else within 1e-5), inliers within 2; the generators stay together."""
+    from self_commit_orb_slam2_tpu_torch.models import relocalization
+
+    slam, seq = _small_world(cuda)
+    frame = _card_frame(slam.config, seq, 9, cuda)[0]
+    runner, gen = slam.step_graph.reloc, slam._reloc_gen
+    ge = torch.Generator(device=cuda)
+    ge.set_state(gen.get_state())
+    for i in range(3):
+        want = relocalization.relocalize(slam.config, slam.map, frame, ge)
+        got = runner.relocalize(slam.map, frame, gen)
+        assert bool(want.success) and bool(got.success), i
+        if not torch.equal(want.Tcw, got.Tcw):
+            assert float((want.Tcw - got.Tcw).abs().max()) <= 1e-5, i
+        assert abs(int(want.n_inliers) - int(got.n_inliers)) <= 2, i
+    assert runner.program.graph is not None and runner.program.replays == 2
+    assert torch.equal(ge.get_state(), gen.get_state())
+
+
+def test_lost_localization_and_reloc_graphs_replay_without_a_sync(cuda):
+    """Replays of lost, loc_core, loc_lost and the relocalization graph, and
+    relocalize_uncounted, relocalize_branch and _localization_core op by
+    op, under torch.cuda.set_sync_debug_mode("error")."""
+    from self_commit_orb_slam2_tpu_torch.models import pipeline, relocalization
+
+    slam, seq = _small_world(cuda)
+    sg, gen = slam.step_graph, slam._stream_gen
+    frame = _card_frame(slam.config, seq, 9, cuda)[0]
+    for loc in (False, True):   # both modes captured, each core replayed once
+        slam.map, slam.carry, _ = sg.step(slam.map, slam.carry, frame,
+                                          torch.tensor(5.0, device=cuda), True, gen,
+                                          localization_only=loc)
+    slam.step_graph.reloc.relocalize(slam.map, frame, slam._reloc_gen)   # capture
+    cfg, m, carry = slam.config, slam.map, slam.carry
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for loc in (False, True):
+            sg._core(loc)
+            sg._lost(loc, gen)
+        res = slam.step_graph.reloc.relocalize(m, frame, slam._reloc_gen)
+        core = pipeline._localization_core(cfg, m, carry, frame)
+        pipeline.relocalize_branch(cfg, m, carry, frame, core, gen, localization_only=True)
+        relocalization.relocalize_uncounted(cfg, m, frame, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(res.success)
+    assert all(sg.part_replays[p] >= 1 for p in ("lost", "loc_core", "loc_lost"))
+
+
+def test_warm_start_and_localization_mode_capture_outside_the_frames(cuda):
+    """With a vocabulary, warm_start also captures the lost graph and the
+    relocalization graph, bound to the System's generators, whose states it
+    leaves as they were; activate_localization_mode captures loc_core and
+    loc_lost before the first localization-mode frame, which replays."""
+    slam, seq = _small_world(cuda)
+    fresh = type(slam)(slam.config, enable_mapping=True, enable_loop_closing=False)
+    gens = (fresh._stream_gen, fresh._reloc_gen)
+    before = [g.get_state() for g in gens]
+    fresh.warm_start()
+    sg = fresh.step_graph
+    assert {"core", "lost", "tail"} <= set(sg._graphs) and sg.generator is fresh._stream_gen
+    assert sg.reloc.program.graph is not None and sg.reloc.program.generator is fresh._reloc_gen
+    assert all(torch.equal(s, g.get_state()) for s, g in zip(before, gens))
+    sg = slam.step_graph
+    captures = sg.captures
+    slam.activate_localization_mode()
+    assert {"loc_core", "loc_lost"} <= set(sg._graphs) and sg.captures == captures + 1
+    slam.track_rgbd(seq.images[12], seq.depths[12], 9.0)
+    assert sg.captures == captures + 1 and sg.part_replays["loc_core"] == 1
+
+
+def test_a_failed_capture_raises(cuda, monkeypatch):
+    """A localization core that reads the card back cannot be captured: the
+    capture raises, nothing runs op by op instead, and the card stays
+    usable."""
+    from self_commit_orb_slam2_tpu_torch.models import pipeline
+
+    slam, seq = _small_world(cuda)
+    core_fn = pipeline._localization_core
+
+    def reading_core(*args):
+        core = core_fn(*args)
+        bool(core.ok)   # a host read
+        return core
+
+    monkeypatch.setattr(pipeline, "_localization_core", reading_core)
+    with pytest.raises(RuntimeError):
+        slam.activate_localization_mode()
+    assert "loc_core" not in slam.step_graph._graphs
+    torch.cuda.synchronize()
+    assert float(torch.ones(3, device=cuda).sum()) == 3.0
