@@ -14,7 +14,12 @@ Phases (any failure exits non-zero and prints no result):
      equality; time the kernel on the device alone (launches on preallocated
      outputs replayed from a CUDA graph, L2 hot; then with the L2 flushed
      before each launch), the wrapper's host time per call and the plain
-     version, beside the kernel's bound;
+     version, beside the kernel's bound; then the per-frame API's frame
+     build and the mono bootstrap's doubled-budget frame build, each a
+     fresh captured program on 1 + 4 frames: B1 from their replays bitwise
+     against its plain version on the slab each replay gave it, the frames
+     bitwise against make_frame_* op by op, ms a frame build each way and
+     host syncs in a replay (0, hard);
   4. the port's System (RGB-D, 640x480, 1000 features, the bench's
      capacities, chunk 4, loop closing off) streams 1 + 60 frames of
      generate_sequence(seed=5, fx=520) along each path, with every launch
@@ -79,11 +84,18 @@ Phases (any failure exits non-zero and prints no result):
      kernel once per extraction call;
  10. two-view: initialize_two_view on the card against the CPU on one
      synthetic correspondence set with the same minimal sets (same model,
-     n_good within 2%, pose within 1e-3); its eigh / svd shapes timed;
+     n_good within 2%, pose within 1e-3); its solves' float64 Jacobi
+     sweeps timed op by op and from a CUDA graph beside the library's eigh
+     and svd on the same inputs;
  11. path 5, mono, 640x480, 1000 features, vocabulary loaded, mapping on:
      the first 41 frames of the RGB-D sequence's images through
      track_batch_mono; the map initializes within 6 frames, STATE_OK, >= 3
-     keyframes, Sim3-aligned ATE < 0.06 m;
+     keyframes, Sim3-aligned ATE < 0.06 m; the bootstrap through its graphs
+     (program_graphs.MonoInitGraphs) against op by op, per frame from one
+     generator seed (the same frame, Tcw and points bitwise, else within
+     the two-view bounds), then the last attempt 3 times each way from one
+     generator state (bitwise), ms an attempt each way and host syncs in a
+     replay (0, hard);
  12. path 6, bench.py's default RGB-D operating point with loop closing on
      (System(cfg): the bundled vocabulary, 16-px cells, mapping on, global BA
      on, consistency 3): 184 frames of a 120-frame circle revolution
@@ -100,7 +112,11 @@ Phases (any failure exits non-zero and prints no result):
      track_rgbd until a per-frame closure joins the branches; then
      detect_and_verify (the same minimal sets), correct_loop and
      optimize_pose_graph on the card against the CPU from the first
-     closure's state: the same candidate and found, poses within 1e-3.
+     closure's state: the same candidate and found, poses within 1e-3;
+     detection, correction, the ten GBA slices and the merge through the
+     stream's closer graphs against op by op from that state (bitwise, else
+     the stated bounds; ms a call, a slice and a merge each way; host syncs
+     in a replay, 0, hard).
 
  13. path 7, the drivers, on frames of the paths above written to disk in
      each dataset's layout (stdlib PNG writer), decoded by the native decoder
@@ -111,7 +127,9 @@ Phases (any failure exits non-zero and prints no result):
           run_slam.main --dataset tum --batch 4 (the bundled vocabulary,
           System(cfg) with the closer), then --batch 0 on 13 frames; ATE of
           the written TUM file < 0.01 m, STATE_OK, >= 2 keyframes (batch run),
-          B1 bitwise on the decoded frames;
+          B1 bitwise on the decoded frames; the 13 decoded frames through
+          track_rgbd graphed (the frame build and the step replayed) and op
+          by op: poses bitwise (else 1e-5), ms a frame each way;
        b. KITTI layout (1 + 16 pairs of path 4 (a)): --dataset kitti --batch
           4, run_slam's own configuration (2000 features, 256 / 131072 /
           4096); ATE < 0.01 m;
@@ -120,7 +138,8 @@ Phases (any failure exits non-zero and prints no result):
           on the host; ATE < 0.02 m;
        d. stream_slam.serve: 20 frames as SLFR records through an os.pipe
           into a System primed by warm_start; 20 SLPO records, STATE_OK,
-          poses within 1e-3 of a track_rgbd loop on the card;
+          poses within 1e-3 of a track_rgbd loop on the card, which runs
+          graphed and op by op (poses bitwise, else 1e-5; ms a frame);
        e. warm_start at bench.py's configuration with the vocabulary, in a
           fresh process, against an unprimed one: its seconds, the first
           chunk's ms against the median chunk's;
@@ -544,6 +563,93 @@ def phase_kernels(seq):
                 fast_nms_bound_ms(slab, *thr), err,
                 lambda: fast_nms.launch(noise, hi, lo, *thr))
     return results
+
+
+def _b1_from_replays(label, run, n):
+    """run(k) builds frame k through a fresh frame program: the first call
+    runs it and captures it, with B1's wrapper spied at the capture for the
+    graph's static slab and outputs; each later call replays it, after
+    which those tensors hold that replay's slab and outputs: bitwise against
+    the plain version on that slab.  Returns the worst |kernel - plain|."""
+    import torch
+
+    from self_commit_orb_slam2_tpu_torch.ops.orb import fast_band
+
+    seen = {}
+    inner = fast_band.fast_nms_bands_hi_lo
+
+    def spy(slab, *args):
+        out = inner(slab, *args)
+        if torch.cuda.is_current_stream_capturing():
+            seen["io"] = (slab, args, out)
+        return out
+
+    fast_band.fast_nms_bands_hi_lo = spy
+    try:
+        run(0)
+    finally:
+        fast_band.fast_nms_bands_hi_lo = inner
+    require("io" in seen, f"{label}: the capture launched no B1")
+    err = 0.0
+    for k in range(1, n):
+        run(k)
+        slab, args, out = seen["io"]
+        err = max(err, _check_kernel("fast_band", f"{label} frame {k}, launched from a replay",
+                                     out, fast_band.fast_bands_plain(slab, *args),
+                                     int((out[2] > 0).sum())))
+    return err
+
+
+def phase_frame_programs(seq):
+    """The per-frame API's frame build (program_graphs.FrameBuild through
+    FrameGraphs.single, RGB-D at the main path's configuration) and the mono
+    bootstrap's doubled-budget frame build (MonoInitGraphs.frame), each a
+    fresh program on 1 + 4 frames: B1 from their replays bitwise against its
+    plain version (_b1_from_replays); the frames built graphed (upload from
+    pinned staging included) bitwise against make_frame_* op by op on a
+    device copy; ms a frame build each way (host clock, synced, median of
+    the replays); host syncs in a replay (sync debug mode; hard: 0)."""
+    import torch
+
+    from self_commit_orb_slam2_tpu_torch.models import frame as frame_mod
+    from self_commit_orb_slam2_tpu_torch.models.program_graphs import (
+        FrameGraphs, GraphPool, MonoInitGraphs)
+
+    label, n = "frame programs", 1 + CHUNK
+    cfg = _bench_config()
+    mono = MonoInitGraphs(_sensor_config("mono", WIDTH, HEIGHT, FX, 0.0, N_FEATURES, None),
+                          "cuda", GraphPool())
+    rgbd = FrameGraphs(cfg, "cuda", GraphPool())
+    host = {k: tuple(torch.from_numpy(a[k].astype(np.float32)) for a in (
+        np.clip(seq.images, 0, 255).astype(np.uint8), seq.depths)) for k in range(n)}
+    cases = {
+        "rgbd per frame": (lambda k: rgbd.single("rgbd", host[k]),
+                           lambda k: frame_mod.make_frame_rgbd(cfg, *(a.cuda() for a in host[k]))),
+        "mono bootstrap": (lambda k: mono.frame(host[k][:1]),
+                           lambda k: frame_mod.make_frame_mono(mono.ini_config,
+                                                               host[k][0].cuda()))}
+    out, err = {}, 0.0
+    for name, (graphed, eager) in cases.items():
+        err = max(err, _b1_from_replays(f"{label} {name}", graphed, n))
+        secs, bitwise = {True: [], False: []}, True
+        for k in range(1, n):
+            got = {}
+            for g, fn in ((True, graphed), (False, eager)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got[g] = fn(k)
+                torch.cuda.synchronize()
+                secs[g].append(time.perf_counter() - t0)
+            bitwise = bitwise and _same_tensors(got[True], got[False])
+        _, syncs = _count_syncs(lambda: graphed(1))
+        ms = {g: float(np.median(v)) * 1e3 for g, v in secs.items()}
+        print(f"[{label}] {name} ({WIDTH}x{HEIGHT}): graphed {ms[True]:.3f} / op by op "
+              f"{ms[False]:.3f} ms a frame build (host clock, synced, median of {n - 1}); "
+              f"bitwise {bitwise}; host syncs in a replay {sum(syncs.values())} {dict(syncs)}")
+        require(bitwise, f"{label} {name}: the graphed frame build differs from op by op")
+        require(sum(syncs.values()) == 0, f"{label} {name}: a replay made host syncs {syncs}")
+        out[name] = dict(ms=ms, syncs=sum(syncs.values()))
+    return out, err
 
 
 def phase_path(seq, kernels, label: str, cell_size: int, mapping: bool, own: str):
@@ -1380,12 +1486,13 @@ def phase_path_stereo(label, seq, cfg, n_stream, ate_limit, kernels):
 def phase_two_view():
     """initialize_two_view on the card against the CPU on one synthetic
     correspondence set (a general scene, 0.3 px of noise, 10% outliers) with
-    the same minimal sets; its batched eigh / svd shapes timed."""
+    the same minimal sets; its batched solves (float64 Jacobi) timed op by
+    op and from a CUDA graph beside the library's eigh / svd."""
     import torch
 
-    from self_commit_orb_slam2_tpu_torch.ops import se3
+    from self_commit_orb_slam2_tpu_torch.ops import se3, triangulate
     from self_commit_orb_slam2_tpu_torch.ops.camera import CameraParams
-    from self_commit_orb_slam2_tpu_torch.ops.solvers import two_view
+    from self_commit_orb_slam2_tpu_torch.ops.solvers import jacobi, two_view
 
     n = 2048
     rng = np.random.default_rng(0)
@@ -1432,13 +1539,23 @@ def phase_two_view():
 
     a9, a4, a3 = sym(256, 9, 9), sym(8 * n, 4, 4), torch.randn(256, 3, 3, device="cuda",
                                                                 generator=g)
+    a9, a3 = a9.double(), a3.double()
     t9 = _event_time_ms(lambda: torch.linalg.eigh(a9))
     t4 = _event_time_ms(lambda: torch.linalg.eigh(a4))
     t3 = _event_time_ms(lambda: torch.linalg.svd(a3))
+    # what the solver runs instead (no host read): float64 Jacobi sweeps
+    solves = {"9x9 eigh": (lambda: jacobi.extreme_eigenvector(a9, two_view.DLT_SWEEPS,
+                                                               largest=False), t9),
+              "4x4 eigh": (lambda: jacobi.extreme_eigenvector(a4, triangulate.DLT4_SWEEPS,
+                                                               largest=False), t4),
+              "3x3 svd": (lambda: jacobi.svd3(a3, two_view.SVD_SWEEPS), t3)}
+    jac = {k: (_event_time_ms(f), _graph_time_ms(f), lib) for k, (f, lib) in solves.items()}
     print(f"[two-view] initialize_two_view on the card {ms:.1f} ms per call (CUDA events; host-"
-          f"bound); library {torch.backends.cuda.preferred_linalg_library()}: eigh [256, 9, 9] "
-          f"{t9:.3f} ms (H and F hypotheses), eigh [{8 * n}, 4, 4] {t4:.3f} ms (triangulation "
-          f"under the 8 motions of H), svd [256, 3, 3] {t3:.3f} ms (rank-2 projection)")
+          f"bound, op by op); its solves, float64 Jacobi op by op / from a CUDA graph against "
+          f"the library call ({torch.backends.cuda.preferred_linalg_library()}, which reads "
+          f"back to the host and cannot be captured) on the same inputs: " + "; ".join(
+              f"{k} [{'256' if k != '4x4 eigh' else 8 * n}] {a:.3f} / {b:.3f} / {c:.3f} ms"
+              for k, (a, b, c) in jac.items()) + " (CUDA events)")
     return ms
 
 
@@ -1448,7 +1565,7 @@ def phase_path5(seq, kernels, vocab):
     budget) and streams the rest of its 9 frames, the second streams 32."""
     import torch
 
-    from self_commit_orb_slam2_tpu_torch.models import mono_init, pipeline, relocalization
+    from self_commit_orb_slam2_tpu_torch.models import pipeline, program_graphs, relocalization
     from self_commit_orb_slam2_tpu_torch.models.system import STATE_OK, System
     from self_commit_orb_slam2_tpu_torch.utils.evaluation import ate_rmse
 
@@ -1458,7 +1575,11 @@ def phase_path5(seq, kernels, vocab):
     slam = System(cfg, enable_mapping=True, enable_loop_closing=False)
     images, ts = _u8(seq.images[:N_MONO]), seq.timestamps[:N_MONO]
     attempt_s = []
-    inner = mono_init.try_initialize
+    # the attempt replays a graph (program_graphs.MonoInitGraphs): time the
+    # runner's Python method, which runs at every attempt (the first one
+    # also captures)
+    runner = program_graphs.MonoInitGraphs
+    inner = runner.try_initialize
 
     def timed_try(*args, **kw):
         torch.cuda.synchronize()
@@ -1468,7 +1589,7 @@ def phase_path5(seq, kernels, vocab):
         attempt_s.append(time.perf_counter() - t0)
         return res
 
-    mono_init.try_initialize = timed_try
+    runner.try_initialize = timed_try
     try:
         with pipeline.timed_mapping_passes() as pass_s:
             _reset_launches(kernels)
@@ -1483,7 +1604,7 @@ def phase_path5(seq, kernels, vocab):
             launches = _launches(kernels)
             attempts, _ = relocalization.counts()
     finally:
-        mono_init.try_initialize = inner
+        runner.try_initialize = inner
     fps = (N_MONO - first) / dt
     _, est = slam.get_trajectory()
     lag = N_MONO - len(est)
@@ -1492,8 +1613,9 @@ def phase_path5(seq, kernels, vocab):
     n_kf, n_pt = slam.n_keyframes(), slam.n_points()
     print(f"[{label}] {N_MONO} frames {WIDTH}x{HEIGHT} mono, {N_FEATURES} features ("
           f"{slam._ini_config.orb.n_features} while bootstrapping), vocabulary loaded, mapping "
-          f"on, chunk {CHUNK}: initialized after {lag + 1} frames ({len(attempt_s)} attempts, "
-          f"{np.mean(attempt_s) * 1e3:.1f} ms per attempt, host clock, synced), state "
+          f"on, chunk {CHUNK}: initialized after {lag + 1} frames ({len(attempt_s)} attempts "
+          f"through MonoInitGraphs, {[round(x * 1e3, 1) for x in attempt_s]} ms, the first "
+          f"with its capture; host clock, synced), state "
           f"{slam.state}, keyframes {n_kf}, points {n_pt}, Sim3-aligned ATE {ate:.6f} m, "
           f"relocalization attempts {attempts}")
     print(f"[{label}] steady stream: {N_MONO - first} frames in {dt:.3f} s = {fps:.2f} frames/s "
@@ -1510,8 +1632,110 @@ def phase_path5(seq, kernels, vocab):
     require(launches == {"fast_band": want, "fast_nms": 0},
             f"{label}: launches {launches}, want fast_band {want}, fast_nms 0")
     require(slam.step_graph.replays > 0, f"{label}: the stream replayed no step graph")
+    require(slam.step_graph.mono.program is not None
+            and slam.step_graph.mono.program.graph is not None,
+            f"{label}: the bootstrap went through no graph")
+    boot = phase_bootstrap_graphs(label, cfg, images, ts)
     graphs = phase_graph(label, cfg, "mono", (images,), ts, True)
-    return want, fps, ate, float(np.mean(attempt_s) * 1e3), lag + 1, graphs
+    return want, fps, ate, boot, lag + 1, graphs
+
+
+def phase_bootstrap_graphs(label, cfg, images, ts):
+    """Path 5's bootstrap through its graphs against op by op.  Two fresh
+    Systems, one through program_graphs.MonoInitGraphs (the doubled-budget
+    frame build and the attempt replayed, the first of each captured on its
+    first call) and one with step_graph None, per frame through
+    track_monocular from the same generator seed: hard, the same frame
+    initializes (within 6), Tcw, the keyframe poses and the points bitwise
+    (else Tcw within 1e-3 and points within 1e-3 relative, the two-view
+    bounds of tests/test_torch_two_view.py).  Then the last attempt's inputs
+    3 times through the runner (replays) and 3 times op by op from one
+    generator state: hard, bitwise; ms an attempt each way (host clock,
+    synced; the runner's includes its one host read of (success, matches),
+    as the op-by-op call's does); host syncs in a replay of the attempt's
+    graph and of the frame build's (sync debug mode; hard: 0)."""
+    import torch
+
+    from self_commit_orb_slam2_tpu_torch.models import mono_init, program_graphs
+    from self_commit_orb_slam2_tpu_torch.models.system import STATE_OK, System
+
+    label = f"{label} bootstrap"
+    runner = program_graphs.MonoInitGraphs
+    inner = {True: runner.try_initialize, False: mono_init.try_initialize}
+    calls = {True: [], False: []}
+
+    def spy(graphed):
+        def call(*args, **kw):
+            calls[graphed].append(args)
+            return inner[graphed](*args, **kw)
+        return call
+
+    runs = {}
+    runner.try_initialize, mono_init.try_initialize = spy(True), spy(False)
+    try:
+        for graphed in (True, False):
+            slam = System(cfg, enable_mapping=True, enable_loop_closing=False)
+            if not graphed:
+                slam.step_graph = None
+            i = 0
+            while slam.state != STATE_OK:
+                require(i < 6, f"{label}: no map after {i} frames (graphed {graphed})")
+                slam.track_monocular(images[i], float(ts[i]))
+                i += 1
+            runs[graphed] = (i, slam)
+    finally:
+        runner.try_initialize, mono_init.try_initialize = inner[True], inner[False]
+    (n_g, sg_sys), (n_e, e_sys) = runs[True], runs[False]
+    d_T = float(np.abs(sg_sys.Tcw - e_sys.Tcw).max())
+    mg, me = sg_sys.map, e_sys.map
+    bitwise = (np.array_equal(sg_sys.Tcw, e_sys.Tcw) and torch.equal(mg.kf_Tcw, me.kf_Tcw)
+               and torch.equal(mg.pt_pos, me.pt_pos) and torch.equal(mg.pt_valid, me.pt_valid))
+    dp = (mg.pt_pos - me.pt_pos).abs() / (1e-3 * me.pt_pos.abs().clamp_min(1.0))
+    d_pts = float(dp[me.pt_valid].max()) if bool(me.pt_valid.any()) else 0.0
+    require(n_g == n_e, f"{label}: initialized after {n_g} frames graphed, {n_e} op by op")
+    require(len(calls[True]) == len(calls[False]),
+            f"{label}: {len(calls[True])} attempts graphed, {len(calls[False])} op by op")
+    require(bitwise or (d_T <= 1e-3 and d_pts <= 1.0
+                        and torch.equal(mg.pt_valid, me.pt_valid)),
+            f"{label}: graphed against op by op: Tcw {d_T:.2e}, points at {d_pts:.3f} of the bound")
+
+    # the last attempt's inputs, 3 times each way from one generator state
+    sg, gen = sg_sys.step_graph, sg_sys._mono_gen
+    m0, f1, f2, t1, t2, fid = calls[True][-1][1:7]   # [0]: the runner
+    state0 = gen.get_state()
+    ge = torch.Generator(device="cuda")
+    ge.set_state(state0)
+    secs, same = {True: [], False: []}, True
+    for _ in range(3):
+        got = {}
+        for g in (True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got[g] = (sg.mono.try_initialize(m0, f1, f2, t1, t2, fid, gen) if g else
+                      mono_init.try_initialize(sg_sys.config, m0, f1, f2, t1, t2, fid, ge))
+            torch.cuda.synchronize()
+            secs[g].append(time.perf_counter() - t0)
+        a, b = got[True], got[False]
+        same = same and a.success == b.success and a.n_matches == b.n_matches and (
+            not a.success or (_same_tensors(a.m, b.m) and _same_tensors(a.carry, b.carry)))
+    require(torch.equal(gen.get_state(), ge.get_state()), f"{label}: the generators diverged")
+    _, syncs_try = _count_syncs(lambda: sg.mono.program.run(gen))
+    _, syncs_frame = _count_syncs(lambda: sg.mono.frame((torch.from_numpy(
+        images[0].astype(np.float32)),)))
+    ms = {g: float(np.median(v)) * 1e3 for g, v in secs.items()}
+    syncs = sum(syncs_try.values()) + sum(syncs_frame.values())
+    print(f"[{label}] per frame through track_monocular: initialized after {n_g} frames both "
+          f"ways, {len(calls[True])} attempts; graphed against op by op: Tcw, keyframe poses "
+          f"and points bitwise {bitwise} (Tcw {d_T:.2e}, points at {d_pts:.3f} of the bound); "
+          f"the last attempt from one state, 3 calls each way: the same result bitwise {same} "
+          f"(success {got[True].success}, matches {got[True].n_matches}); ms an attempt graphed "
+          f"{ms[True]:.1f} / op by op {ms[False]:.1f} (host clock, synced, median); host syncs "
+          f"in a replay: attempt {sum(syncs_try.values())} {dict(syncs_try)}, frame build "
+          f"{sum(syncs_frame.values())} {dict(syncs_frame)}; capture of the attempt "
+          f"{sg.mono.program.capture_s:.2f} s")
+    require(same, f"{label}: the attempt graphed differs from op by op")
+    require(syncs == 0, f"{label}: a replay made host syncs {syncs_try} {syncs_frame}")
+    return dict(frames=n_g, ms=ms, syncs=syncs, bitwise=bitwise and same)
 
 
 # path 6: a circle revolution of 120 frames, 184 streamed (the JAX package
@@ -1636,6 +1860,7 @@ def phase_path6(seq6, kernels, vocab):
     try:
         with loop_closing.timed_phases() as ph, pipeline.timed_mapping_passes() as pass_s:
             run = _stream_loop(label, slam, seq6, kernels, ph)
+            stream_log = list(lc.debug_log)
             chunk_ms, events, stream_s, launches = (run[k] for k in (
                 "chunk_ms", "events", "stream_s", "launches"))
             attempts, n_stream_closures, gba_info = (run[k] for k in (
@@ -1744,6 +1969,11 @@ def phase_path6(seq6, kernels, vocab):
           f"ms; " + "; ".join(f"{k} {len(v)} calls, mean {np.mean(v):.1f} ms"
                               for k, v in ph_e.items())
           + f"; ATE {run_e['ate']:.6f} m (graphed {ate:.6f} m)")
+    for what, log in (("graphed", stream_log), ("op by op", slam_e._loop_closer.debug_log)):
+        print(f"[{label}] verified detections in the stream, {what} (keyframe counter, chain, "
+              f"Sim3 inliers, projections): " + str([
+                  (d["kf_counter"], d["chain"], d["n_inliers"], d["n_proj"]) for d in log
+                  if d["found"]]))
     require(run_e["closures"] == n_stream_closures and frames_e == frames_g,
             f"{label}: the closer op by op closed at {frames_e}, graphed at {frames_g}")
     stages.update(eager_ph=ph_e, eager_fps=N_LOOP / run_e["stream_s"], eager_stalls=stalls_e)
@@ -1852,9 +2082,9 @@ def phase_loop_graphs(slam, captured):
     3 calls each way from one generator state (the graph's registered
     generator, an eager copy of its state): hard, bitwise.  Correction: 3
     calls each way from the same inputs: hard, bitwise or within the card
-    against CPU bounds of phase_loop_stages (index_add_ sums in no fixed
-    order on the card); the op-by-op run against itself is printed as the
-    noise floor.  ms per call each way (host clock, synced), host syncs per
+    against CPU bounds of phase_loop_stages (bitwise expected: the
+    scatter-adds run in a fixed order on the card); the op-by-op run against
+    itself is printed as the noise floor.  ms per call each way (host clock, synced), host syncs per
     call (sync debug mode; hard: 0 graphed), and optimize_pose_graph alone
     and the correction's replay under torch.profiler: device kernels, busy
     time and the top device operators."""
@@ -1950,10 +2180,81 @@ def phase_loop_graphs(slam, captured):
             f"{label}: correction graphed differs from op by op: {worst}")
     require(sum(syncs_dg.values()) == 0 and sum(syncs_cg.values()) == 0,
             f"{label}: a replay made host syncs: {syncs_dg} {syncs_cg}")
+    gba = _gba_graphed_vs_eager(label, cfg, cg, me[0], int(det0.cand_kf))
     return dict(graph_detect_ms=ms["detect"], graph_correct_ms=ms["correct"],
                 graph_syncs=(sum(syncs_de.values()), sum(syncs_ce.values()),
                              sum(syncs_dg.values()), sum(syncs_cg.values())),
-                prof=prof_rows)
+                prof=prof_rows, gba=gba)
+
+
+def _gba_graphed_vs_eager(label, cfg, cg, mc, anchor):
+    """The ten GBA slices (GBA_SLICES) and the merge from the first
+    closure's corrected map `mc` (anchored at the loop keyframe), op by op
+    and through the stream's closer programs (load_gba, gba_slice, merge):
+    hard, bitwise, else poses within 1e-3 and points within 2e-3 m + 1e-3
+    relative on >= 99.9% of coordinates (the card against the CPU bounds of
+    a mapping pass; the BA's scatter-add runs in a fixed order, so bitwise
+    is what the card should give, and the reason is printed if not).  The merge folds the result into mc with
+    one keyframe's seq marked as newer than the snapshot (its pose goes
+    through the spanning tree).  ms a slice (each) and a merge each way
+    (host clock, synced); host syncs in a slice's and the merge's replay
+    (sync debug mode; hard: 0)."""
+    import torch
+
+    from self_commit_orb_slam2_tpu_torch.models import loop_closing
+
+    label = f"{label} GBA"
+    snap_seq = mc.kf_seq.clone()
+    newest = int(torch.argmax(torch.where(mc.kf_valid, mc.kf_seq, -1)))
+    snap_seq[newest] = 1 << 20
+    out, secs = {}, {}
+    for graphed in (False, True):
+        T, p = mc.kf_Tcw.clone(), mc.pt_pos.clone()
+        if graphed:
+            cg.load_gba(mc, anchor)
+        times = []
+        for huber in loop_closing.GBA_SLICES:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if graphed:
+                T, p = cg.gba_slice(T, p, huber)
+            else:
+                T, p = loop_closing.global_bundle_adjust_slice(cfg, mc, T, p, anchor, huber)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        merged = (cg.merge(mc, snap_seq, mc.pt_birth, T, p) if graphed
+                  else loop_closing.merge_gba(mc, snap_seq, mc.pt_birth, T, p))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        out[graphed], secs[graphed] = (T, p, merged), times
+    (Te, pe, me), (Tg, pg, mg) = out[False], out[True]
+    bitwise = _same_tensors((Te, pe, me), (Tg, pg, mg))
+    dT = float((mg.kf_Tcw - me.kf_Tcw).abs().max())
+    close = (mg.pt_pos - me.pt_pos).abs() <= 2e-3 + 1e-3 * me.pt_pos.abs()
+    share = float(close.float().mean())
+    T1, p1 = cg.gba_slice(Te, pe, True)
+    _, syncs_s = _count_syncs(lambda: cg.gba_slice(T1, p1, False))
+    _, syncs_m = _count_syncs(lambda: cg.merge(mc, snap_seq, mc.pt_birth, Te, pe))
+    moved = float((me.kf_Tcw - mc.kf_Tcw).abs().max())
+    ms = {g: dict(slices=v[:-1], merge=v[-1]) for g, v in secs.items()}
+    print(f"[{label}] from the first closure's corrected map, anchored at keyframe {anchor}: "
+          f"ms a slice op by op {[round(x, 1) for x in ms[False]['slices']]} / graphed "
+          f"{[round(x, 1) for x in ms[True]['slices']]}; merge {ms[False]['merge']:.1f} / "
+          f"{ms[True]['merge']:.1f} ms (host clock, synced; the graphed merge copies the map "
+          f"into its static buffers first); graphed against op by op: bitwise {bitwise}, max "
+          f"|pose difference| {dT:.2e}, points within bounds on {share:.5f}"
+          + ("" if bitwise else " (not bitwise: the BA's sums ran in another order)")
+          + f"; the GBA moved poses by up to {moved:.3e}; host syncs in a replay: slice "
+          f"{sum(syncs_s.values())} {dict(syncs_s)}, merge {sum(syncs_m.values())} "
+          f"{dict(syncs_m)}; captures {[round(pr.capture_s, 2) for pr in cg.programs]} s")
+    require(bitwise or (dT <= 1e-3 and share >= 0.999),
+            f"{label}: graphed against op by op: poses {dT:.2e}, points within bounds on {share}")
+    require(moved > 1e-4, f"{label}: the GBA moved nothing")
+    require(sum(syncs_s.values()) == 0 and sum(syncs_m.values()) == 0,
+            f"{label}: a replay made host syncs: {syncs_s} {syncs_m}")
+    return dict(ms=ms, bitwise=bitwise, syncs=sum(syncs_s.values()) + sum(syncs_m.values()))
 
 
 # ---------------------------------------------------------------- path 7
@@ -2166,6 +2467,45 @@ def _b1_on_decoded(label, images_u8, orb):
                          int((out_k[2] > 0).sum()))
 
 
+def _per_frame_graphed_vs_eager(label, cfg, frames):
+    """frames [(image, depth in metres, timestamp)] through track_rgbd in a
+    fresh System(cfg) through its graphs (the frame build, then the step)
+    and in one with step_graph None: hard, poses bitwise (else within
+    GRAPH_POSE_TOL); ms a frame each way (host clock, synced, median over
+    the frames after the second, the first being the map's initialization
+    and the second the captures).  Returns the graphed System and the ms."""
+    import torch
+
+    from self_commit_orb_slam2_tpu_torch.models.system import System
+
+    out = {}
+    for graphed in (True, False):
+        slam = System(cfg)
+        if not graphed:
+            slam.step_graph = None
+        poses, secs = [], []
+        for image, depth, t in frames:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            poses.append(slam.track_rgbd(image, depth, t))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        out[graphed] = (np.stack(poses), float(np.median(secs[2:])) * 1e3, slam)
+    bitwise = bool(np.array_equal(out[True][0], out[False][0]))
+    d = float(np.abs(out[True][0] - out[False][0]).max())
+    ms = {g: out[g][1] for g in out}
+    progs = out[True][2].step_graph.frames.single_programs
+    print(f"[{label}] per frame, {len(frames)} frames through track_rgbd: graphed (the frame "
+          f"build's {sum(p.replays for p in progs)} replays, then the step's) "
+          f"{ms[True]:.1f} / op by op {ms[False]:.1f} ms a frame (host clock, synced, median); "
+          f"poses bitwise {bitwise}, worst {d:.2e}")
+    require(bitwise or d <= GRAPH_POSE_TOL, f"{label}: per-frame poses graphed {d:.2e} from op "
+            f"by op")
+    require(sum(p.replays for p in progs) >= len(frames) - 2,
+            f"{label}: the per-frame frame build replayed no graph")
+    return out[True][2], ms
+
+
 def _warm_probe(primed: bool, images, depths, ts):
     """In a fresh process: System(cfg) at bench.py's configuration with the
     bundled vocabulary, warm_start or not, then 1 + 24 frames streamed in
@@ -2250,6 +2590,14 @@ def phase_path7(seq, kitti, euroc, kernels, vocab, workdir):
     ate = _driver_ate(out13, seq.poses_gt[:N_TUM_PER_FRAME], label, ATE_LIMIT_M)
     rows["tum per frame"] = _report(label, nums, launches, ate, N_TUM_PER_FRAME) + (ate,)
     b1 += launches["fast_band"]
+    # the same 13 decoded frames through track_rgbd, graphed and op by op (as
+    # run_slam reads them: depth in metres)
+    tum_cfg = load_settings(tum_yaml, sensor="rgbd", vocab=vocab)
+    ds13 = datasets.TumRgbdDataset(tum13, depth_factor=1.0 / tum_cfg.depth_map_factor)
+    tum_cfg = tum_cfg._replace(depth_map_factor=1.0)
+    _, rows["per frame ms"] = _per_frame_graphed_vs_eager(
+        label, tum_cfg, [(ds13[i].image, ds13[i].depth, float(ds13[i].timestamp))
+                         for i in range(N_TUM_PER_FRAME)])
 
     # (b) KITTI: run_slam's own configuration (2000 features, 256 / 131072 / 4096)
     label = "path 7b"
@@ -2302,16 +2650,18 @@ def phase_path7(seq, kitti, euroc, kernels, vocab, workdir):
     recs = []
     while (rec := stream_slam.read_pose(poses_out)) is not None:
         recs.append(rec)
-    # the same frames as the wire carries them, through track_rgbd on the card
-    ref = System(cfg)
+    # the same frames as the wire carries them, through track_rgbd on the card,
+    # graphed and op by op
     buf = io.BytesIO()
-    want = []
     for i in range(N_SERVE):
         stream_slam.write_frame(buf, "rgbd", float(seq.timestamps[i]), seq.images[i],
                                 seq.depths[i])
     buf.seek(0)
+    wire = []
     while (fr := stream_slam.read_frame(buf)) is not None:
-        want.append(ref.track_rgbd(*fr[2], fr[1]))
+        wire.append((*fr[2], fr[1]))
+    ref, rows["serve per frame ms"] = _per_frame_graphed_vs_eager(label, cfg, wire)
+    want = [T for _, T in ref.trajectory]
     err = max(float(np.abs(p - w).max()) for (_, _, p), w in zip(recs, want)) if recs else np.inf
     print(f"[{label}] serve: {n_served} SLFR records in, {len(recs)} SLPO records out in "
           f"{serve_s:.3f} s = {n_served / serve_s:.2f} frames/s (host clock, synced; the "
@@ -3072,8 +3422,11 @@ def main() -> int:
               f"{time.perf_counter() - t_data:.1f} s after the render pool started (6 worker "
               f"processes, host)")
         results = phase_kernels(seq)
+        fp, fp_err = phase_frame_programs(seq)
+        results["fast_band"]["max_abs_err"] = max(results["fast_band"]["max_abs_err"], fp_err)
         lap("build and kernels")
-        summary = []
+        summary = [f"frame build ({WIDTH}x{HEIGHT}) graphed / op by op: " + ", ".join(
+            f"{k} {v['ms'][True]:.3f} / {v['ms'][False]:.3f} ms" for k, v in fp.items())]
         for label, cell, mapping, own in (("path 1", 16, False, "fast_band"),
                                           ("path 2", 8, True, "fast_nms")):
             n, fps, ate, g = phase_path(seq, kernels, label, cell, mapping, own)
@@ -3118,10 +3471,12 @@ def main() -> int:
                        f"on {share:.3f} of the keypoints, {_graph_note(g4a)}; path 4b "
                        f"{fps4b:.2f} frames/s, ATE {ate4b:.6f} m")
         two_view_ms = phase_two_view()
-        n5, fps5, ate5, attempt_ms, n_init, g5 = phase_path5(seq, kernels, vocab)
+        n5, fps5, ate5, boot5, n_init, g5 = phase_path5(seq, kernels, vocab)
         summary.append(f"two-view {two_view_ms:.1f} ms; path 5 {fps5:.2f} frames/s, Sim3 ATE "
-                       f"{ate5:.6f} m, initialized after {n_init} frames, {attempt_ms:.1f} ms "
-                       f"per bootstrap attempt, {_graph_note(g5)}")
+                       f"{ate5:.6f} m, initialized after {n_init} frames, a bootstrap attempt "
+                       f"graphed / op by op {boot5['ms'][True]:.1f} / {boot5['ms'][False]:.1f} "
+                       f"ms ({boot5['syncs']} host syncs in a replay, bitwise "
+                       f"{boot5['bitwise']}), {_graph_note(g5)}")
         lap("paths 4 and 5")
         t0 = time.perf_counter()
         seq6 = _join_frames(loop_jobs)
@@ -3143,7 +3498,15 @@ def main() -> int:
                        f"{stages['graph_detect_ms'][True]:.1f} ms, correction "
                        f"{stages['graph_correct_ms'][False]:.1f} / "
                        f"{stages['graph_correct_ms'][True]:.1f} ms, host syncs "
-                       f"{stages['graph_syncs']}")
+                       f"{stages['graph_syncs']}, GBA slices "
+                       f"{np.min(stages['gba']['ms'][False]['slices']):.1f} to "
+                       f"{np.max(stages['gba']['ms'][False]['slices']):.1f} / "
+                       f"{np.min(stages['gba']['ms'][True]['slices']):.1f} to "
+                       f"{np.max(stages['gba']['ms'][True]['slices']):.1f} ms, merge "
+                       f"{stages['gba']['ms'][False]['merge']:.1f} / "
+                       f"{stages['gba']['ms'][True]['merge']:.1f} ms (bitwise "
+                       f"{stages['gba']['bitwise']}, {stages['gba']['syncs']} host syncs "
+                       f"graphed)")
         lap("path 6")
         with tempfile.TemporaryDirectory() as workdir:
             n7, rows7 = phase_path7(seq, kitti, euroc, kernels, vocab, workdir)
@@ -3151,7 +3514,11 @@ def main() -> int:
             f"{k} {rows7[k][0]:.2f} frames/s (decode {rows7[k][1]:.3f} of the run), ATE "
             f"{rows7[k][2]:.6f} m" for k in ("tum", "tum per frame", "kitti", "euroc"))
             + f", serve {rows7['serve'][0]:.2f} frames/s within {rows7['serve'][1]:.1e} of "
-            f"track_rgbd, warm_start {rows7['warm'][True][0]:.2f} s; primed against unprimed: "
+            f"track_rgbd, track_rgbd per frame graphed / op by op "
+            f"{rows7['per frame ms'][True]:.1f} / {rows7['per frame ms'][False]:.1f} ms (TUM), "
+            f"{rows7['serve per frame ms'][True]:.1f} / {rows7['serve per frame ms'][False]:.1f} "
+            f"ms (the wire's frames), warm_start {rows7['warm'][True][0]:.2f} s; primed against "
+            "unprimed: "
             "initializing frame {:.0f} / {:.0f} ms, first chunk {:.0f} / {:.0f} ms, median "
             "chunk {:.0f} / {:.0f} ms".format(*(rows7["warm"][p][i] for i in (1, 2, 3)
                                                for p in (True, False))))

@@ -30,8 +30,8 @@ import torch
 
 from ..ops import constants, se3
 from ..ops.camera import in_frustum, project
-from ..ops.indexing import (add_drop, indicator, nonzero_padded, row, set_drop,
-                            top_k)
+from ..ops.indexing import (add_drop, index_add_fixed, indicator, nonzero_padded, row,
+                            set_drop, top_k)
 from ..ops.matching import core as mcore
 from ..ops.matching.hamming import hamming_distance
 from ..ops.optim.bundle_adjust import bundle_adjust
@@ -89,8 +89,9 @@ def refresh_observed_points(config: SlamConfig, m: MapState,
     pos_t = m.pt_pos[ids.clamp(0, P - 1).long()]                           # [N, 3]
     rays = pos_t[tgt.clamp(0, N - 1).long()] - centers[:, None, :]          # [K, N, 3]
     rays = rays / torch.clamp_min(torch.linalg.norm(rays, dim=-1, keepdim=True), 1e-9)
-    normal_sum = torch.zeros(N + 1, 3, dtype=torch.float32, device=dev).index_add_(
-        0, torch.where(hit, tgt, N).reshape(-1).long(),
+    normal_sum = index_add_fixed(
+        torch.zeros(N + 1, 3, dtype=torch.float32, device=dev), 0,
+        torch.where(hit, tgt, N).reshape(-1).long(),
         torch.where(hit[..., None], rays, 0.0).reshape(-1, 3))[:N]
     mean_normal = normal_sum / torch.clamp_min(
         torch.linalg.norm(normal_sum, dim=-1, keepdim=True), 1e-9)

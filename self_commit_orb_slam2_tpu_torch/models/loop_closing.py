@@ -19,7 +19,9 @@ LoopClosing, src/LoopClosing.cc, run as a phase after keyframe insertion):
     keyframes, then the loop group's points fused into the current group;
   * global BA after every loop (:880), sliced into one Gauss-Newton
     iteration per stream drain on a snapshot of the corrected map and
-    merged back through the spanning tree (merge_gba).
+    merged back through the spanning tree (merge_gba); with graphs, each
+    slice and the merge replay captured programs
+    (models/program_graphs.py CloserGraphs).
 
 Where the JAX package vmaps (3 candidates, 8 group scores, 11 fuse rows)
 the port carries a leading batch dimension; only the keyframes of one
@@ -512,7 +514,8 @@ def global_bundle_adjust_slice(config: SlamConfig, m: MapState, kf_Tcw, pt_pos, 
     points) state threaded through repeated calls, against the observation
     snapshot `m`: huber=True weights robustly (stage 1); huber=False
     re-gates outliers by chi2 at the current state and steps plainly
-    (stage 2)."""
+    (stage 2).  anchor_kf: a slot, as a Python int or a 0-d device tensor
+    (a captured slice reads it from a static buffer)."""
     return _gba(config, m, kf_Tcw, pt_pos, anchor_kf, 1 if huber else 0, 0 if huber else 1)
 
 
@@ -594,9 +597,10 @@ class LoopCloser:
     global BA of one System (reference LoopClosing thread).  `generator`
     drives the Sim3 RANSAC and must live on the map's device.  With
     `graphs` set (a program_graphs.CloserGraphs, which the System sets from
-    its step graphs) detection and correction run through it: replayed CUDA
-    graphs on the card, the same calls on static buffers on the CPU; None
-    runs them op by op."""
+    its step graphs) detection, correction and the dense global BA's slices
+    and merge run through it: replayed CUDA graphs on the card, the same
+    calls on static buffers on the CPU; None runs them op by op (and so
+    does the sharded global BA, with its merge, always)."""
 
     MAX_DETECT = 4              # keyframes per detection part
     MAX_PENDING_DETS = 0        # groups left queued by a non-blocking resolve
@@ -631,8 +635,9 @@ class LoopCloser:
         """One detection, correction, both GBA slice kinds and a merge on a
         throwaway copy of `m`, results discarded (the JAX closer compiles its
         programs here; the port warms its device libraries and, with graphs,
-        captures detection and correction), with a generator of its own so
-        that the closer's draws are not moved."""
+        captures detection, correction, both slice kinds and the merge),
+        with a generator of its own so that the closer's draws are not
+        moved."""
         if not self.enabled:
             return
         dev = m.kf_valid.device
@@ -643,6 +648,9 @@ class LoopCloser:
         if self.graphs is not None:
             self.graphs.capture(m, 0, self.generator, gen)
         if self.config.tracking.enable_loop_gba and not _needs_sharded_gba(self.config, out):
+            if self.graphs is not None:   # each program runs once, then is captured
+                self.graphs.capture_gba(out, 0)
+                return
             T, p = out.kf_Tcw.clone(), out.pt_pos.clone()
             for huber in (True, False):
                 T, p = global_bundle_adjust_slice(self.config, out, T, p, 0, huber)
@@ -698,21 +706,30 @@ class LoopCloser:
             g["phase"] = len(GBA_SLICES)
         else:
             g["path"] = "dense"
-            g["snap"] = _clone_map(m)
+            g["graphs"] = self.graphs
+            if self.graphs is not None:
+                self.graphs.load_gba(m, anchor_kf)   # the programs' static snapshot
+            else:
+                g["snap"] = _clone_map(m)
             g["gba_T"], g["gba_p"] = m.kf_Tcw.clone(), m.pt_pos.clone()
         self._pending_gba = g
 
     def _advance_gba(self, block: bool = False) -> None:
-        """One sliced-GBA iteration (all that remain when block=True)."""
+        """One sliced-GBA iteration (all that remain when block=True):
+        through the GBA programs when the GBA was dispatched with graphs,
+        else op by op on its own snapshot."""
         g = self._pending_gba
         while g is not None and g["phase"] < len(GBA_SLICES):
+            huber = GBA_SLICES[g["phase"]]
             with _phase("gba_slice", g["gba_T"]):
-                g["gba_T"], g["gba_p"] = global_bundle_adjust_slice(
-                    self.config, g["snap"], g["gba_T"], g["gba_p"], g["anchor"],
-                    GBA_SLICES[g["phase"]])
+                if g["graphs"] is not None:
+                    g["gba_T"], g["gba_p"] = g["graphs"].gba_slice(g["gba_T"], g["gba_p"], huber)
+                else:
+                    g["gba_T"], g["gba_p"] = global_bundle_adjust_slice(
+                        self.config, g["snap"], g["gba_T"], g["gba_p"], g["anchor"], huber)
             g["phase"] += 1
             if g["phase"] == len(GBA_SLICES):
-                g.pop("snap")   # release the observation snapshot
+                g.pop("snap", None)   # release the observation snapshot
             if not block:
                 break
 
@@ -723,7 +740,10 @@ class LoopCloser:
         with _phase("merge", m.kf_valid):
             slot = ms.latest_kf(m)
             before = row(m.kf_Tcw, slot)
-            m = merge_gba(m, g["snap_seq"], g["snap_birth"], g["gba_T"], g["gba_p"])
+            if g.get("graphs") is not None:
+                m = g["graphs"].merge(m, g["snap_seq"], g["snap_birth"], g["gba_T"], g["gba_p"])
+            else:
+                m = merge_gba(m, g["snap_seq"], g["snap_birth"], g["gba_T"], g["gba_p"])
             fired.append((slot, before, row(m.kf_Tcw, slot)))
         self.last_gba_info = {"gba_path": g["path"],
                               "gba_inflight_ms": (time.perf_counter() - g["t0"]) * 1e3}

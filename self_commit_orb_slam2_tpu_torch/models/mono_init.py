@@ -10,10 +10,12 @@ src/ORBmatcher.cc:515):
   * initial map: two keyframes + triangulated points, refined by a short
     full BA and normalized to median scene depth 1 (reference :1081-1116).
 
-The JAX package builds the map in the graph and selects it against the
-untouched one at the end; here the success flag and the match count are read
-on the host in one transfer, and a failed attempt returns before any map row
-is written.
+initialize_map is the attempt in the JAX package's form: the two-keyframe
+map and the carry are always built (on a copy of the map handed in), then
+the map is selected against the untouched one by `success`; it reads
+nothing back, so a CUDA graph captures it (models/program_graphs.py
+MonoInitGraphs).  try_initialize runs it and reads (success, n_matches) on
+the host in one transfer, handing back the map it was given on failure.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..ops.constants import constant, sigma2
 from ..ops.indexing import indicator, row, set_drop, top_k
 from ..ops.matching import core as mcore
 from ..ops.optim.bundle_adjust import bundle_adjust
@@ -41,14 +44,47 @@ class MonoInitResult(NamedTuple):
     carry: Optional[pipeline.TrackCarry]  # None if not success
 
 
+class MonoInitOut(NamedTuple):
+    """initialize_map's outputs, all on the device."""
+    success: torch.Tensor                # 0-d bool
+    n_matches: torch.Tensor              # 0-d int64
+    m: MapState                          # the new map if success, else the one handed in
+    carry: pipeline.TrackCarry           # meaningful only if success
+
+
 def try_initialize(config: SlamConfig, m: MapState, f1: FrameData, f2: FrameData,
-                   timestamp1, timestamp2, frame_id2: int,
+                   timestamp1, timestamp2, frame_id2,
                    generator: torch.Generator | None = None,
                    sets: torch.Tensor | None = None) -> MonoInitResult:
-    """One bootstrap attempt from frames f1 (the reference view) and f2.
-    The frames may carry more features than the map's rows hold (the doubled
-    bootstrap budget); the best N are kept.  RANSAC sets come from
-    `generator`, or are `sets` [256, 8]."""
+    """One bootstrap attempt from frames f1 (the reference view) and f2
+    (initialize_map), its success and match count read on the host in one
+    transfer; on failure the map handed in comes back as it was."""
+    dev = f1.xy.device
+    out = initialize_map(config, m, f1, f2, pipeline._scalar(timestamp1, torch.float32, dev),
+                         pipeline._scalar(timestamp2, torch.float32, dev),
+                         pipeline._scalar(frame_id2, torch.int32, dev), generator, sets)
+    return read_result(out, m)
+
+
+def read_result(out: MonoInitOut, m: MapState) -> MonoInitResult:
+    """initialize_map's outputs as a MonoInitResult: (success, n_matches)
+    read in one transfer; `m`, the map handed in, on failure."""
+    ok, n_matches = torch.stack([out.success.to(out.n_matches.dtype), out.n_matches]).tolist()
+    if not ok:
+        return MonoInitResult(False, n_matches, m, None)
+    return MonoInitResult(True, n_matches, out.m, out.carry)
+
+
+def initialize_map(config: SlamConfig, m: MapState, f1: FrameData, f2: FrameData,
+                   timestamp1: torch.Tensor, timestamp2: torch.Tensor, frame_id2: torch.Tensor,
+                   generator: torch.Generator | None = None,
+                   sets: torch.Tensor | None = None) -> MonoInitOut:
+    """One bootstrap attempt from frames f1 (the reference view) and f2, as
+    the JAX package's try_initialize: timestamps and frame_id2 are 0-d
+    device tensors.  The frames may carry more features than the map's rows
+    hold (the doubled bootstrap budget); the best N are kept.  RANSAC sets
+    come from `generator`, or are `sets` [256, 8].  `m` is read, never
+    written: the map is built on a copy and selected by success."""
     dev = f1.xy.device
     tcfg = config.tracking
     # --- SearchForInitialization: 100px windows, mutual best, ratio 0.9 ---
@@ -68,9 +104,6 @@ def try_initialize(config: SlamConfig, m: MapState, f1: FrameData, f2: FrameData
         sets=sets)
     success = (res.success & (n_matches >= tcfg.mono_init_min_matches)
                & (res.n_good >= tcfg.mono_init_min_points))
-    ok, n_matches = torch.stack([success.to(n_matches.dtype), n_matches]).tolist()
-    if not ok:
-        return MonoInitResult(False, n_matches, m, None)
     good = res.is_triangulated & match.valid
 
     # --- median-depth normalization (reference :1087-1116) ---
@@ -106,11 +139,13 @@ def try_initialize(config: SlamConfig, m: MapState, f1: FrameData, f2: FrameData
         good = good[idx1] & (j >= 0)
         j = torch.clamp(j, 0, N - 1)
 
-    # --- build the two-keyframe map ---
+    # --- build the two-keyframe map, on a copy (insert_keyframe writes in place) ---
+    m0 = m
+    m = MapState(*(x.clone() for x in m))
     n = f1.capacity
     obs_none = torch.full((n,), NO_POINT, dtype=torch.int32, device=dev)
     eye = torch.eye(4, dtype=torch.float32, device=dev)
-    frame_id2 = int(frame_id2)
+    frame_id2 = frame_id2.to(torch.int32)
 
     def insert(m, frame, Tcw, frame_id, timestamp):
         bow, words, nodes = _frame_bow(config, frame)
@@ -135,12 +170,11 @@ def try_initialize(config: SlamConfig, m: MapState, f1: FrameData, f2: FrameData
     obs = m.kf_obs_pt[sel]
     obs_pt_l = torch.where(obs >= 0, lut[torch.clamp(obs, 0, m.max_pt - 1).long()], -1)
     obs_uvr = torch.cat([m.kf_xy[sel], m.kf_uright[sel][..., None]], dim=-1)
-    sigma2 = torch.from_numpy(config.orb.sigma2()).to(dev)[m.kf_level[sel].long()]
     ba = bundle_adjust(
         config.camera, m.kf_Tcw[sel],
         m.pt_pos[torch.clamp(new_ids, 0, m.max_pt - 1).long()],
-        obs_pt_l, obs_uvr, sigma2, m.kf_feat_valid[sel],
-        torch.tensor([False, True], device=dev), created,
+        obs_pt_l, obs_uvr, sigma2(config.orb, dev)[m.kf_level[sel].long()],
+        m.kf_feat_valid[sel], constant((False, True), torch.bool, dev), created,
         n_iters_pre=5, n_iters_post=10)
     m.kf_Tcw.index_put_((kf2.reshape(1).long(),), ba.kf_Tcw[1][None])
     m = m._replace(pt_pos=set_drop(m.pt_pos, torch.where(created, new_ids, -1), ba.pt_pos))
@@ -150,8 +184,10 @@ def try_initialize(config: SlamConfig, m: MapState, f1: FrameData, f2: FrameData
         last_obs_pt=obs2,
         last_obs_birth=torch.where(
             obs2 >= 0, m.pt_birth[torch.clamp(obs2, 0, m.max_pt - 1).long()], 0),
-        frame_id=torch.tensor(frame_id2 + 1, dtype=torch.int32, device=dev),
-        last_kf_frame_id=torch.tensor(frame_id2, dtype=torch.int32, device=dev),
+        frame_id=frame_id2 + 1,
+        last_kf_frame_id=frame_id2.clone(),
         prev_inliers=res.n_good.to(torch.int32),
     )
-    return MonoInitResult(True, n_matches, m, carry)
+    # a failed attempt hands back the untouched map (the JAX package's select)
+    m = MapState(*(torch.where(success, a, b) for a, b in zip(m, m0)))
+    return MonoInitOut(success, n_matches, m, carry)

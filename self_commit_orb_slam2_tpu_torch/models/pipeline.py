@@ -83,7 +83,8 @@ class StepInfo(NamedTuple):
 
 
 def _scalar(value, dtype, device) -> torch.Tensor:
-    return torch.tensor(value, dtype=dtype, device=device)
+    """A 0-d tensor of a Python value: a device fill, not a copy of host data."""
+    return torch.full((), value, dtype=dtype, device=device)
 
 
 def init_carry(config: SlamConfig, frame: FrameData) -> TrackCarry:
@@ -100,7 +101,7 @@ def init_carry(config: SlamConfig, frame: FrameData) -> TrackCarry:
         last_kf_frame_id=_scalar(0, torch.int32, dev),
         prev_inliers=_scalar(0, torch.int32, dev),
         state_ok=_scalar(True, torch.bool, dev),
-        key=torch.tensor([0, 23], dtype=torch.int64, device=dev),  # PRNGKey(23)
+        key=constant((0, 23), torch.int64, dev).clone(),  # PRNGKey(23)
         vo=_scalar(False, torch.bool, dev),
     )
 

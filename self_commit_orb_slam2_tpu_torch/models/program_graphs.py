@@ -1,11 +1,16 @@
-"""The frame phase, loop detection, loop correction and relocalization as
-captured CUDA graphs.
+"""The frame phase, the frame build, loop detection, loop correction, the
+sliced global BA and its merge, relocalization and the monocular bootstrap
+as captured CUDA graphs.
 
-Counterparts of four more of the JAX package's compiled programs (beside
-the step, models/step_graph.py): the batched frame phase, one per sensor
-(its System's _frame_fns), loop detection for one keyframe and loop
-correction (its loop closer's _jit_detect and _jit_correct), and
-relocalization of one frame (its System's _jit_reloc).  Each is a Program:
+Counterparts of more of the JAX package's compiled programs (beside the
+step, models/step_graph.py): the batched frame phase, one per sensor (its
+System's _frame_fns), and the frame build of one frame (inside its
+per-frame _steps); loop detection for one keyframe, loop correction, one
+slice of the global BA of each kind and the merge (its loop closer's
+_jit_detect, _jit_correct, _jit_gba_slice and _jit_merge); relocalization
+of one frame (its System's _jit_reloc); and the monocular bootstrap's frame
+build and attempt (its System's _jit_mono_frame and _jit_mono_try).  Each
+is a Program:
 a function of static input buffers that
 
   * at its first run executes eagerly on a side stream (the call's result,
@@ -25,8 +30,8 @@ replay; the step graphs' own outputs are read within the step that replays
 them.  No replay therefore overwrites a tensor that is still to be read.
 
 Random draws.  Detection draws its RANSAC sets from the closer's
-torch.Generator, relocalization from the System's.  Each generator is
-registered with its graph, so
+torch.Generator, relocalization and the bootstrap from the System's.  Each
+generator is registered with its graph, so
 each replay draws from the generator's state at that moment and advances it
 as the eager call would: replay k draws what eager call k draws.  The
 capture itself leaves the generator's state as it found it.
@@ -53,7 +58,8 @@ import torch
 from torch.utils._pytree import tree_leaves, tree_map
 
 from ..ops.orb import fast_band, fast_nms
-from . import loop_closing, relocalization
+from . import frame as frame_mod
+from . import loop_closing, mono_init, relocalization
 from .config import SlamConfig
 from .frame import FrameData
 from .map_state import MapState
@@ -185,18 +191,51 @@ def _frame_phase(frame_fn, config: SlamConfig, buf: torch.Tensor, generator):
 
 
 class _FrameEntry(NamedTuple):
-    program: Program
-    stage: torch.Tensor          # pinned host staging buffer (the card)
+    program: Program             # its statics: one device buffer per staging buffer
+    stage: tuple                 # pinned host staging buffers (the card)
     uploaded: list               # [the event after the last upload, or None]
 
+    def load(self, sources: tuple) -> None:
+        """The host tensors `sources` into the static buffers: on the card
+        through the staging buffers (refilled once their last copy is done)
+        and a copy that does not block the host, on the CPU directly."""
+        statics = self.program.statics
+        if not self.program.graphed:
+            for static, src in zip(statics, sources):
+                static.copy_(src)
+            return
+        if self.uploaded[0] is not None:
+            self.uploaded[0].synchronize()
+        for st, src in zip(self.stage, sources):
+            st.copy_(src)
+        for static, st in zip(statics, self.stage):
+            static.copy_(st, non_blocking=True)
+        self.uploaded[0] = torch.cuda.Event()
+        self.uploaded[0].record(torch.cuda.current_stream(self.program.device))
 
-class FrameGraphs:
-    """pipeline.frames_{rgbd,stereo,mono}_packed, one Program per (sensor,
-    packed chunk shape).  A chunk goes from the host into a pinned staging
-    buffer and from there into the static device buffer, both outside the
-    graph; the staging buffer is refilled only once its last copy is done."""
 
-    def __init__(self, config: SlamConfig, device: torch.device, pool):
+def _frame_entry(fn, shapes_dtypes: list, device: torch.device, pool) -> _FrameEntry:
+    """A Program of fn on new static device buffers, with pinned staging
+    buffers of the same shapes and dtypes."""
+    graphed = device.type == "cuda"
+    statics = tuple(torch.empty(shape, dtype=dt, device=device) for shape, dt in shapes_dtypes)
+    stage = tuple(torch.empty(shape, dtype=dt, pin_memory=graphed) for shape, dt in shapes_dtypes)
+    return _FrameEntry(Program(fn, statics, device, pool), stage, [None])
+
+
+def _frame_build(build, config: SlamConfig, *images_and_generator):
+    return build(config, *images_and_generator[:-1])
+
+
+class FrameBuild:
+    """frame.make_frame_{rgbd,stereo,mono}(config, *images) of one frame as
+    a Program per image shape.  The images ([H, W] float32 on the host) go
+    into pinned staging buffers and from there into the static device
+    buffers, both outside the graph; the staging buffers are refilled only
+    once their last copy is done."""
+
+    def __init__(self, sensor: str, config: SlamConfig, device: torch.device, pool):
+        self.build = getattr(frame_mod, f"make_frame_{sensor}")
         self.config = config
         self.device = torch.device(device)
         self._pool = pool
@@ -206,27 +245,62 @@ class FrameGraphs:
     def programs(self) -> list:
         return [e.program for e in self._entries.values()]
 
+    def __call__(self, images: tuple) -> FrameData:
+        """The FrameData of host images ([H, W] float32 tensors)."""
+        key = tuple(tuple(a.shape) for a in images)
+        entry = self._entries.get(key)
+        if entry is None:
+            entry = self._entries[key] = _frame_entry(
+                functools.partial(_frame_build, self.build, self.config),
+                [(a.shape, torch.float32) for a in images], self.device, self._pool)
+        entry.load(images)
+        return entry.program.run()
+
+
+class FrameGraphs:
+    """pipeline.frames_{rgbd,stereo,mono}_packed, one Program per (sensor,
+    packed chunk shape).  A chunk goes from the host into a pinned staging
+    buffer and from there into the static device buffer, both outside the
+    graph; the staging buffer is refilled only once its last copy is done.
+    `single(sensor, images)` builds one frame of the per-frame API the same
+    way (a FrameBuild per sensor)."""
+
+    def __init__(self, config: SlamConfig, device: torch.device, pool):
+        self.config = config
+        self.device = torch.device(device)
+        self._pool = pool
+        self._entries: dict = {}
+        self._single: dict = {}   # sensor -> FrameBuild
+
+    @property
+    def programs(self) -> list:
+        """The chunk programs."""
+        return [e.program for e in self._entries.values()]
+
+    @property
+    def single_programs(self) -> list:
+        """The per-frame programs."""
+        return [p for b in self._single.values() for p in b.programs]
+
+    def single(self, sensor: str, images: tuple) -> FrameData:
+        """frame.make_frame_{sensor}(config, *images) of host images ([H, W]
+        float32 tensors: the image and the depth in metres, the two eyes, or
+        the image)."""
+        build = self._single.get(sensor)
+        if build is None:
+            build = self._single[sensor] = FrameBuild(sensor, self.config, self.device,
+                                                      self._pool)
+        return build(images)
+
     def __call__(self, sensor: str, host_buf: np.ndarray):
         """(FrameData [B, ...], ts [B], valid [B]) of a packed host chunk."""
         key = (sensor, host_buf.shape)
         entry = self._entries.get(key)
-        graphed = self.device.type == "cuda"
         if entry is None:
-            static = torch.empty(host_buf.shape, dtype=torch.uint8, device=self.device)
-            stage = torch.empty(host_buf.shape, dtype=torch.uint8, pin_memory=graphed)
-            prog = Program(functools.partial(_frame_phase, _SENSORS[sensor][1], self.config),
-                           (static,), self.device, self._pool)
-            entry = self._entries[key] = _FrameEntry(prog, stage, [None])
-        static = entry.program.statics[0]
-        if graphed:
-            if entry.uploaded[0] is not None:
-                entry.uploaded[0].synchronize()
-            entry.stage.numpy()[...] = host_buf
-            static.copy_(entry.stage, non_blocking=True)
-            entry.uploaded[0] = torch.cuda.Event()
-            entry.uploaded[0].record(torch.cuda.current_stream(self.device))
-        else:
-            static.copy_(torch.from_numpy(host_buf))
+            entry = self._entries[key] = _frame_entry(
+                functools.partial(_frame_phase, _SENSORS[sensor][1], self.config),
+                [(host_buf.shape, torch.uint8)], self.device, self._pool)
+        entry.load((torch.from_numpy(host_buf),))
         return entry.program.run()
 
 
@@ -239,12 +313,30 @@ def _correct(config: SlamConfig, m: MapState, slot: torch.Tensor,
     return loop_closing.correct_loop(config, m, slot, det)
 
 
+def _gba_slice(config: SlamConfig, huber: bool, snap: MapState, kf_Tcw: torch.Tensor,
+               pt_pos: torch.Tensor, anchor: torch.Tensor, generator):
+    return loop_closing.global_bundle_adjust_slice(config, snap, kf_Tcw, pt_pos, anchor, huber)
+
+
+def _merge(m: MapState, snap_seq: torch.Tensor, snap_birth: torch.Tensor,
+           kf_Tcw: torch.Tensor, pt_pos: torch.Tensor, generator):
+    merged = loop_closing.merge_gba(m, snap_seq, snap_birth, kf_Tcw, pt_pos)
+    return merged.kf_Tcw, merged.pt_pos
+
+
 class CloserGraphs:
     """loop_closing.detect_and_verify and loop_closing.correct_loop as two
     Programs on one static map, a static 0-d slot and (for the correction) a
     static LoopDetection.  The map given is copied into the static map
     before each run (device to device; the steady stream hands over the
-    step graphs' static map, updated in place since the last run)."""
+    step graphs' static map, updated in place since the last run).
+
+    The dense global BA: global_bundle_adjust_slice of each kind as a
+    Program on a static snapshot (load_gba copies the corrected map in when
+    the closer dispatches a GBA, in place of a fresh copy), a static (poses,
+    points) pair, copied in before each slice, and a static 0-d anchor
+    slot; merge_gba as a Program on a static map and static (snapshot seqs,
+    snapshot births, poses, points), all copied in before each merge."""
 
     def __init__(self, config: SlamConfig, device: torch.device, pool):
         self.config = config
@@ -255,10 +347,15 @@ class CloserGraphs:
         self._det: loop_closing.LoopDetection | None = None
         self.detect_program: Program | None = None
         self.correct_program: Program | None = None
+        self._gba: tuple | None = None     # (snapshot, kf_Tcw, pt_pos, anchor)
+        self.gba_programs: dict = {}       # huber -> Program
+        self._merge_in: tuple | None = None   # (map, snap_seq, snap_birth, kf_Tcw, pt_pos)
+        self.merge_program: Program | None = None
 
     @property
     def programs(self) -> list:
-        return [p for p in (self.detect_program, self.correct_program) if p is not None]
+        return [p for p in (self.detect_program, self.correct_program,
+                            *self.gba_programs.values(), self.merge_program) if p is not None]
 
     def _load(self, m: MapState, slot: int) -> None:
         if self._map is None or not _same_layout(self._map, m):
@@ -303,6 +400,52 @@ class CloserGraphs:
         det = self.detect_program.capture(generator, warm_generator)
         self._load_det(det)
         self.correct_program.capture()
+
+    def load_gba(self, m: MapState, anchor_kf: int) -> None:
+        """Start a global BA on m: its snapshot, its starting (poses,
+        points) and its anchor slot into the static buffers.  A GBA in
+        flight on the old snapshot is dropped: its slices' outputs were
+        cloned out, so nothing reads the buffers it used."""
+        if self._gba is None or not _same_layout(self._gba[0], m):
+            self._gba = (_clone(m), m.kf_Tcw.clone(), m.pt_pos.clone(),
+                         torch.zeros((), dtype=torch.int32, device=self.device))
+            self.gba_programs = {h: Program(functools.partial(_gba_slice, self.config, h),
+                                            self._gba, self.device, self._pool)
+                                 for h in (True, False)}
+        else:
+            _copy_into(self._gba[:3], (m, m.kf_Tcw, m.pt_pos))
+        self._gba[3].fill_(int(anchor_kf))
+
+    def gba_slice(self, kf_Tcw: torch.Tensor, pt_pos: torch.Tensor, huber: bool):
+        """global_bundle_adjust_slice(config, snapshot, kf_Tcw, pt_pos,
+        anchor, huber) on the snapshot load_gba gave -> (kf_Tcw, pt_pos)."""
+        _copy_into(self._gba[1:3], (kf_Tcw, pt_pos))
+        return self.gba_programs[huber].run()
+
+    def merge(self, m: MapState, snap_seq: torch.Tensor, snap_birth: torch.Tensor,
+              kf_Tcw: torch.Tensor, pt_pos: torch.Tensor) -> MapState:
+        """merge_gba(m, snap_seq, snap_birth, kf_Tcw, pt_pos): m with the
+        merged poses and points (fresh tensors; its other fields are m's)."""
+        args = (m, snap_seq, snap_birth, kf_Tcw, pt_pos)
+        if self._merge_in is None or not _same_layout(self._merge_in, args):
+            self._merge_in = _clone(args)
+            self.merge_program = Program(_merge, self._merge_in, self.device, self._pool)
+        else:
+            _copy_into(self._merge_in, args)
+        T, p = self.merge_program.run()
+        return m._replace(kf_Tcw=T, pt_pos=p)
+
+    def capture_gba(self, m: MapState, anchor_kf: int) -> None:
+        """Capture both slice kinds and the merge on m (on the card; nothing
+        on the CPU); their eager first runs' outputs are discarded."""
+        if self.device.type != "cuda":
+            return
+        self.load_gba(m, anchor_kf)
+        T, p = m.kf_Tcw, m.pt_pos
+        for huber in (True, False):
+            _copy_into(self._gba[1:3], (T, p))
+            T, p = self.gba_programs[huber].capture()
+        self.merge(m, m.kf_seq, m.pt_birth, T, p)   # the first run, then the capture
 
 
 def _relocalize(config: SlamConfig, m: MapState, frame: FrameData, generator):
@@ -351,4 +494,68 @@ class RelocGraphs:
         if self.device.type != "cuda":
             return
         self._load(m, frame)
+        self.program.capture(generator, warm_generator)
+
+
+def _mono_try(config: SlamConfig, m: MapState, f1: FrameData, f2: FrameData,
+              timestamp1: torch.Tensor, timestamp2: torch.Tensor, frame_id2: torch.Tensor,
+              generator):
+    return mono_init.initialize_map(config, m, f1, f2, timestamp1, timestamp2, frame_id2,
+                                    generator)
+
+
+class MonoInitGraphs:
+    """The monocular bootstrap as two Programs: `frame`, the doubled-budget
+    frame build (a FrameBuild of make_frame_mono at 2x the feature budget,
+    reference mpIniORBextractor), and the attempt, mono_init.initialize_map
+    on a static map, two static frames and static 0-d timestamps and frame
+    id, all written before each run.  The attempt's RANSAC draws come from
+    the generator of its first run, registered with the graph."""
+
+    def __init__(self, config: SlamConfig, device: torch.device, pool):
+        self.config = config
+        self.device = torch.device(device)
+        self._pool = pool
+        self.ini_config = config._replace(orb=config.orb._replace(
+            n_features=2 * config.orb.n_features))
+        self.frame = FrameBuild("mono", self.ini_config, self.device, pool)
+        self._statics: tuple | None = None   # (map, f1, f2, ts1, ts2, frame_id2)
+        self.program: Program | None = None
+
+    @property
+    def programs(self) -> list:
+        return self.frame.programs + ([self.program] if self.program is not None else [])
+
+    def _load(self, m: MapState, f1: FrameData, f2: FrameData, timestamp1: float,
+              timestamp2: float, frame_id2: int) -> None:
+        if self._statics is None or not _same_layout(self._statics[:3], (m, f1, f2)):
+            self._statics = (*_clone((m, f1, f2)),
+                             torch.zeros((), dtype=torch.float32, device=self.device),
+                             torch.zeros((), dtype=torch.float32, device=self.device),
+                             torch.zeros((), dtype=torch.int32, device=self.device))
+            self.program = Program(functools.partial(_mono_try, self.config), self._statics,
+                                   self.device, self._pool)
+        else:
+            _copy_into(self._statics[:3], (m, f1, f2))
+        for static, value in zip(self._statics[3:], (timestamp1, timestamp2, frame_id2)):
+            static.fill_(value)
+
+    def try_initialize(self, m: MapState, f1: FrameData, f2: FrameData, timestamp1: float,
+                       timestamp2: float, frame_id2: int,
+                       generator: torch.Generator | None) -> mono_init.MonoInitResult:
+        """mono_init.try_initialize(config, m, f1, f2, timestamp1,
+        timestamp2, frame_id2, generator): one replay, then (success,
+        n_matches) read in one transfer; m itself back on failure."""
+        self._load(m, f1, f2, timestamp1, timestamp2, frame_id2)
+        return mono_init.read_result(self.program.run(generator), m)
+
+    def capture(self, m: MapState, f1: FrameData, f2: FrameData,
+                generator: torch.Generator | None,
+                warm_generator: torch.Generator | None) -> None:
+        """Capture the attempt on (m, f1, f2) (on the card; nothing on the
+        CPU): the eager first run draws from warm_generator, the graph is
+        bound to `generator`, whose state is left as it was."""
+        if self.device.type != "cuda":
+            return
+        self._load(m, f1, f2, 0.0, 0.0, 0)
         self.program.capture(generator, warm_generator)

@@ -57,10 +57,12 @@ bitwise against pipeline.track_step.  On a CUDA device it replays, or
 raises: nothing falls back to eager execution when a capture fails.
 
 The runner also holds the System's other captured programs, in the same
-graph pool (models/program_graphs.py): `frames`, the streamed frame phase,
-`closer`, the loop closer's detection and correction, and `reloc`, the
-per-frame relocalization after a LOST step.  A System with step_graph =
-None runs all of them op by op.
+graph pool (models/program_graphs.py): `frames`, the streamed frame phase
+and the per-frame API's frame build, `closer`, the loop closer's
+detection, correction, global-BA slices and merge, `reloc`, the per-frame
+relocalization after a LOST step, and `mono`, the monocular bootstrap's
+frame build and attempt.  A System with step_graph = None runs all of them
+op by op.
 """
 
 from __future__ import annotations
@@ -78,7 +80,8 @@ from .config import SlamConfig
 from .frame import FrameData
 from .map_state import MapState
 from .pipeline import StepCore, TrackCarry
-from .program_graphs import CloserGraphs, FrameGraphs, GraphPool, RelocGraphs, no_collection
+from .program_graphs import (CloserGraphs, FrameGraphs, GraphPool, MonoInitGraphs, RelocGraphs,
+                             no_collection)
 
 WARMUP_ITERS = 2  # eager runs of both parts on a side stream before a capture
 INFO_WIDTH = 40   # columns of a packed StepInfo (pipeline.pack_infos)
@@ -157,6 +160,7 @@ class StepGraph:
         self.frames = FrameGraphs(config, self.device, self.pool)
         self.closer = CloserGraphs(config, self.device, self.pool)
         self.reloc = RelocGraphs(config, self.device, self.pool)
+        self.mono = MonoInitGraphs(config, self.device, self.pool)
 
     @property
     def graphed(self) -> bool:

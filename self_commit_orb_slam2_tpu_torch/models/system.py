@@ -139,11 +139,12 @@ class System:
     def warm_start(self) -> None:
         """Warm the loop closer's device libraries (LoopCloser.warmup, with
         the closer on; with the graphs, it captures detection and
-        correction), prime the streaming pipeline and capture the frame
-        phase's and the step's CUDA graphs (with a vocabulary, the LOST
-        branch's and the per-frame relocalization's too), before the first
-        real frame: the runtime analogue of the reference's seconds-long
-        ORBvoc load at startup (src/System.cc:77-89).  Optional; without it
+        correction, the global BA's slices and merge), prime the streaming
+        pipeline and capture the frame phase's, the per-frame frame build's
+        and the step's CUDA graphs (with a vocabulary, the LOST branch's and
+        the per-frame relocalization's too; for mono, the bootstrap's),
+        before the first real frame: the runtime analogue of the reference's
+        seconds-long ORBvoc load at startup (src/System.cc:77-89).  Optional; without it
         the first chunk and the first closure pay the kernel builds, the
         libraries' start-up and the capture.  Touches neither the map, the
         carry, the trajectory nor the engine's random streams."""
@@ -156,8 +157,11 @@ class System:
         False: the steps take only their pass-through branch) through upload,
         the streamed frame phase and batch_steps_frames, on a scratch map and
         carry with a generator of their own; then capture the step graphs
-        (of the current mode) and, with a vocabulary, the relocalization
-        graph on that scratch state."""
+        (of the current mode), with a vocabulary the relocalization graph,
+        on that scratch state, the per-frame frame build of the sensor on
+        blank images and, for mono, the bootstrap's frame build and attempt
+        on a blank pair (the attempt's eager first run draws from the
+        scratch generator)."""
         cfg = self.config
         sensor = cfg.sensor
         H, W = int(cfg.camera.height), int(cfg.camera.width)
@@ -178,11 +182,17 @@ class System:
                 cfg, m, carry, frames, ts, valid, self.enable_mapping,
                 localization_only=self.localization_only, generator=gen)
         packed.cpu()  # waits for the device
-        if self.step_graph is not None:
-            self.step_graph.capture(m, carry, frames.select(0), self.enable_mapping,
-                                    self._stream_gen, self.localization_only)
+        sg = self.step_graph
+        if sg is not None:
+            sg.capture(m, carry, frames.select(0), self.enable_mapping, self._stream_gen,
+                       self.localization_only)
             if cfg.vocab is not None:
-                self.step_graph.reloc.capture(m, frames.select(0), self._reloc_gen, gen)
+                sg.reloc.capture(m, frames.select(0), self._reloc_gen, gen)
+            blank = tuple(torch.from_numpy(a[0].astype(np.float32)) for a in planes)
+            sg.frames.single(sensor, blank)
+            if sensor == "mono":
+                f = sg.mono.frame(blank)
+                sg.mono.capture(ms.empty_map(cfg, self.device), f, f, self._mono_gen, gen)
 
     # ------------------------------------------------------------- public API
 
@@ -434,13 +444,14 @@ class System:
 
     def _track(self, sensor: str, images: tuple, timestamp: float) -> np.ndarray:
         """One frame of `sensor`: images is (image, depth in metres) for
-        rgbd, (left, right) for stereo, (image,) for mono, float32 [H, W]."""
-        images = tuple(a.to(self.device) for a in images)
+        rgbd, (left, right) for stereo, (image,) for mono, float32 [H, W] on
+        the host."""
         ts = torch.tensor(timestamp, dtype=torch.float32, device=self.device)
         if self.state == STATE_NOT_INITIALIZED and sensor == "mono":
             return self._mono_initialize(images[0], timestamp)
         if self.state == STATE_NOT_INITIALIZED:
             init = pipeline.init_rgbd if sensor == "rgbd" else pipeline.init_stereo
+            images = tuple(a.to(self.device) for a in images)
             m, carry, n_depth = init(self.config, self.map, *images, ts)
             if int(n_depth) >= self.config.tracking.min_init_depth_points:
                 self.map, self.carry = m, carry
@@ -451,8 +462,7 @@ class System:
                 self.map = ms.empty_map(self.config, self.device)
                 self.carry = None
         else:
-            frame = _FRAME_BUILDERS[sensor](self.config, *images)
-            info = self._step(frame, ts)
+            info = self._step(self._build_frame(sensor, images), ts)
             self.Tcw = info.Tcw[0].copy()
             self.state = STATE_OK if info.state_ok[0] else STATE_LOST
             self.vo_mode = bool(info.vo[0])
@@ -468,6 +478,13 @@ class System:
                     self._apply_correction_to_carry(int(info.ref_kf[0]), ref_kf_Tcw)
         self.trajectory.append((timestamp, self.Tcw))
         return self.Tcw
+
+    def _build_frame(self, sensor: str, images: tuple) -> frame_mod.FrameData:
+        """One frame of the per-frame API from host images: through the
+        frame-build graph of the step graphs, else op by op."""
+        if self.step_graph is not None:
+            return self.step_graph.frames.single(sensor, images)
+        return _FRAME_BUILDERS[sensor](self.config, *(a.to(self.device) for a in images))
 
     def _step(self, frame: frame_mod.FrameData, ts: torch.Tensor) -> pipeline.StepInfo:
         """One tracking step of the per-frame API -> its StepInfo on the host
@@ -509,17 +526,25 @@ class System:
 
     def _mono_initialize(self, image: torch.Tensor, timestamp: float) -> np.ndarray:
         """Two-frame monocular bootstrap (reference
-        Tracking::MonocularInitialization, src/Tracking.cc:886).  Host reads:
-        the feature count, then (success, matches) in one transfer."""
-        frame = frame_mod.make_frame_mono(self._ini_config, image)
+        Tracking::MonocularInitialization, src/Tracking.cc:886) from a host
+        image: with the graphs, a replay of the doubled-budget frame build
+        and one of the attempt (program_graphs.MonoInitGraphs), else op by
+        op.  Host reads: the feature count, then (success, matches) in one
+        transfer."""
+        sg = self.step_graph
+        if sg is not None:
+            frame = sg.mono.frame((image,))
+        else:
+            frame = frame_mod.make_frame_mono(self._ini_config, image.to(self.device))
         enough = int(torch.sum(frame.valid)) >= 100
         if self._mono_first is None or not enough:
             self._mono_first = frame if enough else None
             self._mono_first_ts = timestamp
         else:
-            res = mono_init.try_initialize(
-                self.config, self.map, self._mono_first, frame, self._mono_first_ts,
-                timestamp, len(self.trajectory), self._mono_gen)
+            args = (self.map, self._mono_first, frame, self._mono_first_ts, timestamp,
+                    len(self.trajectory), self._mono_gen)
+            res = (sg.mono.try_initialize(*args) if sg is not None
+                   else mono_init.try_initialize(self.config, *args))
             if res.success:
                 self.map, self.carry = res.m, res.carry
                 self.state = STATE_OK

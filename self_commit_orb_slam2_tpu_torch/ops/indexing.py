@@ -47,6 +47,25 @@ def add_drop(arr: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
     return torch.cat([arr, arr[:1]]).index_add(0, tgt, vals)[:n]
 
 
+def index_add_fixed(target: torch.Tensor, dim: int, index: torch.Tensor,
+                    source: torch.Tensor) -> torch.Tensor:
+    """target.index_add_(dim, index, source) whose sums come out the same on
+    every run: on the card index_add_ adds duplicate indices in whatever
+    order its atomics land, so two runs of one stream part at the last bit;
+    with deterministic algorithms on it sorts the indices and adds each
+    row's updates in their order (no host sync; a CUDA graph captures it).
+    The CPU's index_add_ already adds in index order."""
+    if not target.is_cuda:
+        return target.index_add_(dim, index, source)
+    before = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        return target.index_add_(dim, index, source)
+    finally:
+        torch.use_deterministic_algorithms(before, warn_only=warn_only)
+
+
 def indicator(n: int, idx: torch.Tensor, dtype=torch.bool) -> torch.Tensor:
     """[n] with 1 at every in-range idx (out-of-range entries dropped)."""
     z = torch.zeros(n, dtype=dtype, device=idx.device)

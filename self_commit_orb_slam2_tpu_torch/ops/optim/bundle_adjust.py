@@ -16,8 +16,10 @@ Differences of form, not of result:
     the first step whose squared size is <= 1e-8, where the JAX package
     leaves its while_loop: the same fixed point, and no host sync on the
     card to decide whether to go on.
-The scatter-add sums in a nondeterministic order on the card, so the
-results there agree with the CPU to a tolerance, not to the bit.
+The scatter-add sums a (keyframe, point) pair's duplicate observations in
+a fixed order on the card (indexing.index_add_fixed), so repeated runs
+agree to the bit; the card agrees with the CPU (another order) to a
+tolerance.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 from .. import se3
 from ..constants import constant
 from ..camera import CameraParams
+from ..indexing import index_add_fixed
 from .robust import CHI2_MONO, CHI2_STEREO, huber_weight
 
 
@@ -151,8 +154,8 @@ def bundle_adjust(cam: CameraParams,
         flat = (torch.arange(K, device=dev)[:, None] * (P + 1) + col).reshape(-1)
         packed = torch.cat([U.reshape(K, N, 18), Hpp_obs.reshape(K, N, 9), bp_obs],
                            dim=-1).reshape(K * N, 30)
-        grouped = torch.zeros(K * (P + 1), 30, dtype=f32, device=dev).index_add_(
-            0, flat, packed).reshape(K, P + 1, 30)[:, :P]           # [K, P, 30]
+        grouped = index_add_fixed(torch.zeros(K * (P + 1), 30, dtype=f32, device=dev), 0,
+                                  flat, packed).reshape(K, P + 1, 30)[:, :P]   # [K, P, 30]
         A = grouped[..., :18].reshape(K, P, 6, 3)                  # per (k, p): J_c^T W J_p
         H_pp = grouped[..., 18:27].sum(0).reshape(P, 3, 3)
         b_p = grouped[..., 27:30].sum(0)                           # [P, 3]

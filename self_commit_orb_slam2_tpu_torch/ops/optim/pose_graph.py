@@ -10,8 +10,8 @@ jax.jacfwd of the residual: the two are held equal in the tests), and the
 normal equations assemble into one dense [7K, 7K] system (448 x 448 at 64
 keyframes) by index_add_ over the edges, solved with a damped LU 20 times;
 a non-finite step is dropped.  No host sync.  The scatter-add sums in a
-nondeterministic order on the card, so results there agree with the CPU to
-a tolerance, not to the bit.
+fixed order on the card (indexing.index_add_fixed), so repeated runs agree
+to the bit; the card agrees with the CPU (another order) to a tolerance.
 
 The closed form: with E0 = meas^-1 . S_i . S_j^-1 and r0 = log(E0),
 perturbing S_i by exp(xi_i) gives exp(Ad(meas^-1) xi_i) . E0 and perturbing
@@ -27,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from .. import se3, sim3
+from ..indexing import index_add_fixed
 
 
 class PoseGraphResult(NamedTuple):
@@ -102,10 +103,10 @@ def normal_equations(S: torch.Tensor, ei: torch.Tensor, ej: torch.Tensor,
     JtJ = torch.cat([torch.einsum("eai,eaj->eij", a, b)
                      for a, b in ((wJi, Ji), (wJj, Jj), (wJi, Jj), (wJj, Ji))])
     blocks = torch.cat([ei * K + ei, ej * K + ej, ei * K + ej, ej * K + ei])
-    H = torch.zeros(K * K, 7, 7, dtype=f32, device=S.device).index_add_(0, blocks, JtJ)
-    b = torch.zeros(K, 7, dtype=f32, device=S.device).index_add_(
-        0, torch.cat([ei, ej]), torch.cat([torch.einsum("eai,ea->ei", wJi, r),
-                                           torch.einsum("eai,ea->ei", wJj, r)]))
+    H = index_add_fixed(torch.zeros(K * K, 7, 7, dtype=f32, device=S.device), 0, blocks, JtJ)
+    b = index_add_fixed(
+        torch.zeros(K, 7, dtype=f32, device=S.device), 0, torch.cat([ei, ej]),
+        torch.cat([torch.einsum("eai,ea->ei", wJi, r), torch.einsum("eai,ea->ei", wJj, r)]))
     return H, b
 
 

@@ -105,3 +105,32 @@ def extreme_eigenvector(A: torch.Tensor, sweeps: int, largest: bool,
     diag, V = jacobi(A, sweeps, rounds)
     pick = torch.argmax(diag, dim=-1) if largest else torch.argmin(diag, dim=-1)
     return torch.gather(V, -1, pick[..., None, None].expand(*V.shape[:-1], 1))[..., 0].to(A.dtype)
+
+
+def _unit(x: torch.Tensor) -> torch.Tensor:
+    return x / torch.clamp_min(torch.linalg.norm(x, dim=-1, keepdim=True), 1e-300)
+
+
+def svd3(A: torch.Tensor, sweeps: int):
+    """torch.linalg.svd of [..., 3, 3] A of rank 2 or 3 with no host read:
+    (U, S descending, Vh), in A's dtype.  V and the singular values come
+    from Jacobi on A^T A in float64; u_k = A v_k / |A v_k| for the two
+    largest (the second made orthogonal to the first), and u_3 = u_1 x u_2
+    with the sign of A v_3, so that A = U diag(S) Vh also where sigma_3 is 0
+    (rank-2 F and E), where A v_3 carries no direction.  Singular-vector
+    signs are free, as svd's are."""
+    A64 = A.to(torch.float64)
+    _, V = eigh(A64.transpose(-1, -2) @ A64, sweeps)
+    V = V.flip(-1)                                   # descending
+    AV = A64 @ V
+    s1 = torch.linalg.norm(AV[..., 0], dim=-1)
+    u1 = _unit(AV[..., 0])
+    a2 = AV[..., 1]
+    u2 = _unit(a2 - torch.sum(u1 * a2, -1, keepdim=True) * u1)
+    s2 = torch.sum(u2 * a2, -1)
+    u3 = torch.linalg.cross(u1, u2, dim=-1)
+    s3 = torch.sum(u3 * AV[..., 2], -1)
+    sign3 = torch.where(s3 < 0, -1.0, 1.0)
+    U = torch.stack([u1, u2, u3 * sign3[..., None]], -1)
+    S = torch.stack([s1, s2, torch.abs(s3)], -1)
+    return U.to(A.dtype), S.to(A.dtype), V.transpose(-1, -2).to(A.dtype)

@@ -4,7 +4,7 @@ Counterpart of the JAX package's ops/solvers/two_view.py (reference
 Initializer, src/Initializer.cc):
 
   * every RANSAC hypothesis for H (DLT) and F (8-point) is solved in one
-    batched eigh / SVD call each (the reference iterates 200 times in two
+    batched eigensolve / SVD each (the reference iterates 200 times in two
     threads, :188-198);
   * model selection keeps the reference's symmetric-transfer scoring
     (CheckHomography :616 / CheckFundamental :813, thresholds 5.991 / 3.841)
@@ -15,11 +15,18 @@ Initializer, src/Initializer.cc):
 
 The minimal sets come from a torch.Generator the caller owns, or are handed
 in, so that a test can give both packages the same hypotheses.  Eigenvector
-and singular-vector signs differ between LAPACK, cuSOLVER and XLA: H and F
-are defined up to scale, and the motion recovery fixes det(R) and tries both
+and singular-vector signs differ between this package and XLA: H and F are
+defined up to scale, and the motion recovery fixes det(R) and tries both
 signs of t, so outcomes agree.  initialize_two_view runs its solves in
 float64 and its scoring in fp32, so that the card and the CPU pick the same
 hypothesis from the same sets.
+
+Nothing here reads the device back: the eigenproblems and SVDs are float64
+Jacobi sweeps (ops/solvers/jacobi.py; torch.linalg.eigh and svd read their
+error codes back to the host on the card), inverses are inv_ex with a
+finiteness mask, determinants of 3x3 matrices are written out, and the
+constants come from ops/constants.py, so a CUDA graph can capture the
+bootstrap.
 """
 
 from __future__ import annotations
@@ -30,9 +37,18 @@ import torch
 
 from .. import se3
 from ..camera import CameraParams
+from ..constants import constant
 from ..indexing import row
 from ..triangulate import camera_matrix, triangulate_linear
+from . import jacobi
 from .epnp import draw_minimal_sets
+
+# Jacobi sweeps: the 9x9 A^T A of the DLT and 8-point solves (converged to
+# float64 rounding after 6 on random, rank-8 and nearly degenerate spectra),
+# the 3x3 SVDs (after 4); tests/test_torch_mono_graph.py holds both
+DLT_SWEEPS, SVD_SWEEPS = 8, 5
+# DecomposeE's W (reference Initializer.cc:1808)
+_W = ((0.0, -1.0, 0.0), (1.0, 0.0, 0.0), (0.0, 0.0, 1.0))
 
 
 class TwoViewResult(NamedTuple):
@@ -72,8 +88,14 @@ def _sample_minimal_sets(valid: torch.Tensor, n_hyp: int,
 def _smallest_eigvec(A: torch.Tensor) -> torch.Tensor:
     """[..., k, 9] constraint rows -> the null direction [..., 9] of A^T A."""
     AtA = torch.einsum("...ki,...kj->...ij", A, A)
-    _, vecs = torch.linalg.eigh(AtA)
-    return vecs[..., :, 0]
+    return jacobi.extreme_eigenvector(AtA, DLT_SWEEPS, largest=False)
+
+
+def _det3(M: torch.Tensor) -> torch.Tensor:
+    """det of [..., 3, 3] M, by cofactors."""
+    return (M[..., 0, 0] * (M[..., 1, 1] * M[..., 2, 2] - M[..., 1, 2] * M[..., 2, 1])
+            - M[..., 0, 1] * (M[..., 1, 0] * M[..., 2, 2] - M[..., 1, 2] * M[..., 2, 0])
+            + M[..., 0, 2] * (M[..., 1, 0] * M[..., 2, 1] - M[..., 1, 1] * M[..., 2, 0]))
 
 
 def _solve_h_batch(p1: torch.Tensor, p2: torch.Tensor, weights=None) -> torch.Tensor:
@@ -102,7 +124,7 @@ def _solve_f_batch(p1: torch.Tensor, p2: torch.Tensor, weights=None) -> torch.Te
     if weights is not None:
         A = A * weights[..., None]
     f = _smallest_eigvec(A).reshape(-1, 3, 3)
-    U, S, Vt = torch.linalg.svd(f)
+    U, S, Vt = jacobi.svd3(f, SVD_SWEEPS)
     S = torch.cat([S[..., :2], torch.zeros_like(S[..., 2:])], dim=-1)
     return U @ (S[..., :, None] * Vt)
 
@@ -193,13 +215,12 @@ def _check_rt(cam: CameraParams, R, t, p1, p2, valid, sigma: float = 1.0):
 
 def _decompose_e(E: torch.Tensor):
     """E -> (R1, R2, t) candidates (reference DecomposeE :1798)."""
-    U, _, Vt = torch.linalg.svd(E)
-    W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
-                     dtype=E.dtype, device=E.device)
+    U, _, Vt = jacobi.svd3(E, SVD_SWEEPS)
+    W = constant(_W, E.dtype, E.device)
     R1 = U @ W @ Vt
-    R1 = R1 * torch.sign(torch.linalg.det(R1))      # proper rotations
+    R1 = R1 * torch.sign(_det3(R1))      # proper rotations
     R2 = U @ W.T @ Vt
-    R2 = R2 * torch.sign(torch.linalg.det(R2))
+    R2 = R2 * torch.sign(_det3(R2))
     t = U[:, 2]
     return R1, R2, t / torch.clamp_min(torch.linalg.norm(t), 1e-9)
 
@@ -208,10 +229,13 @@ def _pick_motion(cam, Rs, ts, p1, p2, inliers, sigma, min_points, min_parallax,
                  margin: float):
     """The best of the motion hypotheses (Rs [C, 3, 3], unit ts [C, 3]) and
     whether it is accepted (reference :1090-1130): a clear winner over the
-    second-best count, enough points, enough parallax.  argmax takes the
-    first maximum."""
+    second-best count, enough points, enough parallax.  Among hypotheses of
+    equal count the one of largest parallax wins (then the first): the
+    order of the hypotheses follows the signs the SVD gives its singular
+    vectors, which differ between solvers, and a planar scene's twofold
+    ambiguity ties two of H's eight exactly."""
     n_goods, good, pts, par = _check_rt(cam, Rs, ts, p1, p2, inliers, sigma)
-    best = torch.argmax(n_goods)
+    best = torch.argmax(torch.where(n_goods == torch.max(n_goods), par, -torch.inf))
     n_best = row(n_goods, best)
     n_second = torch.sort(n_goods)[0][-2]
     n_inl = torch.sum(inliers)
@@ -236,9 +260,9 @@ def _reconstruct_h(cam, H, p1, p2, inliers, sigma=1.0, min_points=50, min_parall
     """Faugeras decomposition: 8 motion hypotheses from H (reference
     ReconstructH :1135), decomposed in H's dtype, checked in the points'."""
     K = camera_matrix(cam, H.device).to(H.dtype)
-    A = torch.linalg.inv(K) @ H @ K
-    U, w, Vt = torch.linalg.svd(A)
-    s = torch.linalg.det(U) * torch.linalg.det(Vt)
+    A = _inv_or_nan(K) @ H @ K
+    U, w, Vt = jacobi.svd3(A, SVD_SWEEPS)
+    s = _det3(U) * _det3(Vt)
     d1, d2, d3 = w[0], w[1], w[2]
 
     def sqrt0(x):
@@ -246,7 +270,7 @@ def _reconstruct_h(cam, H, p1, p2, inliers, sigma=1.0, min_points=50, min_parall
 
     aux1 = sqrt0((d1 * d1 - d2 * d2) / torch.clamp_min(d1 * d1 - d3 * d3, 1e-12))
     aux3 = sqrt0((d2 * d2 - d3 * d3) / torch.clamp_min(d1 * d1 - d3 * d3, 1e-12))
-    sign = lambda *sg: torch.tensor(sg, dtype=H.dtype, device=H.device)  # noqa: E731
+    sign = lambda *sg: constant(sg, H.dtype, H.device)  # noqa: E731
     x1s = aux1 * sign(1, 1, -1, -1)
     x3s = aux3 * sign(1, -1, 1, -1)
     root = sqrt0((d1 * d1 - d2 * d2) * (d2 * d2 - d3 * d3))
@@ -277,8 +301,8 @@ def _reconstruct_h(cam, H, p1, p2, inliers, sigma=1.0, min_points=50, min_parall
 
 
 def _inv_or_nan(M: torch.Tensor) -> torch.Tensor:
-    """Batched inverse; a singular matrix gives NaN (it then scores nothing)
-    instead of raising."""
+    """Batched inverse with no host read; a singular matrix gives NaN (it
+    then scores nothing) instead of raising."""
     inv, info = torch.linalg.inv_ex(M)
     return torch.where((info == 0)[..., None, None], inv, torch.nan)
 
@@ -306,7 +330,7 @@ def initialize_two_view(cam: CameraParams, uv1: torch.Tensor, uv2: torch.Tensor,
     # fp32.
     dt = uv1.dtype
     n1d, n2d, T1d, T2d = n1.double(), n2.double(), T1n.double(), T2n.double()
-    T2d_inv = torch.linalg.inv(T2d)
+    T2d_inv = _inv_or_nan(T2d)
     s1, s2 = n1d[sets], n2d[sets]                    # [B, 8, 2]
     H = (T2d_inv @ _solve_h_batch(s1, s2) @ T1d).to(dt)   # denormalize (reference :1336)
     F = (T2d.T @ _solve_f_batch(s1, s2) @ T1d).to(dt)

@@ -5,7 +5,8 @@ Initializer::Triangulate, src/Initializer.cc:1461-1499, and the gates of
 LocalMapping::CreateNewMapPoints, src/LocalMapping.cc:312-626).  Local
 mapping uses the inhomogeneous form (w = 1, closed-form 3x3 normal
 equations); the monocular bootstrap uses the homogeneous form (null vector
-of the 4x4 system through eigh).
+of the 4x4 system, by float64 Jacobi sweeps: torch.linalg.eigh reads its
+error code back to the host on the card, which a CUDA graph cannot capture).
 """
 
 from __future__ import annotations
@@ -14,6 +15,10 @@ import torch
 
 from . import constants, se3
 from .camera import CameraParams, project
+from .solvers import jacobi
+
+# Jacobi sweeps of the homogeneous DLT's 4x4 A^T A
+DLT4_SWEEPS = 6
 
 
 def camera_matrix(cam: CameraParams, device) -> torch.Tensor:
@@ -44,8 +49,7 @@ def triangulate_linear(uv1: torch.Tensor, uv2: torch.Tensor,
     Returns world points [..., 3]."""
     rows = _dlt_rows(uv1, uv2, P1, P2)
     AtA = torch.einsum("...ki,...kj->...ij", rows, rows)
-    _, vecs = torch.linalg.eigh(AtA)
-    x = vecs[..., :, 0]  # eigh sorts ascending
+    x = jacobi.extreme_eigenvector(AtA, DLT4_SWEEPS, largest=False)
     w = x[..., 3]
     w = torch.where(torch.abs(w) < 1e-12, 1e-12, w)
     return x[..., :3] / w[..., None]

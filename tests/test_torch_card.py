@@ -851,8 +851,9 @@ def test_closer_graphs_replay_equal_eager_from_cloned_states(cuda):
     against the same calls op by op, from one loop state: three detections
     from one generator state (the graph's registered generator, an eager
     copy of its state) bitwise; corrections with poses within 1e-3 and
-    points within 2e-3 m + 1e-3 relative (index_add_ sums in no fixed order
-    on the card), observations equal on >= 99.9%."""
+    points within 2e-3 m + 1e-3 relative (the card's bound against the CPU;
+    the scatter-adds run in a fixed order, so bitwise is expected),
+    observations equal on >= 99.9%."""
     from self_commit_orb_slam2_tpu_torch.models import loop_closing
 
     slam, m, kf = _loop_state(cuda)
@@ -1069,3 +1070,184 @@ def test_a_failed_capture_raises(cuda, monkeypatch):
     assert "loc_core" not in slam.step_graph._graphs
     torch.cuda.synchronize()
     assert float(torch.ones(3, device=cuda).sum()) == 3.0
+
+
+# -------------------------- the global BA, the bootstrap and the per-frame frame build
+
+def test_gba_and_merge_graphs_replay_equal_eager(cuda):
+    """The ten GBA slices and the merge through the System's closer programs
+    (load_gba, gba_slice, merge) against the same calls op by op, from the
+    loop world's map corrected at its loop: bitwise, else poses within 1e-3
+    and points within 2e-3 m + 1e-3 relative on >= 99.9% of coordinates
+    (the card's bound against the CPU; bitwise is expected, the scatter-adds
+    running in a fixed order); a reload
+    at phase 0 after three slices gives the same result."""
+    from self_commit_orb_slam2_tpu_torch.models import loop_closing
+    from self_commit_orb_slam2_tpu_torch.models import map_state as ms
+
+    slam = _loop_world(cuda)
+    cfg, cg = slam.config, slam.step_graph.closer
+    kf = ms.latest_kf(slam.map)
+    det = loop_closing.detect_and_verify(cfg, slam.map, kf, torch.Generator(cuda).manual_seed(7))
+    mc = loop_closing.correct_loop(cfg, _clone_tree(slam.map), kf, det)
+    anchor = int(det.cand_kf)
+    T, p = mc.kf_Tcw.clone(), mc.pt_pos.clone()
+    for huber in loop_closing.GBA_SLICES:
+        T, p = loop_closing.global_bundle_adjust_slice(cfg, mc, T, p, anchor, huber)
+    want = loop_closing.merge_gba(mc, mc.kf_seq, mc.pt_birth, T, p)
+    for partial in (0, 3):
+        cg.load_gba(mc, anchor)
+        Tg, pg = mc.kf_Tcw.clone(), mc.pt_pos.clone()
+        for huber in loop_closing.GBA_SLICES[:partial]:
+            Tg, pg = cg.gba_slice(Tg, pg, huber)
+        if partial:   # dropped mid-way: reloaded at phase 0
+            cg.load_gba(mc, anchor)
+            Tg, pg = mc.kf_Tcw.clone(), mc.pt_pos.clone()
+        for huber in loop_closing.GBA_SLICES:
+            Tg, pg = cg.gba_slice(Tg, pg, huber)
+        got = cg.merge(mc, mc.kf_seq, mc.pt_birth, Tg, pg)
+        assert torch.allclose(got.kf_Tcw, want.kf_Tcw, atol=1e-3), partial
+        close = (got.pt_pos - want.pt_pos).abs() <= 2e-3 + 1e-3 * want.pt_pos.abs()
+        assert float(close.float().mean()) >= 0.999, partial
+        assert torch.equal(got.kf_Tcw[anchor], mc.kf_Tcw[anchor])
+    assert all(p.graph is not None for p in cg.gba_programs.values())
+    assert cg.merge_program.graph is not None and cg.gba_programs[False].replays >= 12
+
+
+def _mono_world(cuda):
+    from self_commit_orb_slam2_tpu_torch.models.config import (
+        Capacities, SlamConfig, TrackingConfig)
+    from self_commit_orb_slam2_tpu_torch.models.system import System
+    from self_commit_orb_slam2_tpu_torch.ops.camera import CameraParams
+    from self_commit_orb_slam2_tpu_torch.ops.orb.extractor import OrbConfig
+    from self_commit_orb_slam2_tpu_torch.utils.synthetic import generate_sequence
+
+    seq = generate_sequence(n_frames=8, width=320, height=240, fx=260.0, seed=5)
+    cfg = SlamConfig(camera=CameraParams.create(fx=260.0, fy=260.0, cx=160.0, cy=120.0,
+                                                bf=0.0, width=320, height=240),
+                     orb=OrbConfig(n_features=700),
+                     caps=Capacities(max_keyframes=32, max_points=8192, local_points=1024),
+                     tracking=TrackingConfig(max_frames_between_kf=8, kf_ref_ratio_stereo=0.8),
+                     sensor="mono")
+    return cfg, seq, System(cfg, enable_loop_closing=False)
+
+
+def test_mono_bootstrap_graphs_replay_equal_eager(cuda):
+    """A mono System on the card bootstraps per frame through its
+    MonoInitGraphs (the doubled-budget frame build, the attempt) and one
+    with step_graph None from the same generator seed: the same frame
+    initializes, the map and the carry bit for bit; then three attempts on
+    one pair replayed against op by op from one generator state, bitwise."""
+    from self_commit_orb_slam2_tpu_torch.models import map_state as ms
+    from self_commit_orb_slam2_tpu_torch.models import mono_init
+    from self_commit_orb_slam2_tpu_torch.models.system import STATE_OK, System
+
+    cfg, seq, slam = _mono_world(cuda)
+    eager = System(cfg, enable_loop_closing=False)
+    eager.step_graph = None
+    for s in (slam, eager):
+        for i in range(6):
+            s.track_monocular(seq.images[i], float(seq.timestamps[i]))
+            if s.state == STATE_OK:
+                break
+    assert slam.state == eager.state == STATE_OK and len(slam.trajectory) == len(eager.trajectory)
+    assert all(torch.equal(a, b) for a, b in zip(slam.map, eager.map))
+    mono = slam.step_graph.mono
+    assert mono.program.graph is not None and mono.frame.programs[0].graph is not None
+    f1, f2 = (mono.frame((torch.from_numpy(seq.images[i].astype(np.float32)),))
+              for i in (0, 1))
+    m0 = ms.empty_map(cfg, cuda)
+    gen = slam._mono_gen
+    ge = torch.Generator(cuda)
+    ge.set_state(gen.get_state())
+    for k in range(3):
+        got = mono.try_initialize(m0, f1, f2, 0.0, 0.1, 1, gen)
+        want = mono_init.try_initialize(cfg, m0, f1, f2, 0.0, 0.1, 1, ge)
+        assert got.success == want.success and got.n_matches == want.n_matches, k
+        if want.success:
+            assert all(torch.equal(a, b) for a, b in zip(got.m, want.m)), k
+    assert torch.equal(gen.get_state(), ge.get_state())
+
+
+@pytest.mark.parametrize("sensor", ["rgbd", "mono"])
+def test_frame_build_graph_replays_equal_eager(cuda, sensor):
+    """The per-frame API's frame build through FrameGraphs.single against
+    make_frame_* op by op on the same images, three frames: bitwise; the
+    band kernel launched once by each replay."""
+    from self_commit_orb_slam2_tpu_torch.models import frame as frame_mod
+    from self_commit_orb_slam2_tpu_torch.models import program_graphs
+
+    cfg, seq, slam = _graph_setup(cuda, n_frames=4)
+    cfg = slam.config._replace(sensor=sensor)
+    frames = program_graphs.FrameGraphs(cfg, cuda, program_graphs.GraphPool())
+    program_graphs.LAUNCHES_REPLAYED.clear()
+    for i in range(3):
+        host = (torch.from_numpy(seq.images[i].astype(np.float32)),
+                torch.from_numpy(seq.depths[i].astype(np.float32)))[:2 if sensor == "rgbd" else 1]
+        got = frames.single(sensor, host)
+        want = getattr(frame_mod, f"make_frame_{sensor}")(cfg, *(a.to(cuda) for a in host))
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), i
+    prog, = frames.single_programs
+    assert prog.graph is not None and prog.replays == 2
+    assert program_graphs.LAUNCHES_REPLAYED[fast_band.kernel.name] == 2
+
+
+def test_gba_merge_bootstrap_and_frame_build_replay_without_a_sync(cuda):
+    """Replays of both GBA slice kinds, the merge, the bootstrap's attempt
+    and frame build and the per-frame frame build, and global_bundle_adjust_slice,
+    merge_gba and mono_init.initialize_map op by op, under
+    torch.cuda.set_sync_debug_mode("error")."""
+    from self_commit_orb_slam2_tpu_torch.models import loop_closing, mono_init
+
+    slam = _loop_world(cuda)
+    cfg, cg, m = slam.config, slam.step_graph.closer, slam.map
+    cg.load_gba(m, 1)
+    T, p = cg.gba_slice(m.kf_Tcw, m.pt_pos, True)      # captures, then replays
+    T, p = cg.gba_slice(T, p, False)
+    cg.merge(m, m.kf_seq, m.pt_birth, T, p)
+    mcfg, seq, mono_sys = _mono_world(cuda)
+    mono = mono_sys.step_graph.mono
+    img = (torch.from_numpy(seq.images[0].astype(np.float32)),)
+    f1 = mono.frame(img)
+    f2 = mono.frame((torch.from_numpy(seq.images[1].astype(np.float32)),))
+    mono.try_initialize(mono_sys.map, f1, f2, 0.0, 0.1, 1, mono_sys._mono_gen)
+    mono_sys.step_graph.frames.single("mono", img)
+    ts = [torch.zeros((), device=cuda), torch.full((), 0.1, device=cuda),
+          torch.ones((), dtype=torch.int32, device=cuda)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for huber in (True, False):
+            T, p = cg.gba_slice(T, p, huber)
+        cg.merge(m, m.kf_seq, m.pt_birth, T, p)
+        loop_closing.global_bundle_adjust_slice(cfg, m, T, p, torch.ones((), dtype=torch.int32,
+                                                                         device=cuda), True)
+        loop_closing.merge_gba(m, m.kf_seq, m.pt_birth, T, p)
+        mono.program.run(mono_sys._mono_gen)
+        mono.frame(img)
+        mono_sys.step_graph.frames.single("mono", img)
+        mono_init.initialize_map(mcfg, mono_sys.map, f1, f2, *ts, mono_sys._mono_gen)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert mono.program.replays >= 1 and cg.merge_program.replays >= 1
+
+
+def test_warm_start_captures_the_bootstrap_and_touches_no_state(cuda):
+    """On a mono configuration warm_start also captures the bootstrap's
+    frame build and attempt (the attempt bound to the System's mono
+    generator, whose state it leaves as it was) and the per-frame frame
+    build; the first real attempt replays."""
+    cfg, seq, slam = _mono_world(cuda)
+    gens = (slam._stream_gen, slam._reloc_gen, slam._mono_gen, slam._loop_gen)
+    before = [g.get_state() for g in gens]
+    slam.warm_start()
+    mono = slam.step_graph.mono
+    assert mono.program.graph is not None and mono.program.generator is slam._mono_gen
+    assert mono.frame.programs[0].graph is not None
+    assert [p.graph is not None for p in slam.step_graph.frames.single_programs] == [True]
+    assert slam.carry is None and slam.trajectory == [] and int(slam.map.n_kf) == 0
+    assert all(torch.equal(s, g.get_state()) for s, g in zip(before, gens))
+    captures = mono.program.capture_s
+    for i in range(3):
+        slam.track_monocular(seq.images[i], float(seq.timestamps[i]))
+    assert mono.program.replays >= 1 and mono.program.capture_s == captures

@@ -22,6 +22,9 @@ fp32), the rebound observations equal on >= 99.9% of entries (in
 correct_loop, and in the fuse alone from an aligned current keyframe).  merge_gba is
 arithmetic on given inputs: 1e-5.  The global BA from the corrected map:
 poses 2e-3, points 2e-3 m + 1e-3 relative on >= 99.9% (its test says why).
+A GBA aborted mid-slice by a newer correction, through both closers: the
+corrected map at the correction bounds, the merged map with poses within
+1e-3 and points at the same bound on >= 99.9% (its test says why).
 """
 
 import functools
@@ -372,3 +375,114 @@ def test_warmup_leaves_the_closer_and_the_map_as_they_were(states):
     assert lc.pending() == 0 and lc.n_big_changes == 0 and lc._kf_counter == 0
     for f, x, y in zip(m._fields, m, m_before):
         assert torch.equal(x, y), f
+
+
+ABORT_AFTER = 3   # slices the first GBA runs before the call that aborts it
+
+
+def _gba_abort_run(lc, m, inject, read_phase):
+    """Two corrections, the second landing in the resolve() after
+    ABORT_AFTER slices of the first one's GBA (that call runs slice
+    ABORT_AFTER + 1, then aborts); then resolve() until the second GBA is
+    merged.  inject(lc, i, counter) queues detection i.  Returns (final
+    map, the phase after each call)."""
+    inject(lc, 0, 1)
+    m, _ = lc.resolve(m)
+    phases = [read_phase(lc)]
+    for _ in range(ABORT_AFTER):
+        m, _ = lc.resolve(m)
+        phases.append(read_phase(lc))
+    inject(lc, 1, 1 + loop_closing.COOLDOWN)
+    m, _ = lc.resolve(m)
+    phases.append(read_phase(lc))
+    for _ in range(len(loop_closing.GBA_SLICES) - 1):
+        m, _ = lc.resolve(m)
+        phases.append(read_phase(lc))
+    m, _ = lc.resolve(m, block=True)
+    assert lc._pending_gba is None and lc.n_big_changes == 2
+    return m, phases
+
+
+def test_gba_aborted_mid_slice_by_a_newer_correction(states):
+    """ROADMAP C3: a newer correction fired while the global BA of the one
+    before is at slice ABORT_AFTER + 1 of 10, in both packages on the same
+    map and detections (loop_consistency_th 1): the JAX detection of the
+    RGB-D state, then the JAX package's detection of the same keyframe on
+    the map that correction left (PRNGKey(3)).  In each the old GBA is
+    dropped, the new one starts at phase 0 on the twice-corrected map and
+    is merged after its tenth slice.  The port runs it through the closer's
+    programs on the CPU and op by op: bit for bit alike, and equal to
+    correct, correct, ten slices and merge called directly (the dropped GBA
+    leaves nothing behind).  Against the JAX package: the map the new GBA
+    starts from at the correction bounds (poses 1e-3, points 2e-3 m + 1e-3
+    relative); the merged map with poses within 1e-3 and points at the
+    same bound on >= 99.9% of coordinates (the global BA's fp32 solves in
+    another order; test_global_bundle_adjust_matches says why)."""
+    from self_commit_orb_slam2_tpu_torch.models.program_graphs import CloserGraphs
+
+    s = states["rgbd"]
+    kf = s["kf"]
+    jcfg, tcfg = _configs(loop_consistency_th=1)
+    n = len(loop_closing.GBA_SLICES)
+    jcorrect = jax.jit(functools.partial(jlc.correct_loop, jcfg))
+    jm1 = jcorrect(jax.device_put(s["m"]), jnp.int32(kf), jax.device_put(s["det"]))
+    det2 = jax.device_get(jax.jit(functools.partial(jlc.detect_and_verify, jcfg))(
+        jm1, jnp.int32(kf), jax.random.PRNGKey(3)))
+    assert bool(det2.found)
+    jm2 = jax.device_get(jcorrect(jm1, jnp.int32(kf), jax.device_put(det2)))
+    jdets = [jax.tree.map(lambda x: jnp.asarray(x)[None], d) for d in (s["det"], det2)]
+
+    def inject_jax(lc, i, counter):
+        lc._kf_counter = counter
+        d = jdets[i]
+        lc._pending_dets.append(([(counter, kf)], d,
+                                 (d.found, d.best_c, d.groups, d.group_ok, d.cand_kf), None))
+
+    def phase(lc):
+        return None if lc._pending_gba is None else lc._pending_gba["phase"]
+
+    jm, jphases = _gba_abort_run(jlc.LoopCloser(jcfg), jax.device_put(s["m"]), inject_jax, phase)
+    # both closers advance before they consume: the abort call ran slice
+    # ABORT_AFTER + 1 of the old GBA and left the new one at phase 0; it then
+    # advances once a call, its tenth slice and the merge in the last
+    assert jphases == list(range(ABORT_AFTER + 1)) + list(range(n))
+    want = jax.device_get(jm)
+
+    tdets = [loop_closing.LoopDetection(*(x[None] for x in _det_to_port(d)))
+             for d in (s["det"], det2)]
+
+    def inject_port(lc, i, counter):
+        lc._kf_counter = counter
+        lc._pending_dets.append(([(counter, kf)], tdets[i]))
+
+    got = {}
+    for graphed in (False, True):
+        lc = loop_closing.LoopCloser(tcfg, torch.Generator().manual_seed(7))
+        lc.graphs = CloserGraphs(tcfg, "cpu", pool=None) if graphed else None
+        m, phases = _gba_abort_run(lc, _port(s["m"]), inject_port, phase)
+        assert phases == jphases, graphed
+        assert lc.last_gba_info["gba_path"] == "dense"
+        got[graphed] = m
+    for a, b in zip(got[False], got[True]):
+        assert torch.equal(a, b)
+
+    # the same events called directly: the first GBA leaves no trace
+    kf_t = torch.tensor(kf, dtype=torch.int32)
+    m1 = loop_closing.correct_loop(tcfg, _port(s["m"]), kf_t, _det_to_port(s["det"]))
+    m2 = loop_closing.correct_loop(tcfg, m1, kf_t, _det_to_port(det2))
+    T, p = m2.kf_Tcw.clone(), m2.pt_pos.clone()
+    for huber in loop_closing.GBA_SLICES:
+        T, p = loop_closing.global_bundle_adjust_slice(tcfg, m2, T, p, int(det2.cand_kf), huber)
+    direct = loop_closing.merge_gba(m2, m2.kf_seq, m2.pt_birth, T, p)
+    for f, a, b in zip(direct._fields, got[True], direct):
+        assert torch.equal(a, b), f
+
+    np.testing.assert_allclose(m2.kf_Tcw.numpy(), np.asarray(jm2.kf_Tcw), atol=1e-3)
+    np.testing.assert_allclose(m2.pt_pos.numpy(), np.asarray(jm2.pt_pos), atol=2e-3, rtol=1e-3)
+    np.testing.assert_allclose(got[True].kf_Tcw.numpy(), np.asarray(want.kf_Tcw), atol=1e-3)
+    p_want = np.asarray(want.pt_pos)
+    close = np.abs(got[True].pt_pos.numpy() - p_want) <= 2e-3 + 1e-3 * np.abs(p_want)
+    assert close.mean() >= 0.999
+    assert int(got[True].n_loop) == int(want.n_loop) == int(s["m"].n_loop) + 2
+    # the GBA moved the map: what it merged is not the corrected map
+    assert np.abs(np.asarray(want.kf_Tcw) - np.asarray(jm2.kf_Tcw)).max() > 1e-3
