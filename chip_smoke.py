@@ -5,7 +5,8 @@
 
 Phases (any failure exits non-zero and prints no result):
   1. device: the card's name, count, and nvidia-smi's name and power limit;
-  2. build: compile every kernel of the port's paths from the checkout's
+  2. build: compile every kernel of the port's paths and the chunk graph's
+     conditional-node helper (csrc/graph_cond.cu) from the checkout's
      sources (one nvcc per source, all at once, sm_90a) and print ptxas'
      registers / shared memory;
   3. kernels: run each kernel and its plain PyTorch version on the card at
@@ -23,22 +24,29 @@ Phases (any failure exits non-zero and prints no result):
   4. the port's System (RGB-D, 640x480, 1000 features, the bench's
      capacities, chunk 4, loop closing off) streams 1 + 60 frames of
      generate_sequence(seed=5, fx=520) along each path, with every launch
-     count set to 0 just before it and read just after:
+     count set to 0 just before it and read just after, each chunk one
+     frame-phase replay and one chunk-graph replay dispatched under
+     streaming.no_host_reads() (a host read in a dispatch raises):
        path 1: 16-px cells (FAST band kernel), local mapping off;
        path 2: 8-px cells (FAST NMS kernel + slab selection), local mapping
                on, one mapping pass per keyframe inserted after the first;
      each must end STATE_OK with >= 2 keyframes and ATE < 0.01 m, launch its
-     own kernel once per extraction call and the other kernel never, and
-     replay its step graphs (every System on the card tracks SLAM-mode
-     frames through the two CUDA graphs of models/step_graph.py, captured
-     at its first tracked frame or in warm_start); then the graph phase of
-     the path (phase_graph; also after paths 4 (a) and 5): 1 + 21 frames,
-     each chunk run op by op (pipeline.batch_steps_frames) on a clone
-     of the state and through the graphs on the live state, which must
-     agree (bitwise, else poses within 1e-5, inliers within 2, the same
-     keyframes); eager against graphed, tracking ms, device kernels, graph
-     replays, host syncs and cudaMemcpy calls per frame (torch.profiler),
-     idle share, the capture's seconds;
+     own kernel once per extraction call and the other kernel never, run
+     one mapping pass per keyframe after the first (counted on the card)
+     and replay one chunk graph a chunk (models/step_graph.py); then the
+     same frames through a System whose chunks replay the per-frame step
+     graphs (StepGraph.per_frame, its mapping passes timed): frames/s both
+     ways in one call; then the graph phase of the path (phase_graph; also
+     after paths 4 (a) and 5; the vocabulary added, so that the chunk graph
+     holds the LOST branches): 1 + 9 frames, each chunk run op by op
+     (pipeline.batch_steps_frames) on a clone of the state and through one
+     chunk-graph replay on the live state, bitwise (StepInfos, map, carry,
+     generator, relocalization counts) with 0 host syncs; op by op against
+     graphed, tracking ms, device kernels, graph replays, host syncs and
+     cudaMemcpy calls in a profiled chunk (torch.profiler), idle share, the
+     capture's seconds, the chunk graph's nodes, capture and instantiation
+     seconds; then a chunk whose blank first frame goes LOST and whose
+     later frame relocalizes and makes a keyframe, likewise bitwise;
   5. vocabulary: the bundled vocabulary (k=10, L=6) is loaded and moved to
      the card; transform + sparse_bow of one extracted frame on the card must
      equal the same calls on the CPU (words, nodes, ids exactly; weights
@@ -51,8 +59,10 @@ Phases (any failure exits non-zero and prints no result):
        a. 1 + 40 frames streamed: STATE_OK, >= 2 keyframes, ATE < 0.01 m, a
           BoW row and node ids in every keyframe, no relocalization attempt;
        b. one batch of 3 blank frames, frame 20 three times, frame 21 twice:
-          recovers inside the batch, within 0.05 m of its own estimate, one
-          replay of the lost graph per relocalization;
+          recovers inside the batch, within 0.05 m of its own estimate,
+          through the LOST branches of two chunk-graph replays (no replay
+          of the lost graph); b'. a LOST-then-keyframe chunk, op by op
+          against the chunk graph, bitwise, 0 host syncs;
        c. per frame: 3 blank frames (LOST), then frame 24 until it recovers,
           through the lost graph and the relocalization graph;
           then one relocalization from one state, op by op against the
@@ -64,7 +74,9 @@ Phases (any failure exits non-zero and prints no result):
           point added, the map unchanged, poses bitwise (else within 1e-5),
           within 0.05 m of the estimates of (a), ms a frame each way;
        d'. a kidnap inside localization mode: 3 blank frames, then mapped
-          frames until it recovers through loc_lost, within 0.05 m;
+          frames until it recovers through loc_lost, within 0.05 m; d''. a
+          kidnap inside a localization-mode chunk, op by op against the
+          loc_chunk graph, bitwise, 0 host syncs;
        e. save_map, load_map into a second System: every field equal.
   7. the band kernel at the stereo paths' slab shapes (first pair 16 slices,
      chunk 64 slices, of 384x1241 and of 480x752): bitwise against the plain
@@ -116,7 +128,8 @@ Phases (any failure exits non-zero and prints no result):
      detection, correction, the ten GBA slices and the merge through the
      stream's closer graphs against op by op from that state (bitwise, else
      the stated bounds; ms a call, a slice and a merge each way; host syncs
-     in a replay, 0, hard).
+     in a replay, 0, hard); then a LOST-then-keyframe chunk on the
+     closer's System, op by op against the chunk graph, bitwise.
 
  13. path 7, the drivers, on frames of the paths above written to disk in
      each dataset's layout (stdlib PNG writer), decoded by the native decoder
@@ -160,11 +173,14 @@ Phases (any failure exits non-zero and prints no result):
           mean squared reprojection error below 0.2x its value before, (a)'s
           map's not above; the pose graph's and the BA's ms, peak memory;
        c. FleetTracker serving 4 RGB-D streams (generate_sequence seeds 5 to
-          8, 1 + 24 frames each, 640x480, 1000 features, the bench's
-          capacities, chunks of 4), through its per-stream graph runners and
-          op by op in one call: each STATE_OK with ATE < 0.01 m, stream 0
-          within 5e-2 of a solo System on its frames, B1 once per stream per
-          extraction call; frames/s per stream and for the fleet each way;
+          8, 1 + 8 frames each, 640x480, 1000 features, the bench's
+          capacities, chunks of 4), through its per-stream graph runners (one
+          chunk-graph replay a stream a chunk, every dispatch under sync
+          debug mode "error") and op by op in one call: poses, maps and
+          carries bitwise equal both ways, each STATE_OK with ATE < 0.01 m,
+          stream 0 within 5e-2 of a solo System on its frames, B1 once per
+          stream per extraction call; frames/s per stream and for the fleet
+          each way;
           then initialize_localization of 2 streams on path 3's saved map and
           2 chunks of localization mode (loc_core replays), graphed and op by
           op: every pose within 0.05 m;
@@ -310,14 +326,17 @@ def phase_device():
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
+    from self_commit_orb_slam2_tpu_torch.models import program_graphs
     from self_commit_orb_slam2_tpu_torch.ops.orb import fast_band, fast_nms
 
     kernels = [fast_band.kernel, fast_nms.kernel]
+    cond = program_graphs._COND_BEGIN   # csrc/graph_cond.cu: the chunk graph's IF nodes
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(kernels)) as pool:   # one nvcc per source, together
-        libs = list(pool.map(lambda k: k.build(), kernels))
-    print(f"[build] {len(kernels)} kernels in {time.perf_counter() - t0:.1f} s")
-    for k, lib in zip(kernels, libs):
+    with ThreadPoolExecutor(len(kernels) + 1) as pool:   # one nvcc per source, together
+        libs = list(pool.map(lambda k: k.build(), kernels + [cond]))
+    print(f"[build] {len(kernels)} kernels and the conditional-node helper in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for k, lib in zip(kernels + [cond], libs):
         print(f"[build] {k.name}: {lib.name}")
         for line in k.build_log.splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
@@ -652,54 +671,64 @@ def phase_frame_programs(seq):
     return out, err
 
 
-def phase_path(seq, kernels, label: str, cell_size: int, mapping: bool, own: str):
+def phase_path(seq, kernels, label: str, cell_size: int, mapping: bool, own: str, vocab):
     """Stream the N_FRAMES frames through the System along one path; `own` is the
-    FAST kernel the path must run (once per extraction call)."""
+    FAST kernel the path must run (once per extraction call).  Each chunk is
+    one frame-phase replay and one chunk-graph replay, dispatched under
+    streaming.no_host_reads() (a host read there raises); the mapping passes
+    are counted on the card.  Then the same frames through the same System,
+    reset, its chunks replaying the per-frame step graphs slot by slot
+    (StepGraph.per_frame), its mapping passes timed: frames/s both ways."""
     import torch
 
-    from self_commit_orb_slam2_tpu_torch.models import pipeline
+    from self_commit_orb_slam2_tpu_torch.models import pipeline, streaming
     from self_commit_orb_slam2_tpu_torch.models.system import STATE_OK, System
     from self_commit_orb_slam2_tpu_torch.utils.evaluation import ate_rmse
 
     cfg = _bench_config()
     cfg = cfg._replace(orb=cfg.orb._replace(cell_size=cell_size))
-    slam = System(cfg, enable_mapping=mapping, enable_loop_closing=False)
     images = np.clip(seq.images, 0, 255).astype(np.uint8)
     depths = np.clip(seq.depths * 1e3, 0, 65535).astype(np.uint16)
     ts = seq.timestamps
-
-    with pipeline.timed_mapping_passes() as pass_s:  # count and time them
-        _reset_launches(kernels)
-        sess = slam.open_stream("rgbd", CHUNK)
-        warm = 1 + CHUNK  # the initializing frame + the first chunk
-        sess.feed((images[:warm], depths[:warm]), ts[:warm])
-        torch.cuda.synchronize()
-        n_warm_passes = len(pass_s)
-        t0 = time.perf_counter()
-        sess.feed((images[warm:], depths[warm:]), ts[warm:])
-        sess.finish()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        launches = _launches(kernels)
-
+    warm = 1 + CHUNK  # the initializing frame + the first chunk
     n_timed = N_FRAMES - warm
+
+    def stream(slam, passes, checked):
+        sess = slam.open_stream("rgbd", CHUNK)
+        with streaming.no_host_reads() if checked else contextlib.nullcontext():
+            sess.feed((images[:warm], depths[:warm]), ts[:warm])
+            torch.cuda.synchronize()
+            n_warm = len(passes)
+            t0 = time.perf_counter()
+            sess.feed((images[warm:], depths[warm:]), ts[warm:])
+            sess.finish()
+            torch.cuda.synchronize()
+        return time.perf_counter() - t0, n_warm
+
+    slam = System(cfg, enable_mapping=mapping, enable_loop_closing=False)
+    with _counted_passes() as passes:
+        _reset_launches(kernels)
+        dt, _ = stream(slam, passes, True)
+        launches = _launches(kernels)
+        n_passes = len(passes)
     fps = n_timed / dt
     _, est = slam.get_trajectory()
     require(len(est) == N_FRAMES, f"{label}: trajectory has {len(est)} poses, want {N_FRAMES}")
     require(np.all(np.isfinite(est)), f"{label}: non-finite poses")
     ate = float(ate_rmse(est, seq.poses_gt[:len(est)]))
     n_kf, n_pt = slam.n_keyframes(), slam.n_points()
-    steady_map_s = sum(pass_s[n_warm_passes:])
+    sg = slam.step_graph
     print(f"[{label}] {N_FRAMES} frames {WIDTH}x{HEIGHT}, {N_FEATURES} features, "
           f"cell {cell_size}, mapping {'on' if mapping else 'off'}, chunk {CHUNK}: "
           f"state {slam.state}, keyframes {n_kf}, points {n_pt}, culled keyframes "
           f"{int(slam.map.n_culled)}, ATE {ate:.6f} m")
-    print(f"[{label}] steady stream: {n_timed} frames in {dt:.3f} s = {fps:.2f} "
-          f"frames/s (host clock, ends in cuda.synchronize)")
-    if mapping:
-        print(f"[{label}] mapping passes: {len(pass_s)}, mean {np.mean(pass_s) * 1e3:.1f} ms "
-              f"per pass (host clock, synced); steady stream: {steady_map_s:.3f} s of "
-              f"mapping, {dt - steady_map_s:.3f} s of frame building and tracking")
+    print(f"[{label}] steady stream through the chunk graph: {n_timed} frames in {dt:.3f} s = "
+          f"{fps:.2f} frames/s (host clock, ends in cuda.synchronize); "
+          f"{sg.part_replays['chunk']} chunk-graph replays and "
+          f"{sum(p.replays for p in sg.frames.programs)} frame-phase replays for "
+          f"{(N_FRAMES - 1) // CHUNK} chunks, per-frame parts replayed "
+          f"{sg.replays - sg.part_replays['chunk']} times; every dispatch under sync debug mode "
+          f"'error'; mapping passes {n_passes} (counted on the card)")
     print(f"[{label}] launches during the run: {launches}")
     require(slam.state == STATE_OK, f"{label}: tracking lost (state {slam.state})")
     require(n_kf >= 2, f"{label}: only {n_kf} keyframes")
@@ -709,17 +738,39 @@ def phase_path(seq, kernels, label: str, cell_size: int, mapping: bool, own: str
         want = n_extract if name == own else 0
         require(n == want, f"{label}: {name} launched {n} times, want {want}")
     want_passes = n_kf - 1 if mapping else 0
-    require(len(pass_s) == want_passes,
-            f"{label}: {len(pass_s)} mapping passes, want {want_passes} (one per "
+    require(n_passes == want_passes,
+            f"{label}: {n_passes} mapping passes, want {want_passes} (one per "
             f"keyframe inserted after initialization)")
-    require(slam.step_graph.replays > 0, f"{label}: the stream replayed no step graph")
-    graphs = phase_graph(label, cfg, "rgbd", (images, depths), ts, mapping)
-    return launches[own], fps, ate, graphs
+    require(sg.part_replays["chunk"] == (N_FRAMES - 1) // CHUNK
+            and sg.replays == sg.part_replays["chunk"],
+            f"{label}: the stream did not run one chunk-graph replay a chunk "
+            f"({dict(sg.part_replays)})")
+
+    per_frame = slam   # reset, its per-frame parts captured at the first chunk
+    per_frame.reset()
+    per_frame.step_graph.per_frame = True
+    with pipeline.timed_mapping_passes() as pass_s:
+        dt_pf, n_warm = stream(per_frame, pass_s, False)
+    per_frame.step_graph.per_frame = False
+    fps_pf = n_timed / dt_pf
+    _, est_pf = per_frame.get_trajectory()
+    steady_map_s = sum(pass_s[n_warm:])
+    print(f"[{label}] the same stream through per-frame replays (StepGraph.per_frame): "
+          f"{fps_pf:.2f} frames/s against {fps:.2f} through the chunk graph (one call, one "
+          f"card); poses bitwise equal to the chunk graph's {bool(np.array_equal(est, est_pf))}; "
+          f"{per_frame.step_graph.replays - sg.part_replays['chunk']} step-graph replays"
+          + (f"; mapping passes {len(pass_s)}, mean {np.mean(pass_s) * 1e3:.1f} ms per pass "
+             f"(host clock, synced), {steady_map_s:.3f} s of the steady stream" if mapping
+             else ""))
+    require(per_frame.state == STATE_OK and len(pass_s) == want_passes,
+            f"{label}: the per-frame stream: state {per_frame.state}, {len(pass_s)} passes")
+    graphs = phase_graph(label, cfg, "rgbd", (images, depths), ts, mapping, vocab)
+    return launches[own], fps, fps_pf, ate, graphs
 
 
 # the graph phase of paths 1, 2, 4 (a) and 5: chunks of 4 after the first
 # frame (or the mono bootstrap), eager against graphed from the same states
-GRAPH_CHUNKS = 6
+GRAPH_CHUNKS = 3   # 6 until PR 14, cut for the time the chunk graphs' captures take
 GRAPH_POSE_TOL, GRAPH_INLIER_TOL = 1e-5, 2
 
 
@@ -733,30 +784,134 @@ def _graph_note(g) -> str:
     f = g["frame"]
     return (f"frame phase eager {f['eager_ms']:.2f} / graphed {f['graph_ms']:.2f} ms per frame "
             f"({f['syncs'][False]:.2f} / {f['syncs'][True]:.2f} host syncs), "
-            f"tracking eager {g['eager_ms']:.1f} / graphed {g['graph_ms']:.1f} ms per frame, "
-            f"host syncs {g['per'][False]['syncs']:.2f} / {g['per'][True]['syncs']:.2f}, "
-            f"kernels {g['per'][False]['kernels']:.0f} / {g['per'][True]['kernels']:.0f} per "
-            f"frame, capture {g['capture_s']:.1f} s, bitwise {g['bitwise']}")
+            f"tracking op by op {g['eager_ms']:.1f} / chunk graph {g['graph_ms']:.1f} ms per "
+            f"frame, profiled chunk host syncs {g['per'][False]['syncs']:.0f} / "
+            f"{g['per'][True]['syncs']:.0f}, kernels {g['per'][False]['kernels']:.0f} / "
+            f"{g['per'][True]['kernels']:.0f}, chunk graph {g['nodes']} nodes ({g['conds']} IF), "
+            f"capture {g['chunk_capture_s']:.2f} s + instantiation {g['instantiate_s']:.3f} s, "
+            f"bitwise {g['bitwise']}, LOST chunk keyframes at slots {g['lost']['slot_kf']}")
 
 
-def phase_graph(label, cfg, sensor, arrays, ts, mapping):
-    """Eager against graphed along one path (models/step_graph.py).  A fresh
-    System takes the path's first frame (or the mono bootstrap's frames) on
-    the per-frame path; its StepGraph captures on that state; then
-    GRAPH_CHUNKS chunks, built by the path's frame phase first.
-    Before each chunk the map, the carry and the stream's generator are
-    cloned; the chunk runs through pipeline.batch_steps_frames (op by op) on
-    the clone, then through the StepGraph on the live state.  Hard: the two
-    packed StepInfos agree (bitwise, else poses within GRAPH_POSE_TOL,
-    inliers within GRAPH_INLIER_TOL, the same keyframe decisions) and so do
-    the live keyframe slots and their frame ids.  The last chunk, its first
-    frame live and the other 3 padded (an op-by-op trace of 4 frames takes
-    the profiler minutes to read), runs both ways under torch.profiler.
-    Prints tracking ms per frame (host clock, synced, the chunks before the
-    last), the profiled frame's device kernels, graph replays, host syncs
-    (its flag read, the chunk's valid.tolist() and the closing
-    cuda.synchronize) and cudaMemcpy calls, and the idle share, and the
-    capture's seconds."""
+class _Passes:
+    """The local-mapping passes run since it was made, as the card counted
+    them (pipeline.pass_counter): a chunk graph runs them inside its
+    replays, where no host timer sees them (StepGraph.per_frame times them)."""
+
+    def __len__(self) -> int:
+        from self_commit_orb_slam2_tpu_torch.models import pipeline
+
+        return pipeline.mapping_passes()
+
+
+@contextlib.contextmanager
+def _counted_passes():
+    from self_commit_orb_slam2_tpu_torch.models import pipeline
+
+    pipeline.reset_mapping_passes()
+    yield _Passes()
+
+
+def _chunk_check(label, slam, frames, ts, valid, loc=False):
+    """One chunk op by op (pipeline.batch_steps_frames on clones of the map,
+    the carry and the stream generator: every slot on its own span of the
+    generator) and then through the System's dispatch of its tracking (one
+    replay of the chunk graph) on the live state, under the card's sync
+    debug mode.  Hard: the packed StepInfos, the map, the carry, the
+    generator and the relocalization counts bit for bit, one replay, 0 host
+    syncs.  Returns (unpacked StepInfos, ms op by op, ms graphed)."""
+    import torch
+
+    from self_commit_orb_slam2_tpu_torch.models import pipeline, relocalization
+
+    sg = slam.step_graph
+    ge = torch.Generator(device="cuda")
+    ge.set_state(slam._stream_gen.get_state())
+    n0 = relocalization.counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m_e, c_e, p_e = pipeline.batch_steps_frames(
+        slam.config, _clone_state(slam.map), _clone_state(slam.carry), frames, ts, valid,
+        slam.enable_mapping, localization_only=loc, generator=ge)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    n1 = relocalization.counts()
+    r0 = sg.replays
+    p_g, syncs = _count_syncs(lambda: slam._batch_steps(frames, ts, valid, loc))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    n2 = relocalization.counts()
+    bitwise = dict(packed=bool(torch.equal(p_e, p_g)), map=_same_tensors(m_e, slam.map),
+                   carry=_same_tensors(c_e, slam.carry),
+                   generator=bool(torch.equal(ge.get_state(), slam._stream_gen.get_state())),
+                   counts=(n1[0] - n0[0], n1[1] - n0[1]) == (n2[0] - n1[0], n2[1] - n1[1]))
+    require(all(bitwise.values()), f"{label}: the chunk graph against op by op: {bitwise}")
+    require(sg.replays - r0 == 1, f"{label}: {sg.replays - r0} replays for one chunk")
+    require(sum(syncs.values()) == 0, f"{label}: the chunk graph's dispatch made host syncs "
+            f"{dict(syncs)}")
+    return pipeline.unpack_infos(p_g.cpu().numpy()), (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+
+def _lost_chunk_check(label, slam, sess, arrays, ts, start, loc=False):
+    """A chunk whose first frame is blank (it goes LOST) and whose next
+    three are the path's frames start, start + 1, start + 2, through the
+    graphed frame phase, then _chunk_check.  Hard: the blank frame is lost
+    and a later frame of the chunk recovers through the LOST branch and, in
+    SLAM mode, makes a keyframe; up to three such chunks are tried (the
+    frames after each), since a recovery need not make its keyframe in the
+    same chunk.  Prints what it found."""
+    from self_commit_orb_slam2_tpu_torch.models import relocalization
+
+    for k in range(3):
+        i = start + 3 * k
+        if i + 3 > len(ts):   # past the path's frames: earlier ones, revisited
+            i -= 12
+        host = sess._upload([np.concatenate([np.zeros_like(a[:1]), a[i:i + 3]]) for a in arrays],
+                            [float(ts[i]) - 0.01] + [float(t) for t in ts[i:i + 3]])
+        frames, tsc, valid = slam._frame_phase(sess.sensor, host)
+        n0 = relocalization.counts()
+        infos, ms_e, ms_g = _chunk_check(f"{label} LOST chunk", slam, frames, tsc, valid, loc)
+        n1 = relocalization.counts()
+        kf = [int(b) for b in np.nonzero(infos.created_kf)[0]]
+        ok = list(map(bool, infos.state_ok))
+        found = (not ok[0] and any(ok[1:]) and n1[1] > n0[1]
+                 and (loc or any(b > 0 for b in kf)))
+        print(f"[{label}] {'localization' if loc else 'SLAM'}-mode chunk [blank, {i}, {i + 1}, "
+              f"{i + 2}]: states {ok}, keyframes at slots {kf}, relocalization attempts "
+              f"{n1[0] - n0[0]}, successes {n1[1] - n0[1]}; one chunk-graph replay bitwise equal "
+              f"to op by op (StepInfos, map, carry, generator, counts), 0 host syncs; op by op "
+              f"{ms_e:.1f} ms, graphed {ms_g:.1f} ms (host clock, synced)")
+        if found:
+            return dict(slot_kf=kf, ms=(ms_e, ms_g), tries=k + 1)
+    require(False, f"{label}: no chunk went LOST and then recovered"
+            + ("" if loc else " and made a keyframe"))
+
+
+def _chunk_stats_note(sg, name="chunk") -> str:
+    st = sg.chunk_stats[name]
+    return (f"{name} graph: {st.nodes} nodes ({st.conds} IF nodes), capture "
+            f"{st.capture_s:.3f} s, instantiation {st.instantiate_s:.3f} s (host clock)")
+
+
+def phase_graph(label, cfg, sensor, arrays, ts, mapping, vocab, slam=None):
+    """Op by op against the chunk graph along one path (models/step_graph.py),
+    the path's configuration with the vocabulary (so that its chunk graph
+    holds the LOST branches).  A fresh System (or the path's own `slam`,
+    reset, whose graphs its stream captured) takes the path's first frame
+    (or the mono bootstrap's frames) on the per-frame path; a fresh
+    System's StepGraph captures the per-frame parts and the chunk graph on
+    that state; then
+    GRAPH_CHUNKS chunks, built by the path's frame phase first, each through
+    _chunk_check (op by op on clones, then one chunk-graph replay on the
+    live state: bitwise, 0 host syncs).  The last chunk, its first frame
+    live and the other 3 padded (an op-by-op trace of 4 frames takes the
+    profiler minutes to read), runs both ways under torch.profiler.  Then a
+    chunk in which a blank frame goes LOST and a later frame recovers and
+    makes a keyframe (_lost_chunk_check).  Prints tracking ms per frame
+    (host clock, synced, the chunks before the last), the profiled chunk's
+    device kernels, graph replays, host syncs (op by op: the valid flags'
+    and the flags' reads and the closing cuda.synchronize; graphed: the
+    closing one) and cudaMemcpy calls, and the idle share, the capture's
+    seconds and the chunk graph's nodes, capture and instantiation."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -765,7 +920,13 @@ def phase_graph(label, cfg, sensor, arrays, ts, mapping):
     from self_commit_orb_slam2_tpu_torch.utils.profiling import trace_counts
 
     t_phase = time.perf_counter()
-    slam = System(cfg, enable_mapping=mapping, enable_loop_closing=False)
+    if cfg.vocab is None:
+        cfg = cfg._replace(vocab=vocab)
+    reused = slam is not None
+    if reused:
+        slam.reset()
+    else:
+        slam = System(cfg, enable_mapping=mapping, enable_loop_closing=False)
     sg = slam.step_graph
     require(sg is not None and sg.graphed, f"{label} graphs: the System has no CUDA StepGraph")
     i = 0
@@ -783,78 +944,69 @@ def phase_graph(label, cfg, sensor, arrays, ts, mapping):
     chunks, frame = _frame_phase_graphed_vs_eager(label, slam, sess, hosts)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sg.capture(slam.map, slam.carry, chunks[0][0].select(0), mapping, slam._stream_gen)
+    if not reused:
+        sg.capture(slam.map, slam.carry, chunks[0][0].select(0), mapping, slam._stream_gen,
+                   chunk=chunks[0][0])
     capture_s = time.perf_counter() - t0
 
-    def run(c, graphed):
-        frames, tsc, valid = chunks[c]
-        if graphed:
-            slam.map, slam.carry, packed = sg.batch_steps(
-                slam.map, slam.carry, frames, tsc, valid, mapping, slam._stream_gen)
-            return packed, slam.map
-        gen = torch.Generator(device="cuda")
-        gen.set_state(slam._stream_gen.get_state())
-        m, _, packed = pipeline.batch_steps_frames(
-            slam.config, _clone_state(slam.map), _clone_state(slam.carry), frames, tsc, valid,
-            mapping, generator=gen)
-        return packed, m
-
     secs = {False: 0.0, True: 0.0}
-    worst = dict(bitwise=True, pose=0.0, inliers=0)
-    traces = {}
-    for c in range(GRAPH_CHUNKS):
-        last = c == GRAPH_CHUNKS - 1
-        out = {}
-        for graphed in (False, True):
-            r0 = sg.replays
-            torch.cuda.synchronize()
-            with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if last
-                  else contextlib.nullcontext()) as prof:
-                t0 = time.perf_counter()
-                out[graphed] = run(c, graphed)
-                torch.cuda.synchronize()
-                dt = time.perf_counter() - t0
-            if last:
-                traces[graphed] = dict(trace_counts(prof, dt), replays=sg.replays - r0)
+    for c in range(GRAPH_CHUNKS - 1):
+        _, ms_e, ms_g = _chunk_check(f"{label} graphs chunk {c}", slam, *chunks[c])
+        secs[False] += ms_e / 1e3
+        secs[True] += ms_g / 1e3
+    traces, out = {}, {}
+    frames, tsc, valid = chunks[-1]
+    for graphed in (False, True):
+        r0 = sg.replays
+        if not graphed:
+            gen = torch.Generator(device="cuda")
+            gen.set_state(slam._stream_gen.get_state())
+            m, carry = _clone_state(slam.map), _clone_state(slam.carry)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if graphed:
+                packed = slam._batch_steps(frames, tsc, valid, False)
+                out[graphed] = (slam.map, slam.carry, packed)
             else:
-                secs[graphed] += dt
-        (pe, me), (pg, mg) = out[False], out[True]
-        ie, ig = (pipeline.unpack_infos(p.cpu().numpy()) for p in (pe, pg))
-        d_pose = float(np.abs(ie.Tcw - ig.Tcw).max())
-        d_inl = int(np.abs(ie.n_inliers - ig.n_inliers).max())
-        bitwise = bool(torch.equal(pe, pg))
-        worst.update(bitwise=worst["bitwise"] and bitwise, pose=max(worst["pose"], d_pose),
-                     inliers=max(worst["inliers"], d_inl))
-        require(bitwise or (d_pose <= GRAPH_POSE_TOL and d_inl <= GRAPH_INLIER_TOL
-                            and np.array_equal(ie.created_kf, ig.created_kf)),
-                f"{label} graphs: chunk {c} graphed against eager: pose {d_pose:.3e}, inliers "
-                f"{d_inl}, keyframes {ie.created_kf} against {ig.created_kf}")
-        require(torch.equal(me.kf_valid, mg.kf_valid)
-                and torch.equal(me.kf_frame_id[me.kf_valid], mg.kf_frame_id[mg.kf_valid]),
-                f"{label} graphs: chunk {c}: the keyframes differ")
+                out[graphed] = pipeline.batch_steps_frames(
+                    slam.config, m, carry, frames, tsc, valid, mapping, generator=gen)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        traces[graphed] = dict(trace_counts(prof, dt), replays=sg.replays - r0)
+    require(_same_tensors(out[False], out[True]),
+            f"{label} graphs: the profiled chunk graphed differs from op by op")
     require(bool(slam.carry.state_ok), f"{label} graphs: tracking lost")
     n_timed = CHUNK * (GRAPH_CHUNKS - 1)
     ms = {g: secs[g] / n_timed * 1e3 for g in secs}
     per = {g: {k: traces[g][k] for k in ("kernels", "syncs", "memcpy", "replays")}
-           for g in traces}   # one live frame
+           for g in traces}   # one live frame and 3 padded
     for g in (False, True):
         t = traces[g]
-        print(f"[{label} graphs] {'graphed' if g else 'eager  '}: tracking {ms[g]:.2f} ms/frame "
-              f"(host clock, synced, {n_timed} frames); profiled frame: {per[g]['kernels']:.0f} "
-              f"device kernels, {per[g]['replays']:.0f} graph replays, {per[g]['syncs']:.0f} host "
-              f"syncs, {per[g]['memcpy']:.0f} cudaMemcpy calls, idle share {t['idle']:.3f} "
-              f"(device busy {t['busy_ms']:.2f} ms, under the profiler)")
-    print(f"[{label} graphs] capture {capture_s:.2f} s (warm-up x2 + the SLAM-mode graphs: "
-          f"{sorted(sg._graphs)}); graphed "
-          f"against eager over {n_timed + 1} frames from the same states: bitwise "
-          f"{worst['bitwise']}, worst pose {worst['pose']:.3e}, worst inliers "
-          f"{worst['inliers']}; {int(slam.map.kf_valid.sum())} keyframes; the phase took "
+        print(f"[{label} graphs] {'chunk graph' if g else 'op by op   '}: tracking "
+              f"{ms[g]:.2f} ms/frame (host clock, synced, {n_timed} frames); profiled chunk (1 "
+              f"live frame, 3 padded): {per[g]['kernels']:.0f} device kernels, "
+              f"{per[g]['replays']:.0f} graph replays, {per[g]['syncs']:.0f} host syncs, "
+              f"{per[g]['memcpy']:.0f} cudaMemcpy calls, idle share {t['idle']:.3f} (device busy "
+              f"{t['busy_ms']:.2f} ms, under the profiler)")
+    lost = _lost_chunk_check(f"{label} graphs", slam, sess, arrays, ts,
+                             min(i + CHUNK * GRAPH_CHUNKS, len(ts) - 3))
+    print(f"[{label} graphs] "
+          + ("the path's System reused, its graphs captured in its stream: " if reused else
+             f"capture {capture_s:.2f} s (warm-up + the SLAM-mode graphs: ")
+          + f"{sorted(sg._graphs)}); {_chunk_stats_note(sg)}; a chunk is 1 frame-phase replay + "
+          f"1 chunk-graph replay and 0 host syncs; op by op against the chunk graph over "
+          f"{n_timed + 1} frames and the LOST chunk from the same states: bitwise; "
+          f"{int(slam.map.kf_valid.sum())} keyframes; the phase took "
           f"{time.perf_counter() - t_phase:.1f} s")
-    require(traces[True]["replays"] >= 1 and traces[False]["replays"] == 0,
+    require(traces[True]["replays"] == 1 and traces[False]["replays"] == 0,
             f"{label} graphs: {traces[True]['replays']} replays graphed, "
-            f"{traces[False]['replays']} eager in the profiled frame")
+            f"{traces[False]['replays']} op by op in the profiled chunk")
+    st = sg.chunk_stats["chunk"]
     return dict(eager_ms=ms[False], graph_ms=ms[True], per=per, capture_s=capture_s,
-                idle={g: traces[g]["idle"] for g in traces}, frame=frame, **worst)
+                idle={g: traces[g]["idle"] for g in traces}, frame=frame, bitwise=True,
+                nodes=st.nodes, conds=st.conds, chunk_capture_s=st.capture_s,
+                instantiate_s=st.instantiate_s, lost=lost)
 
 
 def _same_tensors(a, b) -> bool:
@@ -1039,7 +1191,7 @@ def phase_path3(seq, kernels, vocab):
 
     import torch
 
-    from self_commit_orb_slam2_tpu_torch.models import pipeline, relocalization
+    from self_commit_orb_slam2_tpu_torch.models import relocalization, streaming
     from self_commit_orb_slam2_tpu_torch.models.system import STATE_LOST, STATE_OK, System
     from self_commit_orb_slam2_tpu_torch.utils.evaluation import ate_rmse
 
@@ -1057,19 +1209,20 @@ def phase_path3(seq, kernels, vocab):
         require(got == {"fast_band": n_extract, "fast_nms": 0},
                 f"{label} {where}: launches {got}, want fast_band {n_extract}, fast_nms 0")
 
-    with pipeline.timed_mapping_passes() as pass_s:
+    with _counted_passes() as pass_s:
         _reset_launches(kernels)
         relocalization.reset_counts()
 
-        # (a) the steady stream
+        # (a) the steady stream, no host read in a dispatch
         sess = slam.open_stream("rgbd", CHUNK)
         warm = 1 + CHUNK
-        sess.feed((images[:warm], depths[:warm]), ts[:warm])
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sess.feed((images[warm:n_a], depths[warm:n_a]), ts[warm:n_a])
-        sess.finish()
-        torch.cuda.synchronize()
+        with streaming.no_host_reads():
+            sess.feed((images[:warm], depths[:warm]), ts[:warm])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sess.feed((images[warm:n_a], depths[warm:n_a]), ts[warm:n_a])
+            sess.finish()
+            torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         fps = (n_a - warm) / dt
         _, est = slam.get_trajectory()
@@ -1086,8 +1239,8 @@ def phase_path3(seq, kernels, vocab):
               f"{CHUNK}: state {slam.state}, keyframes {n_kf}, points {n_pt}, ATE {ate:.6f} m; "
               f"{n_a - warm} frames in {dt:.3f} s = {fps:.2f} frames/s (host clock, synced); "
               f"BoW words per keyframe {int(rows[m.kf_valid].min())} to "
-              f"{int(rows[m.kf_valid].max())}; mapping passes {len(pass_s)}, mean "
-              f"{np.mean(pass_s) * 1e3:.1f} ms; relocalization attempts {attempts}")
+              f"{int(rows[m.kf_valid].max())}; mapping passes {len(pass_s)} (counted on the "
+              f"card); relocalization attempts {attempts}")
         require(slam.state == STATE_OK, f"{label} (a): tracking lost")
         require(n_kf >= 2, f"{label} (a): only {n_kf} keyframes")
         require(ate < ATE_LIMIT_M, f"{label} (a): ATE {ate:.6f} m >= {ATE_LIMIT_M} m")
@@ -1102,23 +1255,27 @@ def phase_path3(seq, kernels, vocab):
         counts_ok(n_extract, "(a)")
         launches_a = n_extract
 
-        # (b) kidnapped and returned inside one batch, through the lost graph
+        # (b) kidnapped and returned inside one batch, through the LOST
+        # branches of the chunk graph (IF nodes: no replay of the lost graph)
         sg = slam.step_graph
         require(sg is not None and sg.graphed, f"{label}: the System has no CUDA StepGraph")
-        lost0 = sg.part_replays["lost"]
+        lost0, chunk0 = sg.part_replays["lost"], sg.part_replays["chunk"]
         imgs = np.stack([blank] * 3 + [seq.images[20]] * 3 + [seq.images[21]] * 2)
         deps = np.stack([no_depth] * 3 + [seq.depths[20]] * 3 + [seq.depths[21]] * 2)
-        poses = slam.track_batch_rgbd(imgs, deps, np.arange(8) / 30.0 + 10.0, chunk=CHUNK)
+        with streaming.no_host_reads():
+            poses = slam.track_batch_rgbd(imgs, deps, np.arange(8) / 30.0 + 10.0, chunk=CHUNK)
         attempts_b, ok_b = relocalization.counts()
         d_b = float(np.linalg.norm(_centre(poses[-3]) - _centre(own[20])))
-        lost_b = sg.part_replays["lost"] - lost0
+        lost_b, chunk_b = sg.part_replays["lost"] - lost0, sg.part_replays["chunk"] - chunk0
         print(f"[{label}] (b) batch of 3 blank + 5 mapped frames: state {slam.state}, "
-              f"relocalization attempts {attempts_b}, successes {ok_b}, lost-graph replays "
-              f"{lost_b}, recovered centre {d_b:.4f} m from the earlier estimate of frame 20")
+              f"relocalization attempts {attempts_b}, successes {ok_b} (counted on the card), "
+              f"chunk-graph replays {chunk_b}, lost-graph replays {lost_b}, recovered centre "
+              f"{d_b:.4f} m from the earlier estimate of frame 20")
         require(slam.state == STATE_OK, f"{label} (b): not recovered inside the batch")
-        require(attempts_b >= 1 and ok_b >= 1, f"{label} (b): no relocalization success")
-        require(lost_b == attempts_b, f"{label} (b): {lost_b} lost-graph replays for "
-                f"{attempts_b} relocalizations")
+        require(attempts_b >= 4 and ok_b >= 1, f"{label} (b): {attempts_b} relocalization "
+                f"attempts, {ok_b} successes, want one a blank frame and a recovery")
+        require(chunk_b == 2 and lost_b == 0, f"{label} (b): {chunk_b} chunk-graph and {lost_b} "
+                "lost-graph replays for 2 chunks")
         require(d_b < 0.05, f"{label} (b): recovered {d_b:.4f} m away")
         n_extract += 2
         counts_ok(n_extract, "(b)")
@@ -1189,11 +1346,15 @@ def phase_path3(seq, kernels, vocab):
 
         # (d) localization mode through the graphs, then the same frames op by
         # op on the state before them
+        # (b') a LOST-then-keyframe chunk, op by op against the chunk graph
+        lost3 = _lost_chunk_check(label, slam, sess, (images, depths), ts, 26)
+        n_extract += lost3["tries"]
+
         before = (_clone_state(slam.map), _clone_state(slam.carry), slam.state,
                   slam._stream_gen.get_state(), slam._reloc_gen.get_state())
         n_kf_d, n_pt_d, n_pass_d = slam.n_keyframes(), slam.n_points(), len(pass_s)
         t0 = time.perf_counter()
-        slam.activate_localization_mode()     # captures loc_core and loc_lost
+        slam.activate_localization_mode()     # captures loc_core, loc_lost and loc_chunk
         torch.cuda.synchronize()
         loc_capture_s = time.perf_counter() - t0
         loc = {}
@@ -1260,7 +1421,14 @@ def phase_path3(seq, kernels, vocab):
                 f"{label} (d'): the kidnap did not go through loc_lost")
         require(slam.n_keyframes() == n_kf_d and slam.n_points() == n_pt_d,
                 f"{label} (d'): the map changed")
-        counts_ok(n_extract, "(d')")
+        # (d'') a kidnap inside a localization-mode chunk, op by op against
+        # the loc_chunk graph
+        lost3_loc = _lost_chunk_check(label, slam, sess, (images, depths), ts, 30, loc=True)
+        n_extract += lost3_loc["tries"]
+        require(slam.n_keyframes() == n_kf_d and slam.n_points() == n_pt_d,
+                f"{label} (d''): the map changed")
+        print(f"[{label}] {_chunk_stats_note(sg)}; {_chunk_stats_note(sg, 'loc_chunk')}")
+        counts_ok(n_extract, "(d'')")
         attempts_d, ok_d = relocalization.counts()
         slam.deactivate_localization_mode()
 
@@ -1419,7 +1587,7 @@ def phase_path_stereo(label, seq, cfg, n_stream, ate_limit, kernels):
     rest one by one through track_stereo."""
     import torch
 
-    from self_commit_orb_slam2_tpu_torch.models import pipeline, relocalization
+    from self_commit_orb_slam2_tpu_torch.models import relocalization, streaming
     from self_commit_orb_slam2_tpu_torch.models.system import STATE_OK, System
     from self_commit_orb_slam2_tpu_torch.utils.evaluation import ate_rmse
 
@@ -1430,20 +1598,19 @@ def phase_path_stereo(label, seq, cfg, n_stream, ate_limit, kernels):
         require(all(m.is_cuda for m in slam.config.rect_maps),
                 f"{label}: the rectification maps are not on the card")
     il, ir, ts = _u8(seq.images), _u8(seq.right_images), seq.timestamps
-    with pipeline.timed_mapping_passes() as pass_s:
+    with _counted_passes() as pass_s:
         _reset_launches(kernels)
         relocalization.reset_counts()
         sess = slam.open_stream("stereo", CHUNK)
         warm = 1 + CHUNK
-        sess.feed((il[:warm], ir[:warm]), ts[:warm])
-        torch.cuda.synchronize()
-        n_warm_passes = len(pass_s)
-        t0 = time.perf_counter()
-        sess.feed((il[warm:n_stream], ir[warm:n_stream]), ts[warm:n_stream])
-        sess.finish()
-        torch.cuda.synchronize()
+        with streaming.no_host_reads():
+            sess.feed((il[:warm], ir[:warm]), ts[:warm])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sess.feed((il[warm:n_stream], ir[warm:n_stream]), ts[warm:n_stream])
+            sess.finish()
+            torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        map_s = sum(pass_s[n_warm_passes:])
         per_frame_s = []
         for i in range(n_stream, n):
             t0 = time.perf_counter()
@@ -1467,10 +1634,11 @@ def phase_path_stereo(label, seq, cfg, n_stream, ate_limit, kernels):
           f"{slam.state}, keyframes {n_kf}, points {n_pt}, ATE {ate:.6f} m, depth on "
           f"{share:.3f} of the last frame's keypoints, relocalization attempts {attempts}")
     print(f"[{label}] steady stream: {n_stream - warm} pairs in {dt:.3f} s = {fps:.2f} "
-          f"frames/s (host clock, synced), of which mapping {map_s:.3f} s; mapping passes "
-          f"{len(pass_s)}, mean {np.mean(pass_s) * 1e3:.1f} ms per pass"
+          f"frames/s (host clock, synced; the chunk graph, every dispatch under sync debug "
+          f"mode 'error'); mapping passes {len(pass_s)} (counted on the card)"
           + (f"; track_stereo per pair: {np.mean(per_frame_s) * 1e3:.1f} ms mean over "
-             f"{len(per_frame_s)} (host clock, synced)" if per_frame_s else ""))
+             f"{len(per_frame_s)}, median {np.median(per_frame_s) * 1e3:.1f} (host clock, "
+             f"synced; the first captures the per-frame step graphs)" if per_frame_s else ""))
     print(f"[{label}] launches during the run: {launches}")
     require(slam.state == STATE_OK, f"{label}: tracking lost (state {slam.state})")
     require(n_kf >= 2, f"{label}: only {n_kf} keyframes")
@@ -1480,7 +1648,7 @@ def phase_path_stereo(label, seq, cfg, n_stream, ate_limit, kernels):
     want = 1 + -(-(n_stream - 1) // CHUNK) + (n - n_stream)
     require(launches == {"fast_band": want, "fast_nms": 0},
             f"{label}: launches {launches}, want fast_band {want}, fast_nms 0")
-    return want, fps, ate, float(np.mean(pass_s) * 1e3)
+    return want, fps, ate, len(pass_s), slam
 
 
 def phase_two_view():
@@ -1565,7 +1733,7 @@ def phase_path5(seq, kernels, vocab):
     budget) and streams the rest of its 9 frames, the second streams 32."""
     import torch
 
-    from self_commit_orb_slam2_tpu_torch.models import pipeline, program_graphs, relocalization
+    from self_commit_orb_slam2_tpu_torch.models import program_graphs, relocalization, streaming
     from self_commit_orb_slam2_tpu_torch.models.system import STATE_OK, System
     from self_commit_orb_slam2_tpu_torch.utils.evaluation import ate_rmse
 
@@ -1591,14 +1759,15 @@ def phase_path5(seq, kernels, vocab):
 
     runner.try_initialize = timed_try
     try:
-        with pipeline.timed_mapping_passes() as pass_s:
+        with _counted_passes() as pass_s:
             _reset_launches(kernels)
             relocalization.reset_counts()
             slam.track_batch_mono(images[:first], ts[:first], chunk=CHUNK)
             torch.cuda.synchronize()
             require(slam.state == STATE_OK, f"{label}: no map after {first} frames")
             t0 = time.perf_counter()
-            slam.track_batch_mono(images[first:], ts[first:], chunk=CHUNK)
+            with streaming.no_host_reads():
+                slam.track_batch_mono(images[first:], ts[first:], chunk=CHUNK)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             launches = _launches(kernels)
@@ -1619,8 +1788,8 @@ def phase_path5(seq, kernels, vocab):
           f"{slam.state}, keyframes {n_kf}, points {n_pt}, Sim3-aligned ATE {ate:.6f} m, "
           f"relocalization attempts {attempts}")
     print(f"[{label}] steady stream: {N_MONO - first} frames in {dt:.3f} s = {fps:.2f} frames/s "
-          f"(host clock, synced); mapping passes {len(pass_s)}, mean "
-          f"{np.mean(pass_s) * 1e3:.1f} ms; launches {launches}")
+          f"(host clock, synced; the chunk graph, every dispatch under sync debug mode "
+          f"'error'); mapping passes {len(pass_s)} (counted on the card); launches {launches}")
     require(lag <= 6, f"{label}: the map took {lag + 1} frames to initialize")
     require(slam.state == STATE_OK, f"{label}: tracking lost")
     require(n_kf >= 3, f"{label}: only {n_kf} keyframes")
@@ -1636,7 +1805,7 @@ def phase_path5(seq, kernels, vocab):
             and slam.step_graph.mono.program.graph is not None,
             f"{label}: the bootstrap went through no graph")
     boot = phase_bootstrap_graphs(label, cfg, images, ts)
-    graphs = phase_graph(label, cfg, "mono", (images,), ts, True)
+    graphs = phase_graph(label, cfg, "mono", (images,), ts, True, vocab, slam)
     return want, fps, ate, boot, lag + 1, graphs
 
 
@@ -1827,7 +1996,8 @@ def phase_path6(seq6, kernels, vocab):
     per-frame closure; then the loop stages on the card against the CPU."""
     import torch
 
-    from self_commit_orb_slam2_tpu_torch.models import loop_closing, pipeline, relocalization
+    from self_commit_orb_slam2_tpu_torch.models import (loop_closing, pipeline, relocalization,
+                                                         streaming)
     from self_commit_orb_slam2_tpu_torch.models.system import (
         STATE_NOT_INITIALIZED, STATE_OK, System)
     from self_commit_orb_slam2_tpu_torch.utils.drift import displace_old_content, se3_increment
@@ -1858,8 +2028,9 @@ def phase_path6(seq6, kernels, vocab):
 
     cg.correct = spy_correct
     try:
-        with loop_closing.timed_phases() as ph, pipeline.timed_mapping_passes() as pass_s:
-            run = _stream_loop(label, slam, seq6, kernels, ph)
+        with loop_closing.timed_phases() as ph, _counted_passes() as pass_s:
+            with streaming.no_host_reads():
+                run = _stream_loop(label, slam, seq6, kernels, ph)
             stream_log = list(lc.debug_log)
             chunk_ms, events, stream_s, launches = (run[k] for k in (
                 "chunk_ms", "events", "stream_s", "launches"))
@@ -1917,8 +2088,8 @@ def phase_path6(seq6, kernels, vocab):
     print(f"[{label}] warm_start {warm_s:.2f} s before the stream (the closer's, the frame "
           f"phase's and the step's captures)")
     print(f"[{label}] stream {stream_s:.3f} s = {fps:.2f} frames/s (host clock, synced per chunk); "
-          f"median chunk {med:.1f} ms; mapping passes {len(pass_s)}, mean "
-          f"{np.mean(pass_s) * 1e3:.1f} ms; {n_timed} frames after the first chunk")
+          f"median chunk {med:.1f} ms; mapping passes {len(pass_s)} (counted on the card; every "
+          f"dispatch under sync debug mode 'error'); {n_timed} frames after the first chunk")
     for name, v in stream_ph.items():
         print(f"[{label}] {name}: {len(v)} calls, mean {np.mean(v):.1f} ms, max "
               f"{np.max(v):.1f} ms, all {[round(x, 1) for x in v]} (host clock, synced)")
@@ -1950,6 +2121,13 @@ def phase_path6(seq6, kernels, vocab):
     require("correct" in captured and "graph" in captured, f"{label}: no correction captured")
     stages = phase_loop_stages(cfg, captured)
     stages.update(phase_loop_graphs(slam, captured))
+    # a LOST-then-keyframe chunk on the closer's System, op by op against
+    # the chunk graph, on the revolution's frames after the per-frame part
+    images6 = _u8(seq6.images)
+    depths6 = np.clip(seq6.depths * 1e3, 0, 65535).astype(np.uint16)
+    stages["lost"] = _lost_chunk_check(label, slam, slam.open_stream("rgbd", CHUNK),
+                                       (images6, depths6), seq6.timestamps, n_pf)
+    print(f"[{label}] {_chunk_stats_note(slam.step_graph)}")
 
     # the same stream with the closer op by op (its graphs off, the step's on):
     # the same closures at the same frames
@@ -2701,7 +2879,7 @@ def phase_path7(seq, kitti, euroc, kernels, vocab, workdir):
 # refine_maps on that map and a perturbed copy; a FleetTracker serving 4
 # RGB-D streams, then 2 localization streams on path 3's saved map; NCCL
 # at a world of one rank.
-N_FLEET, N_FLEET_FRAMES, FLEET_SEED = 4, 25, 5
+N_FLEET, N_FLEET_FRAMES, FLEET_SEED = 4, 9, 5   # 25 frames until PR 14
 # (a) streams path 6's 184 frames (cut to 157 while the steps ran op by op, to
 # keep the script inside the 1200 s the chip check allows)
 N_LOOP_8A = 184
@@ -2758,7 +2936,7 @@ def phase_path8a(seq6, kernels, vocab):
 
     loop_closing.run_sharded_gba = timed_gba
     try:
-        with loop_closing.timed_phases() as ph, pipeline.timed_mapping_passes() as pass_s:
+        with loop_closing.timed_phases() as ph, _counted_passes() as pass_s:
             run = _stream_loop(label, slam, seq6, kernels, ph, N_LOOP_8A)
     finally:
         loop_closing.run_sharded_gba = orig
@@ -2912,31 +3090,33 @@ def phase_path8c(fleet_seqs, kernels, seq, cfg3, map3):
     graphed and op by op."""
     import torch
 
+    from self_commit_orb_slam2_tpu_torch.models import streaming
     from self_commit_orb_slam2_tpu_torch.models.system import System
     from self_commit_orb_slam2_tpu_torch.parallel.fleet import FleetTracker
     from self_commit_orb_slam2_tpu_torch.utils.evaluation import ate_rmse
 
     label = "path 8c"
     cfg = _bench_config()
-    runs, n_launch = {}, 0
+    runs, n_launch, fleets = {}, 0, {}
     for graphed in (True, False):
-        fleet = FleetTracker(cfg, n_streams=N_FLEET)
+        fleet = fleets[graphed] = FleetTracker(cfg, n_streams=N_FLEET)
         _reset_launches(kernels)
-        est, total_s, steady, n_chunks = _fleet_stream(fleet, fleet_seqs, graphed)
+        with streaming.no_host_reads():   # graphed: each stream's dispatch reads nothing
+            est, total_s, steady, n_chunks = _fleet_stream(fleet, fleet_seqs, graphed)
         launches = _launches(kernels)
         ates = [float(ate_rmse(est[s], q.poses_gt)) for s, q in enumerate(fleet_seqs)]
         n_steady = N_FLEET_FRAMES - 1 - CHUNK
         r = dict(est=est, ates=ates, fps_stream=N_FLEET_FRAMES / total_s,
                  fps_fleet=N_FLEET * N_FLEET_FRAMES / total_s, steady_stream=n_steady / steady,
                  steady_fleet=N_FLEET * n_steady / steady)
-        replays = (sum(sg.replays for sg in fleet.step_graphs) if graphed else 0)
+        replays = (sum(sg.part_replays["chunk"] for sg in fleet.step_graphs) if graphed else 0)
         way = "graphed" if graphed else "op by op"
         print(f"[{label}] FleetTracker {way}, {N_FLEET} RGB-D streams {WIDTH}x{HEIGHT}, "
               f"{N_FEATURES} features, capacities {cfg.caps.max_keyframes} / "
               f"{cfg.caps.max_points}, mapping on, world 1 (every stream on this rank), 1 + "
               f"{N_FLEET_FRAMES - 1} frames each in chunks of {CHUNK}: state_ok "
               f"{fleet.state_ok.tolist()}, keyframes {fleet.n_keyframes().tolist()}, ATE "
-              f"{[round(a, 6) for a in ates]} m; launches {launches}; step-graph replays "
+              f"{[round(a, 6) for a in ates]} m; launches {launches}; chunk-graph replays "
               f"{replays}")
         print(f"[{label}] {way}: {total_s:.3f} s in all: {r['fps_stream']:.2f} frames/s per "
               f"stream, {r['fps_fleet']:.2f} for the fleet; steady (after the first chunk) "
@@ -2949,11 +3129,18 @@ def phase_path8c(fleet_seqs, kernels, seq, cfg3, map3):
                 "per extraction call), fast_nms 0")
         require(fleet.state_ok.all(), f"{label} {way}: a stream lost tracking")
         require(max(ates) < ATE_LIMIT_M, f"{label} {way}: ATE {ates}")
-        require(not graphed or replays >= N_FLEET * (N_FLEET_FRAMES - 1),
-                f"{label}: the fleet's chunks did not replay the step graphs")
+        require(not graphed or (replays == N_FLEET * n_chunks and all(
+                    sg.replays == sg.part_replays["chunk"] for sg in fleet.step_graphs)),
+                f"{label}: the fleet's chunks did not replay one chunk graph each")
         runs[graphed] = r
     d_ways = float(np.abs(runs[True]["est"] - runs[False]["est"]).max())
-    print(f"[{label}] graphed against op by op: max |pose difference| {d_ways:.2e}")
+    same = [_same_tensors(fleets[True].maps[i], fleets[False].maps[i])
+            and _same_tensors(fleets[True].carries[i], fleets[False].carries[i])
+            for i in range(N_FLEET)]
+    print(f"[{label}] graphed against op by op: max |pose difference| {d_ways:.2e}; each "
+          f"stream's map and carry bitwise equal {same}; every graphed dispatch under sync "
+          f"debug mode 'error'; {_chunk_stats_note(fleets[True].step_graphs[0])}")
+    require(d_ways == 0.0 and all(same), f"{label}: the chunk graphs differ from op by op")
 
     solo = System(cfg, enable_loop_closing=False)
     q = fleet_seqs[0]
@@ -2994,7 +3181,7 @@ def phase_path8c(fleet_seqs, kernels, seq, cfg3, map3):
         want = 2 * (1 + len(chunk_s))
         n_launch += want
         loc_runs[graphed] = np.stack([np.stack([T for _, T in tr]) for tr in loc.trajectories])
-        replays = sum(sg.part_replays["loc_core"] for sg in loc.step_graphs) if graphed else 0
+        replays = sum(sg.part_replays["loc_chunk"] for sg in loc.step_graphs) if graphed else 0
         capture_note = ", the graphs' capture included" if graphed else ""
         print(f"[{label}] localization serving {way}: initialize_localization of 2 streams "
               f"(frames {starts.tolist()}) on path 3's saved map: success {ok.tolist()}, "
@@ -3002,15 +3189,15 @@ def phase_path8c(fleet_seqs, kernels, seq, cfg3, map3):
               f"{loc_ms:.1f} ms for both (host clock, synced{capture_note}); then "
               f"2 chunks of {CHUNK} in localization mode: worst translation {worst:.4f} m, "
               f"{2 * CHUNK * 2 / sum(chunk_s):.2f} frames/s for both streams, state_ok "
-              f"{loc.state_ok.tolist()}, loc_core replays {replays}; launches {launches}")
+              f"{loc.state_ok.tolist()}, loc_chunk replays {replays}; launches {launches}")
         require(ok.all(), f"{label} {way}: localization bring-up failed ({ok.tolist()})")
         require(max(errs) < 0.05 and worst < 0.05,
                 f"{label} {way}: relocalized {errs} m, tracked {worst:.4f} m away")
         require(loc.state_ok.all(), f"{label} {way}: a localization stream lost tracking")
         require(launches == {"fast_band": want, "fast_nms": 0},
                 f"{label} {way}: launches {launches}, want fast_band {want}")
-        require(not graphed or replays == 2 * 2 * CHUNK,
-                f"{label}: localization serving did not replay loc_core")
+        require(not graphed or replays == 2 * 2,
+                f"{label}: localization serving did not replay loc_chunk once a chunk")
     d_loc = float(np.abs(loc_runs[True] - loc_runs[False]).max())
     print(f"[{label}] localization serving graphed against op by op: max |pose difference| "
           f"{d_loc:.2e}")
@@ -3205,7 +3392,7 @@ def phase_path9a(seq9, kernels, vocab):
         require(not loops or (lc is not None and lc.enabled),
                 f"{label}: System(cfg) built no closer")
         slam.warm_start()   # as bench.py does: the captures before the stream
-        with loop_closing.timed_phases() as ph, pipeline.timed_mapping_passes() as pass_s:
+        with loop_closing.timed_phases() as ph, _counted_passes() as pass_s:
             run = _mono_stream(label, slam, seq9, kernels, ph)
         run.update(state=slam.state, phases={k: list(v) for k, v in ph.items()},
                    passes=len(pass_s))
@@ -3329,7 +3516,7 @@ def phase_path9b(seq9b, kernels):
     slam = System(cfg, enable_loop_closing=False)
     _b1_on_loop_frames(label, seq9b, cfg.orb, at=40)
     slam.warm_start()   # the step graphs' capture: start-up, outside the timed frames
-    with pipeline.timed_mapping_passes() as pass_s:
+    with _counted_passes() as pass_s:
         _reset_launches(kernels)
         relocalization.reset_counts()
         t0 = time.perf_counter()
@@ -3350,8 +3537,8 @@ def phase_path9b(seq9b, kernels):
           f"chunk {CHUNK}: keyframes inserted {total}, live {live} (at most {live_max}), culled "
           f"{culled}; points {pts} of {cfg.caps.max_points}; {len(est)} poses from "
           f"get_trajectory, ATE {ate:.6f} m; state {slam.state} ({n_lost} chunks ended lost); "
-          f"{N_BOUNDED / dt:.2f} frames/s (host clock, synced), mapping passes {len(pass_s)}, "
-          f"mean {np.mean(pass_s) * 1e3:.1f} ms; relocalization attempts {attempts}; launches "
+          f"{N_BOUNDED / dt:.2f} frames/s (host clock, synced), mapping passes {len(pass_s)} "
+          f"(counted on the card); relocalization attempts {attempts}; launches "
           f"{launches}")
     print(f"[{label}] a second pass, untimed, on the same frames: carried ids the birth guard "
           f"dropped {dropped}; keyframes inserted {int(counted.map.n_kf)}, live "
@@ -3427,13 +3614,14 @@ def main() -> int:
         lap("build and kernels")
         summary = [f"frame build ({WIDTH}x{HEIGHT}) graphed / op by op: " + ", ".join(
             f"{k} {v['ms'][True]:.3f} / {v['ms'][False]:.3f} ms" for k, v in fp.items())]
+        vocab, bow_ms, eig = phase_vocabulary(seq)   # the graph phases' LOST branches use it
         for label, cell, mapping, own in (("path 1", 16, False, "fast_band"),
                                           ("path 2", 8, True, "fast_nms")):
-            n, fps, ate, g = phase_path(seq, kernels, label, cell, mapping, own)
+            n, fps, fps_pf, ate, g = phase_path(seq, kernels, label, cell, mapping, own, vocab)
             results[own]["launches"] = n
-            summary.append(f"{label} {fps:.2f} frames/s, ATE {ate:.6f} m, " + _graph_note(g))
+            summary.append(f"{label} {fps:.2f} frames/s through the chunk graph, {fps_pf:.2f} "
+                           f"through per-frame replays, ATE {ate:.6f} m, " + _graph_note(g))
             lap(label)
-        vocab, bow_ms, eig = phase_vocabulary(seq)
         n3, fps3, ate3, r3, map3 = phase_path3(seq, kernels, vocab)
         results["fast_band"]["launches_path3"] = n3
         results["fast_nms"]["launches_path3"] = 0
@@ -3457,17 +3645,18 @@ def main() -> int:
         phase_band_shapes(kitti, euroc, euroc_maps, band)
         match_ms, share = phase_stereo_matcher(kitti)
         cfg4a = _sensor_config("stereo", vocab=vocab, max_frames_between_kf=10, **KITTI)
-        n4a, fps4a, ate4a, pass4a = phase_path_stereo("path 4a", kitti, cfg4a, N_KITTI, 0.01,
-                                                      kernels)
+        n4a, fps4a, ate4a, pass4a, slam4a = phase_path_stereo("path 4a", kitti, cfg4a, N_KITTI,
+                                                              0.01, kernels)
         g4a = phase_graph("path 4a", cfg4a, "stereo", (_u8(kitti.images),
                                                        _u8(kitti.right_images)),
-                          kitti.timestamps, True)
-        n4b, fps4b, ate4b, _ = phase_path_stereo(
+                          kitti.timestamps, True, vocab, slam4a)
+        del slam4a
+        n4b, fps4b, ate4b, _, _ = phase_path_stereo(
             "path 4b", euroc, _sensor_config("stereo", vocab=vocab, rect_maps=euroc_maps,
                                              max_frames_between_kf=10, **EUROC),
             N_EUROC - N_EUROC_PER_FRAME, 0.02, kernels)
-        summary.append(f"path 4a {fps4a:.2f} frames/s, ATE {ate4a:.6f} m, {pass4a:.1f} ms per "
-                       f"mapping pass, match_stereo {match_ms / CHUNK:.3f} ms per frame, depth "
+        summary.append(f"path 4a {fps4a:.2f} frames/s, ATE {ate4a:.6f} m, {pass4a} mapping "
+                       f"passes, match_stereo {match_ms / CHUNK:.3f} ms per frame, depth "
                        f"on {share:.3f} of the keypoints, {_graph_note(g4a)}; path 4b "
                        f"{fps4b:.2f} frames/s, ATE {ate4b:.6f} m")
         two_view_ms = phase_two_view()

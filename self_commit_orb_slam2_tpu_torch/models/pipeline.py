@@ -18,7 +18,8 @@ vocabulary, the "wants relocalization" flag, in one transfer).  A frame
 that relocalizes reads once more (the keyframe decision after the recovered
 pose).  Localization mode (_localization_core) and the LOST branch
 (relocalize_branch) read nothing themselves, so the graphs capture them
-too.
+too, and a CUDA System replays a whole chunk of batch_steps_frames as one
+graph whose branches are conditional nodes (models/step_graph.py).
 
 With a vocabulary the LOST branch relocalizes inside the stream (reference
 Tracking.cc:523-629, :2030), drawing its RANSAC sets from a torch.Generator
@@ -174,7 +175,36 @@ def mapping_passes_timed() -> bool:
     return _pass_s is not None
 
 
+# device -> 0-d int64: local-mapping passes run since reset_mapping_passes()
+_pass_counters: dict = {}
+
+
+def pass_counter(device) -> torch.Tensor:
+    """The device's count of local-mapping passes (made at first use: a
+    graph that counts into it must be captured after that).  A pass inside a
+    captured graph counts when the graph replays its branch, where no host
+    timer can see it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    c = _pass_counters.get(dev)
+    if c is None:
+        c = _pass_counters[dev] = torch.zeros((), dtype=torch.int64, device=dev)
+    return c
+
+
+def reset_mapping_passes() -> None:
+    for c in _pass_counters.values():
+        c.zero_()
+
+
+def mapping_passes() -> int:
+    """Local-mapping passes since reset_mapping_passes(); reads the devices."""
+    return sum(int(c) for c in _pass_counters.values() if c.device.type != "meta")
+
+
 def _mapping_pass(config: SlamConfig, m: MapState, kf_id: torch.Tensor) -> MapState:
+    pass_counter(m.kf_valid.device).add_(1)
     if _pass_s is None:
         return local_mapping._process(config, m, kf_id)
     sync = torch.cuda.synchronize if m.kf_valid.is_cuda else (lambda: None)
@@ -494,6 +524,24 @@ def frames_mono_packed(config: SlamConfig, buf: torch.Tensor):
     return frame_mod.make_frames_mono_batch(config, images), ts, valid
 
 
+# (device, frame capacity) -> Philox offset one LOST branch advances a CUDA
+# generator by
+_draw_spans: dict = {}
+
+
+def lost_draw_span(config: SlamConfig, m: MapState, frame: FrameData) -> int:
+    """The Philox offset that the LOST branch's RANSAC draws advance a CUDA
+    generator by, measured once per device and frame capacity: one
+    relocalization of `frame` against m on a scratch generator."""
+    key = (frame.xy.device, frame.capacity)
+    if key not in _draw_spans:
+        g = torch.Generator(device=frame.xy.device).manual_seed(0)
+        offset = g.get_offset()
+        relocalization.relocalize_uncounted(config, m, frame, g)
+        _draw_spans[key] = g.get_offset() - offset
+    return _draw_spans[key]
+
+
 def batch_steps_frames(config: SlamConfig, m: MapState, carry: TrackCarry,
                        frames: FrameData, timestamps: torch.Tensor,
                        valid: torch.Tensor, run_mapping: bool = True, *,
@@ -501,9 +549,24 @@ def batch_steps_frames(config: SlamConfig, m: MapState, carry: TrackCarry,
                        generator: torch.Generator | None = None):
     """Tracking steps over pre-built frames (leading dim B), in order.
     Padded (invalid) frames pass the state through.  Returns (map, carry,
-    packed StepInfo [B, 40])."""
+    packed StepInfo [B, 40]).
+
+    With a vocabulary and a CUDA generator, every slot, live or padded,
+    lost or not, takes its own span of the generator's Philox offset (slot b
+    draws at the chunk's starting offset + b * lost_draw_span, and the chunk
+    ends at + B * lost_draw_span), as a replay of the chunk graph does
+    (models/step_graph.py), and as the JAX package splits its key at every
+    step.  A CPU generator (no offset) draws only where a branch runs."""
+    live_slots = valid.tolist()
+    span = None
+    if (config.vocab is not None and generator is not None
+            and generator.device.type == "cuda"):
+        span = lost_draw_span(config, m, frames.select(0))
+        base = generator.get_offset()
     infos = []
-    for b, live in enumerate(valid.tolist()):
+    for b, live in enumerate(live_slots):
+        if span is not None:
+            generator.set_offset(base + b * span)
         if live:
             m, carry, info = track_step(config, m, carry, frames.select(b),
                                         timestamps[b], run_mapping,
@@ -512,6 +575,8 @@ def batch_steps_frames(config: SlamConfig, m: MapState, carry: TrackCarry,
         else:
             info = _skip_info(m, carry)
         infos.append(info)
+    if span is not None:
+        generator.set_offset(base + len(live_slots) * span)
     return m, carry, pack_infos(infos)
 
 

@@ -42,12 +42,24 @@ hand-written kernels count their launches in their wrappers, which run only
 at capture here; a replay makes the launches its capture recorded, and
 LAUNCHES_REPLAYED counts those (LAUNCHES_AT_CAPTURE counts the recordings,
 which ran nothing on the device).
+
+Branches on the device.  cond(pred, fn) is lax.cond with no else branch:
+inside conditional_capture it records fn into a conditional IF node of the
+graph, whose condition a one-thread kernel (csrc/graph_cond.cu) sets from
+the 0-d device bool pred at every replay, so a replay decides the branch
+without the host; elsewhere (the CPU, a warm-up on the card) it runs fn
+when bool(pred) holds.  The body is captured on a stream of its own into
+the node's body graph, under a capture id that the graph's own routing of
+allocations does not know, so conditional_capture routes every allocation
+on the device to the graph's pool while it lasts.  There is no fallback:
+where conditional nodes cannot be captured, the capture raises.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
 import functools
 import gc
 import time
@@ -57,6 +69,7 @@ import numpy as np
 import torch
 from torch.utils._pytree import tree_leaves, tree_map
 
+from ..kernels import CudaKernel
 from ..ops.orb import fast_band, fast_nms
 from . import frame as frame_mod
 from . import loop_closing, mono_init, relocalization
@@ -101,6 +114,132 @@ def no_collection():
     finally:
         if enabled:
             gc.enable()
+
+
+@contextlib.contextmanager
+def syncs_allowed():
+    """The card's sync debug mode off inside the block (a capture and its
+    warm-up synchronize; a dispatch checked for host reads may capture at
+    its first run)."""
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(0)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+
+
+# csrc/graph_cond.cu: an IF node under stream capture, and node counts
+_SIZE_P = ctypes.POINTER(ctypes.c_size_t)
+_COND_BEGIN = CudaKernel("cond_begin", "graph_cond.cu", "cond_begin", [ctypes.c_void_p] * 3)
+_COND_END = CudaKernel("cond_end", "graph_cond.cu", "cond_end", [ctypes.c_void_p, _SIZE_P])
+_CAPTURE_NODES = CudaKernel("capture_nodes", "graph_cond.cu", "capture_nodes",
+                            [ctypes.c_void_p, _SIZE_P])
+_BODY_STREAM = CudaKernel("body_stream", "graph_cond.cu", "body_stream",
+                          [ctypes.POINTER(ctypes.c_void_p)])
+_body_streams: dict = {}   # device index -> streams of the IF bodies, one a nesting depth
+
+
+def _body_stream(index: int, depth: int) -> torch.cuda.ExternalStream:
+    """The stream that captures the bodies at one nesting depth: made once,
+    outside PyTorch's stream pool (whose streams the capture itself uses),
+    and reused, so that the bodies of one depth share their pool blocks."""
+    streams = _body_streams.setdefault(index, [])
+    while len(streams) <= depth:
+        ptr = ctypes.c_void_p()
+        with torch.cuda.device(index):
+            _cuda_call(_BODY_STREAM, ctypes.byref(ptr))
+        streams.append(torch.cuda.ExternalStream(ptr.value, device=torch.device("cuda", index)))
+    return streams[depth]
+
+
+def _cuda_call(entry: CudaKernel, *args) -> None:
+    rc = entry.function()(*args)
+    if rc != 0:
+        raise RuntimeError(f"{entry.name}: CUDA error {rc} while capturing a conditional node")
+
+
+class _Conditional:
+    """The state of one conditional_capture: the device, the nesting depth
+    and the counts."""
+
+    def __init__(self, device: torch.device, index: int):
+        self.device = device
+        self.index = index
+        self.depth = 0
+        self.conds = 0        # IF nodes recorded
+        self.body_nodes = 0   # nodes inside their bodies
+
+    def record(self, pred: torch.Tensor, fn) -> None:
+        if pred.dtype != torch.bool or pred.numel() != 1 or pred.device.type != "cuda":
+            raise ValueError(f"cond: the predicate must be one bool on the card, got "
+                             f"{tuple(pred.shape)} {pred.dtype} on {pred.device}")
+        parent = torch.cuda.current_stream(self.device)
+        child = _body_stream(self.index, self.depth)
+        _cuda_call(_COND_BEGIN, parent.cuda_stream, child.cuda_stream, pred.data_ptr())
+        self.depth += 1
+        try:
+            with torch.cuda.stream(child):
+                fn()
+        finally:
+            self.depth -= 1
+        n = ctypes.c_size_t(0)
+        _cuda_call(_COND_END, child.cuda_stream, ctypes.byref(n))
+        self.conds += 1
+        self.body_nodes += n.value
+
+
+_conditional: _Conditional | None = None   # the conditional_capture under way
+
+
+def cond(pred: torch.Tensor, fn) -> None:
+    """lax.cond(pred, fn, no-op) for a fn that returns nothing and writes
+    what it computes into tensors made before the call: inside
+    conditional_capture, recorded into an IF node set from the 0-d device
+    bool pred at each replay; elsewhere fn() when bool(pred) holds (the
+    plain version: one host read)."""
+    if _conditional is not None:
+        _conditional.record(pred, fn)
+    elif bool(pred):
+        fn()
+
+
+class CaptureStats(NamedTuple):
+    nodes: int           # graph nodes, those inside IF bodies included
+    conds: int           # IF nodes
+    capture_s: float     # host seconds recording the graph
+    instantiate_s: float  # host seconds ending the capture and instantiating it
+
+
+@contextlib.contextmanager
+def conditional_capture(graph: torch.cuda.CUDAGraph, pool, device):
+    """torch.cuda.graph(graph, pool=pool) in which cond() records IF nodes.
+    Yields a list that holds the capture's CaptureStats once the block has
+    ended."""
+    global _conditional
+    device = torch.device(device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    out: list = []
+    t0 = time.perf_counter()
+    with no_collection(), torch.cuda.graph(graph, pool=pool):
+        # the bodies allocate on streams capturing under ids of their own:
+        # route every allocation on the device to the pool for the capture
+        # (the graph ends this routing at its end; begin took a reference
+        # of the pool that the graph already holds)
+        torch._C._cuda_endAllocateToPool(index, pool)
+        torch._C._cuda_beginAllocateToPool(index, pool)
+        torch._C._cuda_releasePool(index, pool)
+        _conditional = state = _Conditional(device, index)
+        try:
+            yield out
+        finally:
+            _conditional = None
+        n = ctypes.c_size_t(0)
+        _cuda_call(_CAPTURE_NODES, torch.cuda.current_stream(device).cuda_stream,
+                   ctypes.byref(n))
+        t1 = time.perf_counter()
+    out.append(CaptureStats(n.value + state.body_nodes, state.conds, t1 - t0,
+                            time.perf_counter() - t1))
 
 
 def _clone(x):
@@ -161,6 +300,10 @@ class Program:
         """Run fn eagerly on a side stream, drawing from warm_generator, and
         return that run's outputs; then capture fn with `generator`
         registered, leaving its state as it was after the eager run."""
+        with syncs_allowed():
+            return self._capture(generator, warm_generator)
+
+    def _capture(self, generator, warm_generator):
         t0 = time.perf_counter()
         main = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)

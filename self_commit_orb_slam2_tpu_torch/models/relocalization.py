@@ -28,16 +28,18 @@ from host data and reads nothing, and a CUDA graph captures it
 (models/program_graphs.py RelocGraphs, models/step_graph.py).  The minimal
 sets come from a torch.Generator the caller owns.
 
-relocalize counts its calls (counts()); relocalize_uncounted does not,
-because Python state in a captured function runs once, at capture: the
-graph runners count each replay with record().
+relocalize counts its calls (counts()); relocalize_uncounted does not.
+The counts are two 0-d device counters per device, made before any
+capture and updated in place by record(), so that the LOST branch inside a
+captured graph counts each attempt when it replays (Python state inside a
+captured function runs once, at capture).
 """
 
 from __future__ import annotations
 
-import collections
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..ops import bow as bow_ops
@@ -56,29 +58,39 @@ from .tracking import _observations, _scatter_matches
 N_CANDIDATES = 5
 N_GROUP = 8   # candidates entering covisibility-group accumulation
 
-# relocalizations recorded since reset_counts(), and the success flag of
-# each of the latest ones (0-d tensors, kept unread so that counting costs
-# no sync, or host bools)
-attempts = 0
-_success_log: collections.deque = collections.deque(maxlen=4096)
+# device -> [attempts, successes] int64 since reset_counts(), on that device
+_counters: dict = {}
+
+
+def counters(device) -> torch.Tensor:
+    """The device's [2] int64 counters (made at first use: a graph that
+    records into them must be captured after that)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    c = _counters.get(dev)
+    if c is None:
+        c = _counters[dev] = torch.zeros(2, dtype=torch.int64, device=dev)
+    return c
 
 
 def reset_counts() -> None:
-    global attempts
-    attempts = 0
-    _success_log.clear()
+    for c in _counters.values():
+        c.zero_()
 
 
-def record(success) -> None:
-    """Count one relocalization and its success flag (a 0-d tensor or a bool)."""
-    global attempts
-    attempts += 1
-    _success_log.append(success)
+def record(success: torch.Tensor) -> None:
+    """Count one relocalization and its 0-d bool success flag, on the flag's
+    device: no host read, and a replay of a graph that captured it counts."""
+    c = counters(success.device)
+    c[0].add_(1)
+    c[1].add_(success.to(torch.int64))
 
 
 def counts() -> tuple[int, int]:
-    """(attempts, successes) since reset_counts(); reads the device."""
-    return attempts, sum(int(s) for s in _success_log)
+    """(attempts, successes) since reset_counts(); reads the devices."""
+    pairs = [c.tolist() for c in _counters.values() if c.device.type != "meta"] or [[0, 0]]
+    return tuple(int(v) for v in np.sum(pairs, axis=0))
 
 
 class RelocResult(NamedTuple):

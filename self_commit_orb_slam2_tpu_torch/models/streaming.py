@@ -12,17 +12,22 @@ thread and its queues, src/System.cc:116-145.)
 With the loop closer on, every LOOP_CHUNK_STRIDE chunks the group's step
 infos are read back (with the map's keyframe seqs, one transfer), loop
 detection is dispatched for the keyframes created in it, and the closer
-resolves: see models/loop_closing.py.  Each chunk is followed by exactly one
-drain; what a drain consumes is fixed by the chunk count, never by whether
-a device-to-host copy has finished (the JAX session polls is_ready), so the
-poses, keyframes and closures do not depend on timing, on how the frames
-are split between feed() calls, or on poll().  finish() drains with block:
+resolves: see models/loop_closing.py.  On the card with the graphs a chunk
+is one frame-phase replay and one chunk-graph replay (models/step_graph.py)
+and the host reads nothing until the drain: inside no_host_reads() every
+dispatch runs them under torch.cuda.set_sync_debug_mode("error"), so that a
+host read there raises (the tests and chip_smoke.py check so).  Each chunk
+is followed by exactly one drain; what a drain consumes is fixed by the
+chunk count, never by whether a device-to-host copy has finished (the JAX
+session polls is_ready), so the poses, keyframes and closures do not depend
+on timing, on how the frames are split between feed() calls, or on poll().  finish() drains with block:
 the last group is consumed, a pending global BA runs its remaining slices
 and is merged.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import numpy as np
@@ -43,6 +48,38 @@ _SENSORS = {
     "stereo": (pipeline.pack_stereo_chunk, pipeline.frames_stereo_packed),
     "mono": (pipeline.pack_mono_chunk, pipeline.frames_mono_packed),
 }
+
+
+_no_host_reads = False   # set by no_host_reads()
+
+
+@contextlib.contextmanager
+def no_host_reads():
+    """Inside the block, a dispatch of a System with CUDA graphs runs its
+    frame phase and its tracking under torch.cuda.set_sync_debug_mode
+    ("error"): any op that waits for the card there raises.  A first run
+    that captures a graph is set-up, and synchronizes as it must."""
+    global _no_host_reads
+    saved, _no_host_reads = _no_host_reads, True
+    try:
+        yield
+    finally:
+        _no_host_reads = saved
+
+
+@contextlib.contextmanager
+def checked_dispatch(sg):
+    """The block under torch.cuda.set_sync_debug_mode("error") inside
+    no_host_reads(), when `sg` (a StepGraph or None) replays graphs."""
+    if not (_no_host_reads and sg is not None and sg.graphed):
+        yield
+        return
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
 
 
 class StreamSession:
@@ -119,8 +156,9 @@ class StreamSession:
         return self.pack(*arrs, np.asarray(ts, np.float32), valid)
 
     def _dispatch(self, host_buf: np.ndarray, ts_live: list) -> None:
-        frames, ts, valid = self.sys._frame_phase(self.sensor, host_buf)
-        packed = self.sys._batch_steps(frames, ts, valid, self.loc)
+        with checked_dispatch(self.sys.step_graph):   # no host read until the drain
+            frames, ts, valid = self.sys._frame_phase(self.sensor, host_buf)
+            packed = self.sys._batch_steps(frames, ts, valid, self.loc)
         n_live = len(ts_live)
         self._all_ts.extend(ts_live)
         self.n_fed += n_live

@@ -158,7 +158,8 @@ class System:
         the streamed frame phase and batch_steps_frames, on a scratch map and
         carry with a generator of their own; then capture the step graphs
         (of the current mode), with a vocabulary the relocalization graph,
-        on that scratch state, the per-frame frame build of the sensor on
+        on that scratch state, then the chunk graph of the current mode at
+        the stream's chunk shape, the per-frame frame build of the sensor on
         blank images and, for mono, the bootstrap's frame build and attempt
         on a blank pair (the attempt's eager first run draws from the
         scratch generator)."""
@@ -185,7 +186,7 @@ class System:
         sg = self.step_graph
         if sg is not None:
             sg.capture(m, carry, frames.select(0), self.enable_mapping, self._stream_gen,
-                       self.localization_only)
+                       self.localization_only, chunk=frames)
             if cfg.vocab is not None:
                 sg.reloc.capture(m, frames.select(0), self._reloc_gen, gen)
             blank = tuple(torch.from_numpy(a[0].astype(np.float32)) for a in planes)
@@ -260,12 +261,14 @@ class System:
     def activate_localization_mode(self) -> None:
         """Reference System::ActivateLocalizationMode (src/System.cc:346):
         track against the map as it is; no keyframes, no mapping.  With the
-        graphs and a tracked frame, the localization-mode graphs are
-        captured here, outside any frame."""
+        graphs and a tracked frame, the localization-mode graphs (the
+        chunk graph too, once a chunk or warm_start has shaped the chunk
+        buffers) are captured here, outside any frame."""
         self.localization_only = True
-        if self.step_graph is not None and self.carry is not None:
-            self.step_graph.prepare(self.map, self.carry, self.carry.last_frame,
-                                    self.enable_mapping, self._stream_gen, True)
+        sg = self.step_graph
+        if sg is not None and self.carry is not None:
+            sg.prepare(self.map, self.carry, self.carry.last_frame, self.enable_mapping,
+                       self._stream_gen, True, chunk=sg.chunk_frames)
 
     def deactivate_localization_mode(self) -> None:
         self.localization_only = False

@@ -15,7 +15,9 @@ keyframe cond into a select and run mapping on every stream every frame).
 On the card each local stream has a runner of its own
 (models/step_graph.py StepGraph, with its FrameGraphs): its chunks replay
 captured CUDA graphs on the stream's static map, as a System's do, in SLAM
-and in localization mode.  step_graphs = None runs them op by op
+and in localization mode: one frame-phase replay and one chunk-graph
+replay a chunk, and no host read before the gather (checked under
+streaming.no_host_reads()).  step_graphs = None runs them op by op
 (pipeline.batch_steps_*_packed), the CPU's default; a list of CPU runners
 runs their plain versions.  Each stream draws its in-stream relocalization
 hypotheses from its own torch.Generator, seeded as System seeds its
@@ -32,7 +34,7 @@ import torch
 
 from ..models import frame as frame_mod
 from ..models import map_state as ms
-from ..models import pipeline
+from ..models import pipeline, streaming
 from ..models.config import SlamConfig
 from ..models.step_graph import StepGraph
 from ..models.system import config_on_device, resolve_device
@@ -171,11 +173,12 @@ class FleetTracker:
         return got[:, 16] > 0.5
 
     def _prepare(self) -> None:
-        """Capture each local stream's step graphs of the fleet's mode on its
-        state (bring-up, so that no capture lands in a chunk)."""
+        """Warm each local stream's step graphs of the fleet's mode on its
+        state (bring-up); the chunk graph is captured at the first chunk,
+        which gives its shape."""
         for i, sg in enumerate(self.step_graphs or ()):
             sg.prepare(self.maps[i], self.carries[i], self.carries[i].last_frame,
-                       self.run_mapping, self._gens[i], self.localization_only)
+                       self.run_mapping, self._gens[i], self.localization_only, parts=False)
 
     def track_chunk(self, a: np.ndarray, b: np.ndarray, ts: np.ndarray) -> np.ndarray:
         """Advance all streams by one chunk.  a / b: [S, B, H, W]; ts: [S, B].
@@ -196,10 +199,11 @@ class FleetTracker:
                     localization_only=self.localization_only, generator=self._gens[i])
             else:
                 sg = self.step_graphs[i]
-                frames, tsd, vd = sg.frames(self.sensor, host)
-                self.maps[i], self.carries[i], pk = sg.batch_steps(
-                    self.maps[i], self.carries[i], frames, tsd, vd, self.run_mapping,
-                    self._gens[i], self.localization_only)
+                with streaming.checked_dispatch(sg):   # no host read until the gather
+                    frames, tsd, vd = sg.frames(self.sensor, host)
+                    self.maps[i], self.carries[i], pk = sg.batch_steps(
+                        self.maps[i], self.carries[i], frames, tsd, vd, self.run_mapping,
+                        self._gens[i], self.localization_only)
             packed.append(pk)
         packed = self._gather(packed)  # [S, B, 40] one fetch
         poses = np.zeros((S, B, 4, 4), np.float32)

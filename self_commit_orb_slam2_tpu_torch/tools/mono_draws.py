@@ -29,7 +29,7 @@ from concurrent.futures import ProcessPoolExecutor
 def main() -> int:
     import chip_smoke as cs
 
-    from ..models import loop_closing, pipeline
+    from ..models import loop_closing
     from ..models.system import STATE_OK, System
     from ..ops import bow
     from ..ops.solvers import two_view
@@ -84,7 +84,7 @@ def main() -> int:
         two_view._sample_minimal_sets = replay if use_cpu_draws else orig
         try:
             slam = System(cfg, enable_loop_closing=False)
-            with loop_closing.timed_phases() as ph, pipeline.timed_mapping_passes():
+            with loop_closing.timed_phases() as ph:
                 run = cs._mono_stream("mono_draws", slam, seq, kernels, ph)
         finally:
             two_view._sample_minimal_sets = orig

@@ -1,7 +1,7 @@
 """Where the port's stream spends its time on the card.
 
     python -m self_commit_orb_slam2_tpu_torch.tools.profile_stream [n_chunks]
-        [--path2|--stereo|--localization] [--eager]
+        [--path2|--stereo|--localization] [--eager|--per-frame]
 
 Runs a port path (the bench's capacities, chunk 4, loop closing off) on
 generate_sequence frames: path 1 (RGB-D 640x480, 1000 features, 16-px cells,
@@ -12,16 +12,20 @@ the bundled vocabulary, mapping on while the first 1 + 4 frames build the
 map, then activate_localization_mode) with --localization.  The frame phase
 and the tracking phase run as the System runs them: through the CUDA
 graphs of models/program_graphs.py and models/step_graph.py, captured
-during the first chunk (localization mode's by activate_localization_mode);
-with --eager op by op (frames_*_packed, pipeline.batch_steps_frames).
+during the first chunk (localization mode's by activate_localization_mode):
+a chunk is one frame-phase replay and one chunk-graph replay; with
+--per-frame the chunk's tracking replays the per-frame step graphs slot by
+slot instead (the runner that can time mapping passes); with --eager op by
+op (frames_*_packed, pipeline.batch_steps_frames).
 Then over `n_chunks` steady chunks (default 2):
   * host-clock time of the frame phase (the chunk's upload included;
     graphed, also the op-by-op frames_*_packed on the same chunk, after the
     same synchronize; with --stereo also of the stereo matcher alone, on
     the chunk's own features) and the tracking phase, each ending in
-    cuda.synchronize, and of the mapping passes inside the tracking phase
-    (synced around each pass; graphed, the keyframe graph's replay, which
-    also inserts the keyframe);
+    cuda.synchronize, and, with --eager or --per-frame, of the mapping
+    passes inside the tracking phase (synced around each pass; per frame,
+    the keyframe graph's replay, which also inserts the keyframe; a chunk
+    graph cannot time them);
   * a torch.profiler trace: device busy time against wall time (the idle
     share), device kernels, graph replays and host syncs per frame
     (utils/profiling.trace_counts), and the top operators by host and by
@@ -31,6 +35,7 @@ Needs a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import sys
 import time
 
@@ -72,7 +77,7 @@ def _stereo_match_ms(cfg: SlamConfig, buf: torch.Tensor) -> float:
 
 
 def main(n_chunks: int = 2, path2: bool = False, stereo: bool = False,
-         eager: bool = False, localization: bool = False) -> None:
+         eager: bool = False, localization: bool = False, per_frame: bool = False) -> None:
     n_frames = 1 + CHUNK * (1 + 2 * n_chunks)
     width, height, fx, n_features = (1241, 376, 718.9, 2000) if stereo else (640, 480,
                                                                              520.0, 1000)
@@ -92,6 +97,8 @@ def main(n_chunks: int = 2, path2: bool = False, stereo: bool = False,
                   enable_loop_closing=False)
     if eager:
         slam.step_graph = None
+    else:
+        slam.step_graph.per_frame = per_frame
     images = np.clip(seq.images, 0, 255).astype(np.uint8)
     second = (np.clip(seq.right_images, 0, 255).astype(np.uint8) if stereo
               else np.clip(seq.depths * 1e3, 0, 65535).astype(np.uint16))
@@ -113,7 +120,8 @@ def main(n_chunks: int = 2, path2: bool = False, stereo: bool = False,
 
     # host-clock phase split
     frame_s, track_s, match_ms, eager_frame_s = [], [], [], []
-    with pipeline.timed_mapping_passes() as map_s:
+    timed = eager or per_frame   # a chunk graph's mapping passes cannot be timed
+    with pipeline.timed_mapping_passes() if timed else contextlib.nullcontext([]) as map_s:
         for k in range(n_chunks):
             buf = chunk_buf(k)
             if stereo:
@@ -137,7 +145,7 @@ def main(n_chunks: int = 2, path2: bool = False, stereo: bool = False,
     if stereo:
         print(f"path 4a: match_stereo alone {np.mean(match_ms) / CHUNK:.3f} ms/frame (host "
               f"clock, synced, inside the frame phase below)")
-    mode = "eager" if eager else "graphed"
+    mode = "eager" if eager else "per-frame graphs" if per_frame else "chunk graph"
     sg = slam.step_graph
     if sg is not None:
         frame_capture_s = sum(p.capture_s for p in sg.frames.programs)
@@ -146,9 +154,10 @@ def main(n_chunks: int = 2, path2: bool = False, stereo: bool = False,
               f"clock); the frame phase op by op on the same chunks: "
               f"{np.mean(eager_frame_s) / CHUNK * 1e3:.3f} ms/frame")
     print(f"path {name} ({mode}): frame phase: {np.mean(frame_s) / CHUNK * 1e3:.3f} "
-          f"ms/frame, tracking phase: {np.mean(track_s) / CHUNK * 1e3:.3f} ms/frame, of "
-          f"which mapping {sum(map_s) / (n_chunks * CHUNK) * 1e3:.3f} ms/frame "
-          f"({len(map_s)} passes; host clock, {n_chunks} chunks of {CHUNK})")
+          f"ms/frame, tracking phase: {np.mean(track_s) / CHUNK * 1e3:.3f} ms/frame, "
+          + (f"of which mapping {sum(map_s) / (n_chunks * CHUNK) * 1e3:.3f} ms/frame "
+             f"({len(map_s)} passes; " if timed else "mapping not timed (")
+          + f"host clock, {n_chunks} chunks of {CHUNK})")
 
     # profiler over the next chunks
     from torch.profiler import ProfilerActivity, profile
@@ -181,4 +190,5 @@ if __name__ == "__main__":
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
     main(int(args[0]) if args else 2, path2="--path2" in sys.argv[1:],
          stereo="--stereo" in sys.argv[1:], eager="--eager" in sys.argv[1:],
-         localization="--localization" in sys.argv[1:])
+         localization="--localization" in sys.argv[1:],
+         per_frame="--per-frame" in sys.argv[1:])

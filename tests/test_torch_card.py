@@ -773,6 +773,8 @@ def test_step_core_and_tail_run_without_a_sync(cuda):
     slam.track_batch_rgbd(seq.images[:9], seq.depths[:9], seq.timestamps[:9], chunk=4)
     assert slam.step_graph.captures == 1
     frame, ts = _card_frame(cfg, seq, 9, cuda)
+    # a stream captures only its chunk graph: the per-frame parts now
+    slam.step_graph.prepare(slam.map, slam.carry, frame, True, slam._stream_gen)
     m = _clone_tree(slam.map)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -799,14 +801,15 @@ def test_warm_start_captures_and_touches_no_state(cuda):
     map0 = _clone_tree(slam.map)
     slam.warm_start()
     sg = slam.step_graph
-    assert sg.captures == 1 and sg.replays == 0
+    assert sg.captures == 1 and sg.replays == 0 and "chunk" in sg._graphs
     assert [p.graph is not None for p in sg.frames.programs] == [True]   # the frame phase's
     assert slam.carry is None and slam.trajectory == []
     assert all(torch.equal(a, b) for a, b in zip(map0, slam.map))
     assert all(torch.equal(s, g.get_state()) for s, g in zip(before, gens))
     slam.track_batch_rgbd(seq.images, seq.depths, seq.timestamps, chunk=4)
     _, est = slam.get_trajectory()
-    assert sg.captures == 1 and sg.replays >= 12
+    # the 12 frames after the first: one chunk-graph replay a chunk
+    assert sg.captures == 1 and sg.replays == 3 and sg.part_replays["chunk"] == 3
     assert slam.state == STATE_OK and ate_rmse(est, seq.poses_gt) < 0.02
 
 
@@ -1251,3 +1254,102 @@ def test_warm_start_captures_the_bootstrap_and_touches_no_state(cuda):
     for i in range(3):
         slam.track_monocular(seq.images[i], float(seq.timestamps[i]))
     assert mono.program.replays >= 1 and mono.program.capture_s == captures
+
+
+# ------------------------------------------------------------ the chunk graph
+
+def _chunk(slam, seq, plan, cuda):
+    """(frames [4, ...], ts [4], valid [4]) on the card: `plan` lists frame
+    indices of seq, None for a blank frame, and the number of live slots."""
+    from self_commit_orb_slam2_tpu_torch.models.frame import make_frame_rgbd
+
+    idx, n_live = plan
+    zeros = torch.zeros(seq.images[0].shape, dtype=torch.float32, device=cuda)
+    fs = [make_frame_rgbd(slam.config, zeros, zeros) if i is None
+          else _card_frame(slam.config, seq, i, cuda)[0] for i in idx]
+    frames = type(fs[0])(*(torch.stack(x) for x in zip(*fs)))
+    ts = torch.arange(4, dtype=torch.float32, device=cuda) + 20.0
+    return frames, ts, torch.arange(4, device=cuda) < n_live
+
+
+@pytest.mark.parametrize("loc", [False, True], ids=["slam", "localization"])
+def test_chunk_graph_replays_equal_op_by_op(cuda, loc):
+    """The small world's System on the card, three chunks: a blank frame
+    goes LOST, the next frames relocalize and (SLAM mode) make keyframes;
+    then a chunk with two padded slots; then the first chunk again.  Before
+    each, the map, the carry and the stream generator are cloned and the
+    chunk runs through pipeline.batch_steps_frames op by op on the clone
+    (each slot on its own span of the generator), then through one replay
+    of the chunk graph on the live state: the packed StepInfos, the map,
+    the carry, the generator and the relocalization counts bit for bit."""
+    from self_commit_orb_slam2_tpu_torch.models import pipeline, relocalization
+
+    slam, seq = _small_world(cuda)
+    sg, gen = slam.step_graph, slam._stream_gen
+    plans = [([None, 12, 13, 14], 4), ([14, 15, 15, 15], 2), ([None, 12, 13, 14], 4)]
+    ge = torch.Generator(device=cuda)
+    for k, plan in enumerate(plans):
+        frames, ts, valid = _chunk(slam, seq, plan, cuda)
+        ge.set_state(gen.get_state())
+        relocalization.reset_counts()
+        m_e, c_e, p_e = pipeline.batch_steps_frames(
+            slam.config, _clone_tree(slam.map), _clone_tree(slam.carry), frames, ts, valid,
+            True, localization_only=loc, generator=ge)
+        n_e = relocalization.counts()
+        relocalization.reset_counts()
+        replays = sg.part_replays[_chunk_name(loc)]
+        slam.map, slam.carry, p_g = sg.batch_steps(slam.map, slam.carry, frames, ts, valid, True,
+                                                   gen, localization_only=loc)
+        assert sg.part_replays[_chunk_name(loc)] == replays + 1
+        assert torch.equal(p_e, p_g), k
+        assert all(torch.equal(a, b) for a, b in zip(m_e, slam.map)), k
+        assert all(torch.equal(a, b) for a, b in zip(_leaves(c_e), _leaves(slam.carry))), k
+        assert torch.equal(ge.get_state(), gen.get_state()), k
+        assert n_e == relocalization.counts(), k
+        infos = pipeline.unpack_infos(p_g.cpu().numpy())
+        if plan[0][0] is None:
+            assert list(infos.state_ok) == [False, True, True, True], k
+            assert n_e[0] == 2 and n_e[1] == 1, k
+            assert loc or infos.created_kf[1:].any(), k   # a keyframe after the LOST frame
+    assert sg.chunk_stats[_chunk_name(loc)].conds == 4 * (2 if loc else 3)
+
+
+def _chunk_name(loc):
+    return "loc_chunk" if loc else "chunk"
+
+
+def _leaves(x):
+    from torch.utils._pytree import tree_leaves
+
+    return tree_leaves(tuple(x))
+
+
+def test_dispatch_reads_nothing_from_the_host(cuda):
+    """A primed System (warm_start) streams under streaming.no_host_reads():
+    every dispatch's frame phase and chunk-graph replay runs under
+    torch.cuda.set_sync_debug_mode("error"), in SLAM mode, then in
+    localization mode; each chunk is one replay of each graph."""
+    from self_commit_orb_slam2_tpu_torch.models import streaming
+    from self_commit_orb_slam2_tpu_torch.models.system import STATE_OK
+
+    slam, seq = _small_world(cuda)
+    fresh = type(slam)(slam.config, enable_mapping=True, enable_loop_closing=False)
+    fresh.warm_start()
+    sg = fresh.step_graph
+    frame_replays = sum(p.replays for p in sg.frames.programs)   # warm_start's own
+    images = np.clip(seq.images, 0, 255).astype(np.uint8)
+    depths = np.clip(seq.depths * 1e3, 0, 65535).astype(np.uint16)
+    sess = fresh.open_stream("rgbd", 4)
+    with streaming.no_host_reads():
+        sess.feed((images[:9], depths[:9]), seq.timestamps[:9])
+        sess.finish()
+    assert fresh.state == STATE_OK
+    assert sg.part_replays["chunk"] == 2 and sg.part_replays["core"] == 0
+    assert sum(p.replays for p in sg.frames.programs) == frame_replays + 2
+    fresh.activate_localization_mode()
+    sess = fresh.open_stream("rgbd", 4)
+    with streaming.no_host_reads():
+        sess.feed((images[9:15], depths[9:15]), seq.timestamps[9:15])   # a padded chunk
+        sess.finish()
+    assert fresh.state == STATE_OK and sg.part_replays["loc_chunk"] == 2
+    assert sg.replays == sg.part_replays["chunk"] + sg.part_replays["loc_chunk"]
