@@ -167,7 +167,10 @@ Phases (any failure exits non-zero and prints no result):
           Schur BA on a 1 x 1 mesh) and is merged, corrected ATE below raw,
           B1 once per chunk and the first frame (bitwise on the first frame
           and the chunk at frame 113); the sharded GBA's ms, its peak memory
-          on the card and the stall it cost the stream;
+          on the card and the stall it cost the stream; then that GBA twice
+          more from its own inputs (bitwise, hard: its scatter-adds in a
+          fixed order) and twice with them as plain index_add_ (patched in
+          for the comparison), ms each way;
        b. refine_maps.main on (a)'s map and a copy perturbed by N(0, 5e-3)
           (keyframe poses and points), --mesh 1x1: rc 0, the perturbed map's
           mean squared reprojection error below 0.2x its value before, (a)'s
@@ -210,11 +213,23 @@ Phases (any failure exits non-zero and prints no result):
           get_trajectory, ATE < 0.08 m, 0 < live points <= 16384; then a
           second pass, untimed, on the same frames counts the carried ids
           the birth-stamp guard dropped.
+ 16. the per-stage profiler (tools/profile_stages.py) in process at
+     PW=640 PH=480 PF=1000, both modes on one state (a System over 8
+     frames): every stage op by op and replayed from its own graph, host
+     ms and device ms a call, kernels, busy ms and host syncs of a replay
+     (op by op only step_rgbd's, whose flag read the sync count must see);
+     every replay bitwise against op by op and 0 host syncs in a replay,
+     hard; B1's launches in the phase;
+ 17. the weak-scaling harness (tools/scaling_bench.py) in process at a
+     world of one: the JAX script's defaults and path 8 (a)'s per-rank
+     shape (256 keyframes x 65536 points), ms beside the Schur products'
+     bound, peak memory.
 
 Frame rendering (numpy, host) runs in a pool of worker processes started
 first, beside the card work.  The second-to-last line is the kernels JSON
 (each kernel with its launches on its own path; the band kernel also with
-those on paths 3 to 9 and its times at the stereo shapes); the last line is
+those on paths 3 to 9 and the profiler's, and its times at the stereo
+shapes); the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -2928,7 +2943,11 @@ def phase_path8a(seq6, kernels, vocab):
     gba = []
     orig = loop_closing.run_sharded_gba
 
+    inputs = []
+
     def timed_gba(config, m, anchor_kf):
+        if not inputs:
+            inputs.append((config, _clone_state(m), anchor_kf))
         out, ms, peak = _peak_timed(lambda: orig(config, m, anchor_kf))
         require(all(bool(torch.isfinite(x).all()) for x in out), f"{label}: non-finite GBA")
         gba.append((ms, peak))
@@ -2975,9 +2994,36 @@ def phase_path8a(seq6, kernels, vocab):
     want = 1 + -(-(N_LOOP_8A - 1) // CHUNK)
     require(launches == {"fast_band": want, "fast_nms": 0},
             f"{label}: launches {launches}, want fast_band {want}, fast_nms 0")
+    repeat = _gba_repeats(label, orig, *inputs[0])
     return dict(launches=want, fps=fps, ate=run["ate"], ate_raw=run["ate_raw"],
                 closures=run["closures"], gba_ms=gba[0][0], gba_peak=gba[0][1],
-                stall=stalls[0], bound=bound), cfg, slam.map
+                stall=stalls[0], bound=bound, repeat=repeat), cfg, slam.map
+
+
+def _gba_repeats(label, gba_fn, config, m, anchor_kf):
+    """The sharded GBA from one state twice with its scatter-adds in a fixed
+    order (indexing.index_add_fixed, as the program runs it): bitwise equal,
+    hard; then twice with them as plain index_add_ (patched in here, for the
+    comparison only): the ms of each run (host clock, synced)."""
+    from self_commit_orb_slam2_tpu_torch.parallel import distributed_ba
+
+    def twice():
+        runs = [_peak_timed(lambda: gba_fn(config, m, anchor_kf)) for _ in range(2)]
+        return [r[1] for r in runs], _same_tensors(runs[0][0], runs[1][0])
+
+    fixed_ms, fixed_same = twice()
+    orig = distributed_ba.index_add_fixed
+    distributed_ba.index_add_fixed = lambda t, dim, i, src: t.index_add_(dim, i, src)
+    try:
+        plain_ms, plain_same = twice()
+    finally:
+        distributed_ba.index_add_fixed = orig
+    print(f"[{label}] the sharded GBA twice more from its first call's inputs: scatter-adds in "
+          f"a fixed order {fixed_ms[0]:.1f}, {fixed_ms[1]:.1f} ms, bitwise {fixed_same}; as "
+          f"plain index_add_ (before this repair) {plain_ms[0]:.1f}, {plain_ms[1]:.1f} ms, "
+          f"bitwise {plain_same} (host clock, synced)")
+    require(fixed_same, f"{label}: two sharded GBAs from one state differ")
+    return dict(fixed_ms=fixed_ms, plain_ms=plain_ms, plain_same=plain_same)
 
 
 def _mean_reproj_err(cam, m) -> float:
@@ -3559,6 +3605,57 @@ def phase_path9b(seq9b, kernels):
                 dropped=dropped, fps=N_BOUNDED / dt)
 
 
+# ------------------------------------------------------- per-stage profiler
+# tools/profile_stages.py at bench.py's RGB-D operating point (the JAX
+# script's PW=640 PH=480 PF=1000), both modes on one state; 3 timed calls a
+# stage and way, and the op-by-op way traced only for step_rgbd (the sync
+# counter's positive control): the tool's own defaults (20 / 10, both ways
+# traced) take ~2 min more, mostly the profiler's event processing.
+PROFILE_N = 3
+
+
+def phase_profile_stages(kernels):
+    """Every stage of the step and the mapping pass, op by op and replayed
+    from its own graph: every replay bitwise, 0 host syncs in a replay."""
+    from self_commit_orb_slam2_tpu_torch.tools import profile_stages
+
+    label = "profile stages"
+    _reset_launches(kernels)
+    t0 = time.perf_counter()
+    st = profile_stages.build_state(WIDTH, HEIGHT, N_FEATURES, "cuda")
+    print(f"[{label}] {WIDTH}x{HEIGHT}/{N_FEATURES}feat: {int(st.map.n_kf)} keyframes, "
+          f"{int(st.map.pt_valid.sum())} points after 8 frames of generate_sequence(seed=5, "
+          f"fx={st.config.camera.fx}) ({time.perf_counter() - t0:.1f} s)")
+    rows = {}
+    for mapping in (False, True):
+        rows[mapping] = profile_stages.report(st, mapping, PROFILE_N, trace_op=False)
+        bad = profile_stages.failures(rows[mapping])
+        require(not bad, f"{label}: replays that differ from op by op or sync: {bad}")
+    launches = _launches(kernels)
+    print(f"[{label}] launches {launches} ({time.perf_counter() - t0:.1f} s, host clock)")
+    require(launches["fast_band"] > 0 and launches["fast_nms"] == 0,
+            f"{label}: launches {launches}, want fast_band > 0, fast_nms 0")
+    by = {r["name"]: r for r in rows[False] + rows[True]}
+    return launches["fast_band"], by
+
+
+def phase_scaling(workdir):
+    """tools/scaling_bench.py at a world of one: the JAX script's defaults,
+    then path 8 (a)'s per-rank shape."""
+    from self_commit_orb_slam2_tpu_torch.tools import scaling_bench
+
+    out = {}
+    for name, extra in (("defaults", []), ("256 x 65536", ["--kfs", "256", "--per-dev-points",
+                                                             "65536"])):
+        path = os.path.join(workdir, "scaling.json")
+        require(scaling_bench.main(extra + ["--out", path]) == 0, f"scaling {name}: failed")
+        with open(path) as f:
+            row = json.load(f)["table"][0]
+        require(np.isfinite(row["ms"]) and row["ms"] > 0, f"scaling {name}: {row}")
+        out[name] = row
+    return out
+
+
 def main() -> int:
     faulthandler.enable()   # a crash prints every thread's stack
     sys.path.insert(0, HERE)
@@ -3746,6 +3843,11 @@ def main() -> int:
               f"the render pool (host)")
         r9b = phase_path9b(seq9b, kernels)
         lap("path 9b")
+        n_prof, prof = phase_profile_stages(kernels)
+        lap("profile stages")
+        with tempfile.TemporaryDirectory() as workdir:
+            scaling = phase_scaling(workdir)
+        lap("scaling")
         n9 = r9a["launches"] + r9b["launches"]
         summary.append(
             f"path 9a mono {r9a['fps']:.2f} frames/s, {r9a['closures']} closures (frames "
@@ -3754,13 +3856,23 @@ def main() -> int:
             f"{r9a['stalls'][0]:.1f} ms; path 9b {r9b['total']} keyframes inserted into 12 slots, "
             f"{r9b['live']} live, {r9b['culled']} culled, ATE {r9b['ate']:.6f} m, "
             f"{r9b['fps']:.2f} frames/s")
+        summary.append(
+            "stages at 640x480 op by op / replayed, device ms: " + ", ".join(
+                f"{k} {prof[k]['op']['device_ms']:.3f} / {prof[k]['graph']['device_ms']:.3f}"
+                for k in ("make_frame_rgbd", "pose_optimize", "step_core", "keyframe_tail",
+                          "full step_rgbd (no scan)", "local_bundle_adjustment"))
+            + f"; sharded GBA again, fixed order / plain index_add_ "
+            f"{min(r8a['repeat']['fixed_ms']):.1f} / {min(r8a['repeat']['plain_ms']):.1f} ms; "
+            "weak scaling at a world of one " + ", ".join(
+                f"{k} {v['ms']:.2f} ms" for k, v in scaling.items()))
         for row in results.values():
             row.setdefault("shapes", [])
             own = row["name"] == "fast_band"
             row.update(launches_path4a=n4a if own else 0, launches_path4b=n4b if own else 0,
                        launches_path5=n5 if own else 0, launches_path6=n6 if own else 0,
                        launches_path7=n7 if own else 0, launches_path8=n8 if own else 0,
-                       launches_path9=n9 if own else 0)
+                       launches_path9=n9 if own else 0,
+                       launches_profile_stages=n_prof if own else 0)
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -3769,7 +3881,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_path3",
             "launches_path4a", "launches_path4b", "launches_path5", "launches_path6",
-            "launches_path7", "launches_path8", "launches_path9", "shapes")
+            "launches_path7", "launches_path8", "launches_path9", "launches_profile_stages",
+            "shapes")
     print(f"[summary] {card}: {'; '.join(summary)}")
     print("[kernels] launches: each wrapper counts where it launches its kernel; inside a CUDA "
           "graph capture that launch is only recorded, so the counts below are the wrappers' "

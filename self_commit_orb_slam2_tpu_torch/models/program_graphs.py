@@ -242,6 +242,12 @@ def conditional_capture(graph: torch.cuda.CUDAGraph, pool, device):
                             time.perf_counter() - t1))
 
 
+@contextlib.contextmanager
+def _plain_capture(graph: torch.cuda.CUDAGraph, pool):
+    with no_collection(), torch.cuda.graph(graph, pool=pool):
+        yield
+
+
 def _clone(x):
     return tree_map(lambda t: t.clone() if torch.is_tensor(t) else t, x)
 
@@ -263,13 +269,17 @@ def _copy_into(dst, src) -> None:
 class Program:
     """fn(*statics, generator) on static input buffers: replayed from a CUDA
     graph on the card after its first run, called on the CPU.  The caller
-    writes the statics in place before each run."""
+    writes the statics in place before each run.  conditional: captured
+    through conditional_capture, so that fn may branch on the device with
+    cond."""
 
-    def __init__(self, fn, statics: tuple, device: torch.device, pool):
+    def __init__(self, fn, statics: tuple, device: torch.device, pool,
+                 conditional: bool = False):
         self.fn = fn
         self.statics = statics
         self.device = torch.device(device)
         self._pool = pool            # a GraphPool
+        self.conditional = conditional
         self.graph: torch.cuda.CUDAGraph | None = None
         self.generator: torch.Generator | None = None   # registered with the graph
         self._out = None             # the captured outputs, live in the pool
@@ -290,10 +300,15 @@ class Program:
         if generator is not self.generator:
             raise ValueError("a captured program replays with the generator registered at "
                              "its capture")
+        return _clone(self.replay())
+
+    def replay(self):
+        """One replay of the captured graph; its outputs, live in the pool
+        until the next replay of a graph of the pool."""
         self.graph.replay()
         self.replays += 1
         LAUNCHES_REPLAYED.update(self.per_replay)
-        return _clone(self._out)
+        return self._out
 
     def capture(self, generator: torch.Generator | None = None,
                 warm_generator: torch.Generator | None = None):
@@ -316,7 +331,8 @@ class Program:
             graph.register_generator_state(generator)
             state = generator.get_state()
         before = {k.name: k.launches for k in _KERNELS}
-        with no_collection(), torch.cuda.graph(graph, pool=self._pool()):
+        with (conditional_capture(graph, self._pool(), self.device) if self.conditional
+              else _plain_capture(graph, self._pool())):
             self._out = self.fn(*self.statics, generator)
         self.per_replay = collections.Counter(
             {k.name: k.launches - before[k.name] for k in _KERNELS if k.launches > before[k.name]})

@@ -20,13 +20,16 @@ every rank returns what one device would.
 Every iteration is Huber-weighted, with ur_weight as the square-root weight
 on the third residual; there is no early exit (the JAX fori_loop).  The
 cross block A of a stripe is dense, [6K, 3 Pl] (1.21 GB in fp32 at K = 256,
-Pl = 65536), built by index_add_ into its flattened rows, and S_partial is
-one [6K, 3 Pl] @ [3 Pl, 6K] product; no [Pl, 6K, 6K] tensor is formed.  A
-non-finite step is dropped on every rank together (the JAX body decides per
-device on its own stripe; one flag summed over "blk" keeps the replicated
-poses equal).  index_add_ sums in a nondeterministic order on the card, and
-all_reduce sums the ranks' partials in its own order, so results across
-devices and world sizes agree to a tolerance, not to the bit.
+Pl = 65536), built by ops/indexing.index_add_fixed into its flattened rows,
+and S_partial is one [6K, 3 Pl] @ [3 Pl, 6K] product; no [Pl, 6K, 6K] tensor
+is formed.  A non-finite step is dropped on every rank together (the JAX
+body decides per device on its own stripe; one flag summed over "blk" keeps
+the replicated poses equal).  The cross block and the per-point blocks are
+summed in a fixed order (plain index_add_ adds duplicate indices in whatever
+order the card's atomics land), so one rank repeats its result bit for bit,
+and so does a world of one rank, where all_reduce is the identity.  Across
+ranks all_reduce sums the partials in its own order: results across world
+sizes agree to a tolerance, not to the bit.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import torch
 
 from ..ops import se3
 from ..ops.camera import CameraParams
+from ..ops.indexing import index_add_fixed
 from ..ops.optim.bundle_adjust import _chi2, _residuals, inv3x3
 from ..ops.optim.robust import CHI2_MONO, CHI2_STEREO, huber_weight
 from .mesh import Mesh, map_sharding, point_block_sharding, shard, unshard
@@ -102,10 +106,10 @@ def _ba_one_map(mesh: Mesh, cam: CameraParams, n_iters: int, damping: float,
         U = torch.where(mine[:, None, :, None], U, 0.0)
         per_pt = torch.where(mine[..., None], torch.cat([Hpp_obs.reshape(K, N, 9), bp_obs], -1),
                              0.0)
-        A = torch.zeros(K * 6 * Pl, 3, dtype=f32, device=dev).index_add_(
-            0, rows_A, U.reshape(-1, 3)).view(K * 6, Pl * 3)       # [6K, 3Pl]
-        blocks = torch.zeros(Pl, 12, dtype=f32, device=dev).index_add_(
-            0, rows_P, per_pt.reshape(-1, 12))
+        A = index_add_fixed(torch.zeros(K * 6 * Pl, 3, dtype=f32, device=dev), 0, rows_A,
+                            U.reshape(-1, 3)).view(K * 6, Pl * 3)  # [6K, 3Pl]
+        blocks = index_add_fixed(torch.zeros(Pl, 12, dtype=f32, device=dev), 0, rows_P,
+                                 per_pt.reshape(-1, 12))
         H_pp = blocks[:, :9].reshape(Pl, 3, 3)
         b_p = blocks[:, 9:]
 

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import subprocess
 import time
 from collections import defaultdict
 
@@ -108,3 +109,12 @@ def trace_counts(prof, wall_s: float) -> dict:
                 syncs=calls(lambda k: k in HOST_WAITS),
                 memcpy=calls(lambda k: k.startswith("cudaMemcpy")),
                 graph_launches=calls(lambda k: k == "cudaGraphLaunch"))
+
+
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi gives them (what every
+    number taken on the card is written beside)."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=False, timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"

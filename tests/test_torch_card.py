@@ -694,6 +694,46 @@ def test_nccl_world_of_one(cuda, tmp_path):
         assert torch.allclose(got, ref, atol=1e-6)
 
 
+def test_distributed_ba_repeats_bit_for_bit_at_a_world_of_one(cuda):
+    """distributed_bundle_adjust twice from one state on a 1 x 1 mesh: the
+    cross block and the per-point blocks are summed in a fixed order
+    (indexing.index_add_fixed), so the two results are equal to the bit.
+    tools/scaling_bench.py's problem with each point seen by ~8 keyframes
+    (duplicate indices in every per-point sum)."""
+    from self_commit_orb_slam2_tpu_torch.parallel.distributed_ba import (
+        distributed_bundle_adjust)
+    from self_commit_orb_slam2_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from self_commit_orb_slam2_tpu_torch.tools import scaling_bench
+
+    problem = scaling_bench.build_problem(np.random.default_rng(0), scaling_bench.CAMERA, 32,
+                                          256, 1024)
+    inputs = scaling_bench.ba_inputs(problem, cuda)
+    inputs = (inputs[0], inputs[1] + 0.01) + inputs[2:]   # start off the optimum
+    mesh = make_mesh(MeshSpec(1, 1))
+    a = distributed_bundle_adjust(mesh, scaling_bench.CAMERA, *inputs, n_iters=5)
+    b = distributed_bundle_adjust(mesh, scaling_bench.CAMERA, *inputs, n_iters=5)
+    for x, y in zip(a, b):
+        assert x.is_cuda and torch.equal(x.view(torch.int32), y.view(torch.int32))
+    assert not torch.equal(a.pt_pos, inputs[1])
+
+
+def test_profile_stages_replays_equal_op_by_op(cuda):
+    """tools/profile_stages.py at 320x240 / 500 features, both modes on one
+    state: every stage replayed from its own graph equals the same stage op
+    by op bitwise (plain index_add_ excepted: no fixed order), with 0 host
+    syncs in a replay."""
+    from self_commit_orb_slam2_tpu_torch.tools import profile_stages as tool
+
+    st = tool.build_state(320, 240, 500, cuda)
+    for mapping in (False, True):
+        rows = tool.profile(st, mapping, n=2)
+        table = tool.format_rows(rows, True)
+        assert [r["name"] for r in rows] == list(tool.MAPPING if mapping else tool.MAIN)
+        assert tool.failures(rows) == [], table
+        assert all(r["bitwise"] for r in rows if r["exact"]), table
+        assert all(r["graph"]["syncs"] == 0 for r in rows), table
+
+
 # ------------------------------------------------------------------ step graphs
 
 
