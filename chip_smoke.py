@@ -809,8 +809,9 @@ def _graph_note(g) -> str:
 
 class _Passes:
     """The local-mapping passes run since it was made, as the card counted
-    them (pipeline.pass_counter): a chunk graph runs them inside its
-    replays, where no host timer sees them (StepGraph.per_frame times them)."""
+    them (pipeline.mapping_passes: the stamps each pass writes where it
+    runs): a chunk graph runs them inside its replays, where no host timer
+    sees them (StepGraph.per_frame times them)."""
 
     def __len__(self) -> int:
         from self_commit_orb_slam2_tpu_torch.models import pipeline

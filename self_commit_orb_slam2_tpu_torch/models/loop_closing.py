@@ -72,6 +72,7 @@ from ..ops.optim.bundle_adjust import bundle_adjust
 from ..ops.optim.pose_graph import optimize_pose_graph
 from ..ops.optim.sim3_opt import optimize_sim3
 from ..ops.solvers.horn import horn_align
+from ..utils import profiling
 from . import map_state as ms
 from .config import SlamConfig
 from .map_state import NO_POINT, MapState
@@ -89,36 +90,20 @@ REPROJ_TH2 = 9.21      # reference Sim3Solver th2
 # chi2-gated observations (stage 2, :916); each slice is one call.
 GBA_SLICES = [True] * 4 + [False] * 6
 
-# Milliseconds of each loop-closing phase while timed_phases() is open, else
-# None (nothing is timed).
-_phase_ms: dict | None = None
+# the closer's phases: span name -> timed_phases() key
+_PHASES = {"loop.detect": "detect", "loop.correct": "correct", "loop.gba_slice": "gba_slice",
+           "loop.merge": "merge"}
 
 
 @contextlib.contextmanager
 def timed_phases():
     """Time the closer's phases inside the block (host clock, with
-    cuda.synchronize on both sides on a CUDA map); yields a dict of lists of
+    cuda.synchronize on both sides on a card); yields a dict of lists of
     ms keyed by phase: "detect" (one keyframe), "correct", "gba_slice",
-    "merge"."""
-    global _phase_ms
-    _phase_ms = {}
-    try:
-        yield _phase_ms
-    finally:
-        _phase_ms = None
-
-
-@contextlib.contextmanager
-def _phase(name: str, like: torch.Tensor):
-    if _phase_ms is None:
-        yield
-        return
-    sync = torch.cuda.synchronize if like.is_cuda else (lambda: None)
-    sync()
-    t0 = time.perf_counter()
-    yield
-    sync()
-    _phase_ms.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+    "merge".  A view over the tracer's loop.* spans
+    (utils/profiling.timed): it opens a trace if none is open."""
+    with profiling.timed(_PHASES, scale=1e3) as out:
+        yield out
 
 
 class LoopDetection(NamedTuple):
@@ -670,17 +655,22 @@ class LoopCloser:
         parts of MAX_DETECT; consumed by the next resolve()."""
         if not self.enabled or not slots:
             return
+        with profiling.span("loop.dispatch"):
+            self._dispatch_group(m, slots)
+
+    def _dispatch_group(self, m: MapState, slots: list) -> None:
         live = []
         for s in slots:
             self._kf_counter += 1
             if self._kf_counter - self.last_loop_kf >= COOLDOWN:
                 live.append((self._kf_counter, int(s)))
+        profiling.count("detections", len(live))
         dev = m.kf_valid.device
         for start in range(0, len(live), self.MAX_DETECT):
             part = live[start: start + self.MAX_DETECT]
             dets = []
             for _, s in part:
-                with _phase("detect", m.kf_valid):
+                with profiling.span("loop.detect", dev):
                     if self.graphs is not None:
                         dets.append(self.graphs.detect(m, s, self.generator))
                     else:
@@ -721,7 +711,7 @@ class LoopCloser:
         g = self._pending_gba
         while g is not None and g["phase"] < len(GBA_SLICES):
             huber = GBA_SLICES[g["phase"]]
-            with _phase("gba_slice", g["gba_T"]):
+            with profiling.span("loop.gba_slice", g["gba_T"].device):
                 if g["graphs"] is not None:
                     g["gba_T"], g["gba_p"] = g["graphs"].gba_slice(g["gba_T"], g["gba_p"], huber)
                 else:
@@ -737,7 +727,7 @@ class LoopCloser:
         """Fold the finished global BA into the live map; the re-base payload
         is the newest keyframe's pose before and after the merge."""
         g, self._pending_gba = self._pending_gba, None
-        with _phase("merge", m.kf_valid):
+        with profiling.span("loop.merge", m.kf_valid.device):
             slot = ms.latest_kf(m)
             before = row(m.kf_Tcw, slot)
             if g.get("graphs") is not None:
@@ -760,6 +750,11 @@ class LoopCloser:
         fired = []
         if not self.enabled:
             return m, fired
+        with profiling.span("loop.resolve"):
+            m = self._resolve(m, block, fired)
+        return m, fired
+
+    def _resolve(self, m: MapState, block: bool, fired: list) -> MapState:
         if self._pending_gba is not None:
             if self._pending_gba["phase"] >= len(GBA_SLICES):
                 m = self._merge_pending_gba(m, fired)
@@ -773,6 +768,7 @@ class LoopCloser:
             host = torch.cat([x.reshape(D, -1).to(torch.int32) for x in (
                 dets.found, dets.best_c, dets.cand_kf, dets.n_inliers, dets.n_proj,
                 dets.group_ok, dets.groups)], dim=1).cpu().numpy()          # one transfer
+            profiling.count("host_waits")
             for i, (counter, s) in enumerate(part):
                 if counter - self.last_loop_kf < COOLDOWN:
                     continue  # an earlier keyframe of this part just fired
@@ -799,7 +795,7 @@ class LoopCloser:
                 # a newer correction aborts the in-flight GBA (reference
                 # mbStopGBA, LoopClosing.cc:586-593)
                 self._pending_gba = None
-                with _phase("correct", m.kf_valid):
+                with profiling.span("loop.correct", m.kf_valid.device):
                     slot = ms.latest_kf(m)
                     before = row(m.kf_Tcw, slot)
                     det = LoopDetection(*(x[i] for x in dets))
@@ -817,4 +813,4 @@ class LoopCloser:
         if block and self._pending_gba is not None:
             self._advance_gba(block=True)
             m = self._merge_pending_gba(m, fired)
-        return m, fired
+        return m

@@ -29,7 +29,6 @@ the caller owns.  Without one nothing random runs, as in the JAX package.
 from __future__ import annotations
 
 import contextlib
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -38,6 +37,7 @@ import torch
 from ..ops import se3
 from ..ops.constants import constant
 from ..ops.indexing import row, select
+from ..utils import profiling
 from . import frame as frame_mod
 from . import local_mapping
 from . import map_state as ms
@@ -133,86 +133,33 @@ def _need_keyframe(config: SlamConfig, m: MapState, carry: TrackCarry,
     return need & (frames_since >= cfg.min_frames_between_kf)
 
 
-# Seconds of each local-mapping pass while timed_mapping_passes() is open,
-# else None (nothing is timed).
-_pass_s: list | None = None
-
-
 @contextlib.contextmanager
 def timed_mapping_passes():
     """Time every local-mapping pass track_step runs inside the block (host
-    clock, with cuda.synchronize on both sides on a CUDA map); yields the
-    list the seconds are appended to."""
-    global _pass_s
-    _pass_s = []
-    try:
-        yield _pass_s
-    finally:
-        _pass_s = None
-
-
-@contextlib.contextmanager
-def untimed_mapping_passes():
-    """Suspend timed_mapping_passes() inside the block (a graph's warm-up and
-    capture run passes that are not the stream's, and a capture cannot
-    synchronize)."""
-    global _pass_s
-    saved, _pass_s = _pass_s, None
-    try:
-        yield
-    finally:
-        _pass_s = saved
-
-
-def record_pass_seconds(seconds: float) -> None:
-    """Append a pass timed elsewhere (a replayed keyframe graph) to the open
-    timed_mapping_passes() list, if any."""
-    if _pass_s is not None:
-        _pass_s.append(seconds)
-
-
-def mapping_passes_timed() -> bool:
-    return _pass_s is not None
-
-
-# device -> 0-d int64: local-mapping passes run since reset_mapping_passes()
-_pass_counters: dict = {}
-
-
-def pass_counter(device) -> torch.Tensor:
-    """The device's count of local-mapping passes (made at first use: a
-    graph that counts into it must be captured after that).  A pass inside a
-    captured graph counts when the graph replays its branch, where no host
-    timer can see it."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    c = _pass_counters.get(dev)
-    if c is None:
-        c = _pass_counters[dev] = torch.zeros((), dtype=torch.int64, device=dev)
-    return c
+    clock, with cuda.synchronize on both sides on a card); yields the list
+    the seconds are appended to.  A view over the tracer's mapping.pass
+    spans (utils/profiling.timed): it opens a trace if none is open."""
+    with profiling.timed({"mapping.pass": "s"}) as out:
+        yield out.setdefault("s", [])
 
 
 def reset_mapping_passes() -> None:
-    for c in _pass_counters.values():
-        c.zero_()
+    profiling.reset_stamps()
 
 
 def mapping_passes() -> int:
-    """Local-mapping passes since reset_mapping_passes(); reads the devices."""
-    return sum(int(c) for c in _pass_counters.values() if c.device.type != "meta")
+    """Local-mapping passes since reset_mapping_passes(): half the stamps of
+    the devices' stamp rings (a pass stamps its start and end, where it
+    runs: inside a captured graph too); reads the devices."""
+    return profiling.stamps() // 2
 
 
 def _mapping_pass(config: SlamConfig, m: MapState, kf_id: torch.Tensor) -> MapState:
-    pass_counter(m.kf_valid.device).add_(1)
-    if _pass_s is None:
-        return local_mapping._process(config, m, kf_id)
-    sync = torch.cuda.synchronize if m.kf_valid.is_cuda else (lambda: None)
-    sync()
-    t0 = time.perf_counter()
-    m = local_mapping._process(config, m, kf_id)
-    sync()
-    _pass_s.append(time.perf_counter() - t0)
+    dev = m.kf_valid.device
+    with profiling.span("mapping.pass", dev):
+        profiling.stamp(dev)
+        m = local_mapping._process(config, m, kf_id)
+        profiling.stamp(dev)
     return m
 
 

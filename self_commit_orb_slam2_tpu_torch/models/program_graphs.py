@@ -71,6 +71,7 @@ from torch.utils._pytree import tree_leaves, tree_map
 
 from ..kernels import CudaKernel
 from ..ops.orb import fast_band, fast_nms
+from ..utils import profiling
 from . import frame as frame_mod
 from . import loop_closing, mono_init, relocalization
 from .config import SlamConfig
@@ -305,7 +306,8 @@ class Program:
     def replay(self):
         """One replay of the captured graph; its outputs, live in the pool
         until the next replay of a graph of the pool."""
-        self.graph.replay()
+        with profiling.span("graph.launch"):
+            self.graph.replay()
         self.replays += 1
         LAUNCHES_REPLAYED.update(self.per_replay)
         return self._out
@@ -358,19 +360,23 @@ class _FrameEntry(NamedTuple):
         """The host tensors `sources` into the static buffers: on the card
         through the staging buffers (refilled once their last copy is done)
         and a copy that does not block the host, on the CPU directly."""
-        statics = self.program.statics
-        if not self.program.graphed:
-            for static, src in zip(statics, sources):
-                static.copy_(src)
-            return
-        if self.uploaded[0] is not None:
-            self.uploaded[0].synchronize()
-        for st, src in zip(self.stage, sources):
-            st.copy_(src)
-        for static, st in zip(statics, self.stage):
-            static.copy_(st, non_blocking=True)
-        self.uploaded[0] = torch.cuda.Event()
-        self.uploaded[0].record(torch.cuda.current_stream(self.program.device))
+        statics, dev = self.program.statics, self.program.device
+        with profiling.span("frame.upload"):
+            if not self.program.graphed:
+                with profiling.span("frame.h2d", dev):
+                    for static, src in zip(statics, sources):
+                        static.copy_(src)
+                return
+            if self.uploaded[0] is not None:
+                profiling.count("host_waits")
+                self.uploaded[0].synchronize()
+            for st, src in zip(self.stage, sources):
+                st.copy_(src)
+            with profiling.span("frame.h2d", dev):
+                for static, st in zip(statics, self.stage):
+                    static.copy_(st, non_blocking=True)
+            self.uploaded[0] = torch.cuda.Event()
+            self.uploaded[0].record(torch.cuda.current_stream(dev))
 
 
 def _frame_entry(fn, shapes_dtypes: list, device: torch.device, pool) -> _FrameEntry:
@@ -413,7 +419,8 @@ class FrameBuild:
                 functools.partial(_frame_build, self.build, self.config),
                 [(a.shape, torch.float32) for a in images], self.device, self._pool)
         entry.load(images)
-        return entry.program.run()
+        with profiling.span("frame.build", self.device):
+            return entry.program.run()
 
 
 class FrameGraphs:
@@ -460,7 +467,8 @@ class FrameGraphs:
                 functools.partial(_frame_phase, _SENSORS[sensor][1], self.config),
                 [(host_buf.shape, torch.uint8)], self.device, self._pool)
         entry.load((torch.from_numpy(host_buf),))
-        return entry.program.run()
+        with profiling.span("frame.phase", self.device):
+            return entry.program.run()
 
 
 def _detect(config: SlamConfig, m: MapState, slot: torch.Tensor, generator):

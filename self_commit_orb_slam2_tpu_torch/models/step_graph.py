@@ -101,6 +101,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import pipeline, program_graphs, relocalization
 from .config import SlamConfig
 from .frame import FrameData
@@ -169,6 +170,13 @@ def _copy_into(dst, src, skip=None) -> None:
 
 def _clone(x):
     return type(x)(*(v.clone() if torch.is_tensor(v) else _clone(v) for v in x))
+
+
+def _read(t: torch.Tensor) -> np.ndarray:
+    """A host read of the step's flags or StepInfo."""
+    with profiling.span("step.read"):
+        profiling.count("host_waits")
+        return t.cpu().numpy()
 
 
 class StepGraph:
@@ -268,9 +276,11 @@ class StepGraph:
         row.copy_(torch.where(c.core.need_kf, tail, info))
 
     def _replay(self, name: str):
-        self._graphs[name].replay()
+        with profiling.span("graph.launch"):
+            self._graphs[name].replay()
         self.replays += 1
         self.part_replays[name] += 1
+        profiling.count("replays." + name)
         return self._out[name]
 
     def _core(self, loc: bool = False) -> _CoreOut:
@@ -294,20 +304,17 @@ class StepGraph:
     def _tail(self) -> torch.Tensor:
         if not self.graphed:
             return self._run_tail(self._out["core"])
-        timed = self.run_mapping and pipeline.mapping_passes_timed()
-        if timed:
-            torch.cuda.synchronize(self.device)
-            t0 = time.perf_counter()
-        row = self._replay("tail")
-        if timed:
-            torch.cuda.synchronize(self.device)
-            pipeline.record_pass_seconds(time.perf_counter() - t0)
-        return row
+        if self.run_mapping and profiling.timing("mapping.pass"):
+            # the pass inside the graph cannot be spanned: time the replay,
+            # synchronized on both sides
+            with profiling.span("mapping.pass"):
+                return self._replay("tail")
+        return self._replay("tail")
 
     def _chunk(self, loc: bool, generator) -> torch.Tensor:
         if not self.graphed:
             return self._run_chunk(loc, generator)
-        if self.run_mapping and not loc and pipeline.mapping_passes_timed():
+        if self.run_mapping and not loc and profiling.timing("mapping.pass"):
             raise RuntimeError("a chunk graph cannot time its mapping passes: set "
                                "StepGraph.per_frame to time them slot by slot")
         self._check_generator(generator)
@@ -406,14 +413,14 @@ class StepGraph:
         S = self._S
         saved = _clone(S)
         # counters made before any capture, and left as the warm-up found them
-        counters = (relocalization.counters(self.device), pipeline.pass_counter(self.device))
+        counters = (relocalization.counters(self.device), profiling.stamp_head(self.device))
         saved_counts = [c.clone() for c in counters]
         main = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(main)
         scratch = torch.Generator(device=self.device).manual_seed(0)
         run, lost_name = self._runs(loc), _MODES[loc][1]
-        with pipeline.untimed_mapping_passes(), torch.cuda.stream(side):
+        with profiling.suspended(), torch.cuda.stream(side):
             for _ in range(WARMUP_ITERS):
                 for name in self._part_names(loc):
                     offset = scratch.get_offset()
@@ -432,7 +439,7 @@ class StepGraph:
         t0 = time.perf_counter()
         run, lost_name = self._runs(loc), _MODES[loc][1]
         pool = self.pool()
-        with pipeline.untimed_mapping_passes():
+        with profiling.suspended():
             for name in self._part_names(loc):
                 graph = torch.cuda.CUDAGraph()
                 drawn = name == lost_name and generator is not None
@@ -457,7 +464,7 @@ class StepGraph:
         if drawn:
             graph.register_generator_state(generator)
             state = generator.get_state()
-        with pipeline.untimed_mapping_passes(), program_graphs.conditional_capture(
+        with profiling.suspended(), program_graphs.conditional_capture(
                 graph, self.pool(), self.device) as stats:
             self._out[name] = self._run_chunk(loc, generator)
         if drawn:
@@ -499,19 +506,22 @@ class StepGraph:
         host (numpy [40]), read in the same transfer as the last flags the
         step reads."""
         S = self._S
-        _copy_into(S.frame, frame)
-        S.ts.copy_(timestamp)
-        c = self._core(loc)
-        head = c.head.cpu().numpy() if host_info else c.head[:2].cpu().numpy()  # the host read
+        with profiling.span("step.core", self.device):
+            _copy_into(S.frame, frame)
+            S.ts.copy_(timestamp)
+            c = self._core(loc)
+        head = _read(c.head if host_info else c.head[:2])   # the host read
         if bool(head[0] > 0.5) and self.with_reloc:
-            lost = self._lost(loc, generator)
-            head = lost.cpu().numpy() if host_info else lost[:2].cpu().numpy()  # the second
+            with profiling.span("step.lost", self.device):
+                lost = self._lost(loc, generator)
+            head = _read(lost if host_info else lost[:2])   # the second
             src = lost
         else:
             src = c.head
         if bool(head[1] > 0.5):   # a keyframe (never in localization mode)
-            out_row.copy_(self._tail())
-            return out_row.cpu().numpy() if host_info else None
+            with profiling.span("step.tail", self.device):
+                out_row.copy_(self._tail())
+            return _read(out_row) if host_info else None
         out_row.copy_(src[2:])
         return head[2:] if host_info else None
 
@@ -536,14 +546,15 @@ class StepGraph:
         if self.per_frame:
             return self._batch_steps_per_frame(m, carry, frames, timestamps, valid, run_mapping,
                                                generator, localization_only)
-        self.prepare(m, carry, frames.select(0), run_mapping, generator, localization_only,
-                     chunk=frames, parts=False)
-        C = self._C
-        _copy_into(C.frames, frames)
-        C.ts.copy_(timestamps)
-        C.valid.copy_(valid)
-        out = self._chunk(localization_only, generator).clone()
-        return self._S.map, self._publish(), out
+        with profiling.span("step.chunk", self.device):
+            self.prepare(m, carry, frames.select(0), run_mapping, generator, localization_only,
+                         chunk=frames, parts=False)
+            C = self._C
+            _copy_into(C.frames, frames)
+            C.ts.copy_(timestamps)
+            C.valid.copy_(valid)
+            out = self._chunk(localization_only, generator).clone()
+            return self._S.map, self._publish(), out
 
     def _batch_steps_per_frame(self, m, carry, frames, timestamps, valid, run_mapping,
                                generator, localization_only):

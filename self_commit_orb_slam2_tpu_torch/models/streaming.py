@@ -33,6 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import pipeline
 
 STATE_NOT_INITIALIZED = 0
@@ -146,14 +147,15 @@ class StreamSession:
 
     def _upload(self, arrs: list, ts: list) -> np.ndarray:
         """The packed host chunk of these frames, padded to C with the last."""
-        n_live = len(ts)
-        pad = self.C - n_live
-        if pad:
-            arrs = [np.concatenate([a, np.repeat(a[-1:], pad, axis=0)]) for a in arrs]
-            ts = list(ts) + [ts[-1]] * pad
-        valid = np.zeros(self.C, bool)
-        valid[:n_live] = True
-        return self.pack(*arrs, np.asarray(ts, np.float32), valid)
+        with profiling.span("session.pack"):
+            n_live = len(ts)
+            pad = self.C - n_live
+            if pad:
+                arrs = [np.concatenate([a, np.repeat(a[-1:], pad, axis=0)]) for a in arrs]
+                ts = list(ts) + [ts[-1]] * pad
+            valid = np.zeros(self.C, bool)
+            valid[:n_live] = True
+            return self.pack(*arrs, np.asarray(ts, np.float32), valid)
 
     def _dispatch(self, host_buf: np.ndarray, ts_live: list) -> None:
         with checked_dispatch(self.sys.step_graph):   # no host read until the drain
@@ -174,12 +176,17 @@ class StreamSession:
         keyframe seqs in one transfer and its keyframes dispatched for
         detection; then the closer resolves and every re-base payload it
         fired moves the tracking carry once."""
+        with profiling.span("session.drain"):
+            self._drain_group(force)
+
+    def _drain_group(self, force: bool) -> None:
         if len(self._pending) >= self.stride or (force and self._pending):
             cat = torch.cat(self._pending)
             self._pending = []
             m = self.sys.map
             host = torch.cat([cat.reshape(-1), m.kf_seq.to(torch.float32),
                               m.kf_valid.to(torch.float32)]).cpu().numpy()
+            profiling.count("host_waits")
             K = m.max_kf
             arr = host[:cat.numel()].reshape(cat.shape)
             self._packed_parts.append(self.sys._consume_chunk_infos(
@@ -209,12 +216,20 @@ class StreamSession:
             self._drain(force=True)
         if not self._packed_parts:
             return np.zeros((0, 4, 4), np.float32)
+        with profiling.span("session.finish"):
+            return self._finish()
+
+    def _finish(self) -> np.ndarray:
         parts = self._packed_parts   # device tensors, or host arrays when read per group
-        packed_all = (torch.cat(parts).cpu().numpy() if torch.is_tensor(parts[0])
-                      else np.concatenate(parts))
+        if torch.is_tensor(parts[0]):
+            profiling.count("host_waits")
+            packed_all = torch.cat(parts).cpu().numpy()
+        else:
+            packed_all = np.concatenate(parts)
         self._packed_parts = []
         assert packed_all.shape[0] == len(self._all_ts)
         infos = pipeline.unpack_infos(packed_all)
+        profiling.count("keyframes", int(infos.created_kf.sum()))
         sysm = self.sys
         for b in range(packed_all.shape[0]):
             tsb = float(self._all_ts[b])

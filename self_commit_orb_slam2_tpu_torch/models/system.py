@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..ops.indexing import row
+from ..utils import profiling
 from ..utils import trajectory as traj_io
 from . import checkpoint
 from . import frame as frame_mod
@@ -71,6 +72,15 @@ def _f32(image) -> torch.Tensor:
 
 def _u8(images) -> np.ndarray:
     return np.clip(images, 0, 255).astype(np.uint8)
+
+
+def _host_planes(sensor: str, arrays: tuple) -> tuple:
+    """A batch call's frames as a streaming session takes them: uint8
+    images, and RGB-D depths as uint16 millimetres."""
+    if sensor == "rgbd":
+        images, depths = arrays
+        return _u8(images), np.clip(np.asarray(depths) * 1e3, 0, 65535).astype(np.uint16)
+    return tuple(_u8(a) for a in arrays)
 
 
 # dummy chunks _prime_stream pushes through the frame phase and the steps
@@ -199,40 +209,44 @@ class System:
 
     def track_rgbd(self, image: np.ndarray, depth: np.ndarray, timestamp: float) -> np.ndarray:
         """One frame: [H, W] grayscale (0..255) and depth in metres."""
-        return self._timed_track("rgbd", (_f32(image), _f32(depth)), timestamp)
+        return self._timed_track("rgbd", (image, depth), timestamp)
 
     def track_stereo(self, image_l: np.ndarray, image_r: np.ndarray,
                      timestamp: float) -> np.ndarray:
         """One stereo pair of [H, W] grayscale images (reference
         System::TrackStereo); raw eyes when config.rect_maps is set."""
-        return self._timed_track("stereo", (_f32(image_l), _f32(image_r)), timestamp)
+        return self._timed_track("stereo", (image_l, image_r), timestamp)
 
     def track_monocular(self, image: np.ndarray, timestamp: float) -> np.ndarray:
         """One [H, W] grayscale image (reference System::TrackMonocular,
         src/System.cc:292).  Until the two-view bootstrap succeeds the pose
         returned is the identity and no trajectory entry is kept for
         get_trajectory()."""
-        return self._timed_track("mono", (_f32(image),), timestamp)
+        return self._timed_track("mono", (image,), timestamp)
 
     def _timed_track(self, sensor: str, images: tuple, timestamp: float) -> np.ndarray:
-        t0 = time.perf_counter()
-        out = self._track(sensor, images, timestamp)  # ends in a host read of the pose
-        self.timings.append(time.perf_counter() - t0)
-        return out
+        """One call of the per-frame API: the `call` span of the tracer."""
+        with profiling.span("call"):
+            profiling.count("frames")
+            with profiling.span("session.pack"):
+                images = tuple(_f32(a) for a in images)
+            t0 = time.perf_counter()
+            out = self._track(sensor, images, timestamp)  # ends in a host read of the pose
+            self.timings.append(time.perf_counter() - t0)
+            return out
 
     def track_batch_rgbd(self, images: np.ndarray, depths: np.ndarray,
                          timestamps: np.ndarray,
                          chunk: Optional[int] = None) -> np.ndarray:
         """Throughput mode: stream a frame batch in fixed-size chunks (the
         first frame initializes the map if needed).  Returns [B, 4, 4] poses."""
-        depths_mm = np.clip(np.asarray(depths) * 1e3, 0, 65535).astype(np.uint16)
-        return self._track_batch("rgbd", (_u8(images), depths_mm), timestamps, chunk)
+        return self._track_batch("rgbd", (images, depths), timestamps, chunk)
 
     def track_batch_stereo(self, images_l: np.ndarray, images_r: np.ndarray,
                            timestamps: np.ndarray,
                            chunk: Optional[int] = None) -> np.ndarray:
         """Stereo throughput mode (see track_batch_rgbd)."""
-        return self._track_batch("stereo", (_u8(images_l), _u8(images_r)), timestamps, chunk)
+        return self._track_batch("stereo", (images_l, images_r), timestamps, chunk)
 
     def track_batch_mono(self, images: np.ndarray, timestamps: np.ndarray,
                          chunk: Optional[int] = None) -> np.ndarray:
@@ -240,18 +254,24 @@ class System:
         bootstrap runs through the per-frame path until the map initializes
         (possibly consuming several leading frames); the rest stream in
         chunks, and only their poses are returned."""
-        return self._track_batch("mono", (_u8(images),), timestamps, chunk)
+        return self._track_batch("mono", (images,), timestamps, chunk)
 
     def _track_batch(self, sensor: str, arrays: tuple, timestamps,
                      chunk: Optional[int]) -> np.ndarray:
-        t0 = time.perf_counter()
-        sess = self.open_stream(sensor, chunk)
-        sess.feed(arrays, timestamps)
-        poses = sess.finish()
-        if len(poses) == 0:
-            return np.asarray(self.Tcw)[None]
-        self.timings.extend([(time.perf_counter() - t0) / len(poses)] * len(poses))
-        return poses
+        """One call of the batch API (the images, and RGB-D depths in
+        metres, as given): the `call` span of the tracer."""
+        with profiling.span("call"):
+            profiling.count("frames", np.size(timestamps))
+            with profiling.span("session.pack"):
+                arrays = _host_planes(sensor, arrays)
+            t0 = time.perf_counter()
+            sess = self.open_stream(sensor, chunk)
+            sess.feed(arrays, timestamps)
+            poses = sess.finish()
+            if len(poses) == 0:
+                return np.asarray(self.Tcw)[None]
+            self.timings.extend([(time.perf_counter() - t0) / len(poses)] * len(poses))
+            return poses
 
     def open_stream(self, sensor: str, chunk: Optional[int] = None) -> StreamSession:
         """A persistent streaming session: feed() chunks for the lifetime of a
@@ -428,6 +448,7 @@ class System:
         else:
             reloc = relocalization.relocalize(self.config, m, self.carry.last_frame,
                                               self._reloc_gen)
+        profiling.count("host_waits")
         if not bool(reloc.success):
             return
         dev = self.device
@@ -451,12 +472,16 @@ class System:
         the host."""
         ts = torch.tensor(timestamp, dtype=torch.float32, device=self.device)
         if self.state == STATE_NOT_INITIALIZED and sensor == "mono":
-            return self._mono_initialize(images[0], timestamp)
+            with profiling.span("step.init"):
+                return self._mono_initialize(images[0], timestamp)
         if self.state == STATE_NOT_INITIALIZED:
             init = pipeline.init_rgbd if sensor == "rgbd" else pipeline.init_stereo
-            images = tuple(a.to(self.device) for a in images)
-            m, carry, n_depth = init(self.config, self.map, *images, ts)
-            if int(n_depth) >= self.config.tracking.min_init_depth_points:
+            with profiling.span("step.init"):
+                images = tuple(a.to(self.device) for a in images)
+                m, carry, n_depth = init(self.config, self.map, *images, ts)
+                profiling.count("host_waits")
+                enough = int(n_depth) >= self.config.tracking.min_init_depth_points
+            if enough:
                 self.map, self.carry = m, carry
                 self.state = STATE_OK
                 self.Tcw = np.eye(4, dtype=np.float32)
@@ -469,8 +494,10 @@ class System:
             self.Tcw = info.Tcw[0].copy()
             self.state = STATE_OK if info.state_ok[0] else STATE_LOST
             self.vo_mode = bool(info.vo[0])
+            profiling.count("keyframes", int(info.created_kf[0]))
             if self.state == STATE_LOST and self.config.vocab is not None:
-                self._relocalize_last_frame()
+                with profiling.span("step.reloc"):
+                    self._relocalize_last_frame()
             ref_kf_Tcw = info.ref_kf_Tcw[0]
             Tcr = self.Tcw @ np.linalg.inv(ref_kf_Tcw)
             self._rel_trajectory.append((timestamp, int(info.ref_kf_seq[0]), Tcr))
@@ -487,7 +514,10 @@ class System:
         frame-build graph of the step graphs, else op by op."""
         if self.step_graph is not None:
             return self.step_graph.frames.single(sensor, images)
-        return _FRAME_BUILDERS[sensor](self.config, *(a.to(self.device) for a in images))
+        with profiling.span("frame.upload"), profiling.span("frame.h2d", self.device):
+            images = tuple(a.to(self.device) for a in images)
+        with profiling.span("frame.build", self.device):
+            return _FRAME_BUILDERS[sensor](self.config, *images)
 
     def _step(self, frame: frame_mod.FrameData, ts: torch.Tensor) -> pipeline.StepInfo:
         """One tracking step of the per-frame API -> its StepInfo on the host
@@ -500,10 +530,13 @@ class System:
                 self.map, self.carry, frame, ts, self.enable_mapping, self._stream_gen,
                 self.localization_only)
         else:
-            self.map, self.carry, info = pipeline.track_step(
-                self.config, self.map, self.carry, frame, ts, self.enable_mapping,
-                localization_only=self.localization_only, generator=self._stream_gen)
-            row = pipeline.pack_infos([info])[0].cpu().numpy()
+            with profiling.span("step.frame", self.device):
+                self.map, self.carry, info = pipeline.track_step(
+                    self.config, self.map, self.carry, frame, ts, self.enable_mapping,
+                    localization_only=self.localization_only, generator=self._stream_gen)
+            with profiling.span("step.read"):
+                profiling.count("host_waits")
+                row = pipeline.pack_infos([info])[0].cpu().numpy()
         return pipeline.unpack_infos(row[None])
 
     def _frame_phase(self, sensor: str, host_buf: np.ndarray):
@@ -511,7 +544,10 @@ class System:
         through the frame-phase graph of the step graphs, else op by op."""
         if self.step_graph is not None:
             return self.step_graph.frames(sensor, host_buf)
-        return _SENSORS[sensor][1](self.config, torch.from_numpy(host_buf).to(self.device))
+        with profiling.span("frame.upload"), profiling.span("frame.h2d", self.device):
+            buf = torch.from_numpy(host_buf).to(self.device)
+        with profiling.span("frame.phase", self.device):
+            return _SENSORS[sensor][1](self.config, buf)
 
     def _batch_steps(self, frames: frame_mod.FrameData, ts: torch.Tensor,
                      valid: torch.Tensor, localization_only: bool) -> torch.Tensor:
@@ -522,9 +558,10 @@ class System:
                 self.map, self.carry, frames, ts, valid, self.enable_mapping, self._stream_gen,
                 localization_only)
         else:
-            self.map, self.carry, packed = pipeline.batch_steps_frames(
-                self.config, self.map, self.carry, frames, ts, valid, self.enable_mapping,
-                localization_only=localization_only, generator=self._stream_gen)
+            with profiling.span("step.chunk", self.device):
+                self.map, self.carry, packed = pipeline.batch_steps_frames(
+                    self.config, self.map, self.carry, frames, ts, valid, self.enable_mapping,
+                    localization_only=localization_only, generator=self._stream_gen)
         return packed
 
     def _mono_initialize(self, image: torch.Tensor, timestamp: float) -> np.ndarray:

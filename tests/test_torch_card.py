@@ -6,6 +6,8 @@ on a machine without JAX it runs with the repository's conftest switched off:
     python -m pytest --noconftest -m card tests/test_torch_card.py
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -1393,3 +1395,97 @@ def test_dispatch_reads_nothing_from_the_host(cuda):
         sess.finish()
     assert fresh.state == STATE_OK and sg.part_replays["loc_chunk"] == 2
     assert sg.replays == sg.part_replays["chunk"] + sg.part_replays["loc_chunk"]
+
+
+def test_stamps_time_a_captured_graph_on_the_host_clock(cuda):
+    """Two stamps captured around a matmul in a CUDA graph: each replay
+    writes a start and an end where the graph runs; the tracer reads the
+    ring at its close, and the stamped intervals fall inside the device
+    interval of the span around the replays."""
+    from self_commit_orb_slam2_tpu_torch.utils import profiling
+
+    profiling.stamp_head(cuda)   # the ring and its kernel, before the capture
+    x = torch.randn(2048, 2048, device=cuda)
+    y = x @ x                    # the matmul's library handle, before the capture
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        profiling.stamp(cuda)
+        y = x @ x
+        profiling.stamp(cuda)
+    before = profiling.stamps()
+    with profiling.tracing() as t:
+        with profiling.span("call"):
+            profiling.count("frames")
+            with profiling.span("step.chunk", cuda):
+                for _ in range(3):
+                    g.replay()
+    s = t.summary
+    assert profiling.stamps() == before + 6 and len(s.passes) == 3
+    chunk = next(r for r in s.spans if r.name == "step.chunk")
+    slack = 50_000   # ns: the two clocks are aligned to tens of microseconds
+    assert chunk.device is not None
+    for a, b in s.passes:
+        assert chunk.device[0] - slack <= a < b <= chunk.device[1] + slack
+    assert torch.isfinite(y).all()
+
+
+def test_timed_synchronizes_leave_the_window(cuda):
+    """A timed span around queued matmuls: each of its two synchronizes
+    keeps the stretch from the end of the stream's queued work to the
+    host's return, inside the window; the summary's window and the span's
+    device interval leave the stretches out."""
+    from self_commit_orb_slam2_tpu_torch.utils import profiling
+
+    x = torch.randn(2048, 2048, device=cuda)
+    torch.cuda.synchronize()
+    with profiling.timed({"mapping.pass": "s"}) as out:
+        with profiling.span("call"):
+            profiling.count("frames")
+            with profiling.span("step.tail", cuda):
+                for _ in range(3):
+                    y = x @ x
+                with profiling.span("mapping.pass"):
+                    for _ in range(3):
+                        y = y @ x
+                time.sleep(0.002)
+    s = profiling.last_summary()
+    assert len(out["s"]) == 1 and s.timed["mapping.pass"] == out["s"]
+    assert 1 <= len(s.syncs) <= 2
+    w0, w1 = s.window
+    assert all(w0 <= a < b <= w1 for a, b in s.syncs)
+    cut = sum(b - a for a, b in s.syncs)
+    assert s.window_ns == w1 - w0 - cut
+    tail = next(r for r in s.spans if r.name == "step.tail")
+    assert s.device_ns("step.tail") <= tail.device[1] - tail.device[0]
+    assert 0 < s.busy_ns() <= s.window_ns
+    assert torch.isfinite(y).all()
+
+
+def test_dispatch_reads_nothing_with_the_tracer_open(cuda):
+    """The primed System of test_dispatch_reads_nothing_from_the_host,
+    streamed under streaming.no_host_reads() with the tracer open: nothing
+    waits for the card inside a dispatch, the frame phase, the chunk-graph
+    replay and each graph launch are spanned with device intervals, and the
+    passes the chunk graph ran are the stamps the trace read."""
+    from self_commit_orb_slam2_tpu_torch.models import pipeline, streaming
+    from self_commit_orb_slam2_tpu_torch.models.system import STATE_OK
+    from self_commit_orb_slam2_tpu_torch.utils import profiling
+
+    slam, seq = _small_world(cuda)
+    fresh = type(slam)(slam.config, enable_mapping=True, enable_loop_closing=False)
+    fresh.warm_start()
+    pipeline.reset_mapping_passes()
+    with profiling.tracing() as t:
+        with streaming.no_host_reads():
+            fresh.track_batch_rgbd(seq.images[:13], seq.depths[:13], seq.timestamps[:13],
+                                   chunk=4)
+    assert fresh.state == STATE_OK
+    s = t.summary
+    names = [r.name for r in s.spans]
+    assert names.count("step.chunk") == 3 and names.count("frame.phase") == 3
+    assert all(r.device is not None for r in s.spans
+               if r.name in ("step.chunk", "frame.phase", "frame.h2d"))
+    assert names.count("graph.launch") >= 6
+    assert len(s.passes) == pipeline.mapping_passes() == s.counts["keyframes"]
+    assert s.coverage() > 0.9 and 0 < s.busy_ns() < s.window_ns

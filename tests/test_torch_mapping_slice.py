@@ -22,6 +22,7 @@ from self_commit_orb_slam2_tpu_torch.models import config, pipeline
 from self_commit_orb_slam2_tpu_torch.models.system import STATE_OK, System
 from self_commit_orb_slam2_tpu_torch.ops.camera import CameraParams
 from self_commit_orb_slam2_tpu_torch.ops.orb.extractor import OrbConfig
+from self_commit_orb_slam2_tpu_torch.utils import profiling
 from self_commit_orb_slam2_tpu_torch.utils.evaluation import ate_rmse
 from self_commit_orb_slam2_tpu_torch.utils.synthetic import generate_sequence
 
@@ -72,4 +73,4 @@ def test_mapping_stream_matches_jax(seq):
     assert abs(slam.n_keyframes() - jsys.n_keyframes()) <= 1
     assert slam.n_keyframes() >= 2 and slam.n_points() > 100
     assert len(pass_s) == slam.n_keyframes() - 1 and min(pass_s) > 0
-    assert pipeline._pass_s is None  # the timer is off again
+    assert profiling.current() is None  # the timer is off again
