@@ -21,6 +21,12 @@ Phases (any failure exits non-zero and prints no result):
      against its plain version on the slab each replay gave it, the frames
      bitwise against make_frame_* op by op, ms a frame build each way and
      host syncs in a replay (0, hard);
+     then pose_optimize's kernel (csrc/pose_opt.cu) at the tracking step's
+     shapes (one pose of 1,024 RGB-D rows, one of 2,048 stereo rows, five
+     of 1,024 under torch.vmap): against the plain version on the card
+     (Tcw within 1e-4, inliers within 2 rows, bitwise with itself, one
+     launch a call), its device time from a CUDA graph beside the plain
+     version's graphed replay and its latency bound (tools/time_pose_opt.py);
   4. the port's System (RGB-D, 640x480, 1000 features, the bench's
      capacities, chunk 4, loop closing off) streams 1 + 60 frames of
      generate_sequence(seed=5, fx=520) along each path, with every launch
@@ -291,6 +297,19 @@ def _launches(kernels) -> dict:
             + program_graphs.LAUNCHES_REPLAYED[k.name] for k in kernels.values()}
 
 
+@contextlib.contextmanager
+def _p1_counted(counts: dict, key: str):
+    """Adds to counts[key] the launches of pose_optimize's kernel (P1) the
+    card runs inside the block, as the card counts them (pose_opt.
+    device_launches: the chunk graph's IF nodes decide at each replay which
+    launches run, so no host count can give them)."""
+    from self_commit_orb_slam2_tpu_torch.ops.optim import pose_opt
+
+    before = pose_opt.device_launches()
+    yield
+    counts[key] = counts.get(key, 0) + pose_opt.device_launches() - before
+
+
 def _render(kind: str, kw: dict):
     """One rendering job in a worker process (host numpy)."""
     from self_commit_orb_slam2_tpu_torch.utils import synthetic
@@ -342,22 +361,55 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
     from self_commit_orb_slam2_tpu_torch.models import program_graphs
+    from self_commit_orb_slam2_tpu_torch.ops.optim import pose_opt
     from self_commit_orb_slam2_tpu_torch.ops.orb import fast_band, fast_nms
 
     kernels = [fast_band.kernel, fast_nms.kernel]
     cond = program_graphs._COND_BEGIN   # csrc/graph_cond.cu: the chunk graph's IF nodes
+    built = kernels + [pose_opt.kernel, cond]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(kernels) + 1) as pool:   # one nvcc per source, together
-        libs = list(pool.map(lambda k: k.build(), kernels + [cond]))
-    print(f"[build] {len(kernels)} kernels and the conditional-node helper in "
+    with ThreadPoolExecutor(len(built)) as pool:   # one nvcc per source, together
+        libs = list(pool.map(lambda k: k.build(), built))
+    print(f"[build] {len(built) - 1} kernels and the conditional-node helper in "
           f"{time.perf_counter() - t0:.1f} s")
-    for k, lib in zip(kernels + [cond], libs):
+    for k, lib in zip(built, libs):
         print(f"[build] {k.name}: {lib.name}")
         for line in k.build_log.splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 print(f"[build]   {line.strip()}")
         k.function()  # load it
+    # the FAST kernels, whose launches the paths count (pose_opt's phase
+    # counts its own)
     return {k.name: k for k in kernels}
+
+
+def phase_pose_kernel():
+    """pose_optimize's kernel (csrc/pose_opt.cu) at the tracking step's
+    shapes: one pose of 1,024 RGB-D rows, one of 2,048 stereo rows, five of
+    1,024 under torch.vmap (relocalization's); against the plain version on
+    the card (Tcw within 1e-4, inliers within 2 rows, two launches bitwise,
+    one launch a call), timed from a CUDA graph beside the plain version's
+    graphed replay and the latency bound (tools/time_pose_opt.py)."""
+    from self_commit_orb_slam2_tpu_torch.tools import time_pose_opt as tool
+
+    clock = tool.sm_clock_mhz()
+    rows = [tool.run_case(kind, n, b, clock) for kind, n, b in tool.CASES]
+    for r in rows:
+        print(f"[pose_opt] {r['case']} B={r['poses']} N={r['rows']}: kernel {r['kernel_ms']:.4f} "
+              f"ms on the device (CUDA graph replay), plain graphed {r['plain_graphed_ms']:.3f} "
+              f"ms ({r['speedup']:.0f}x), wrapper {r['host_ms']:.4f} ms of host time a call; "
+              f"bound {r['bound_ms']:.4f} ms (latency: {max(r['iterations'])} iterations at "
+              f"{clock:.0f} MHz; {r['bound_full_budget_ms']:.4f} for all 40), the kernel "
+              f"{r['x_bound']:.2f} x its bound; |Tcw - plain| {r['max_pose_err']:.2e}, inlier "
+              f"rows apart {r['max_inlier_rows']}, bitwise again {r['repeats_bitwise']}")
+        require(r["ok"], f"pose_opt {r['case']} B={r['poses']}: {r}")
+    main = rows[0]
+    return dict(name="pose_opt", route="cuda",
+                source="self_commit_orb_slam2_tpu_torch/csrc/pose_opt.cu",
+                replaces="none: asked for by the port's profile (ROADMAP.md queue B)",
+                max_abs_err=max(r["max_pose_err"] for r in rows), ms=main["kernel_ms"],
+                plain_ms=main["plain_graphed_ms"], bound_ms=main["bound_ms"],
+                bound_by="latency", library_ms=None, shapes=rows)
 
 
 def _event_time_ms(fn, reps: int = 5) -> float:
@@ -721,9 +773,11 @@ def phase_path(seq, kernels, label: str, cell_size: int, mapping: bool, own: str
         return time.perf_counter() - t0, n_warm
 
     slam = System(cfg, enable_mapping=mapping, enable_loop_closing=False)
+    p1 = {}
     with _counted_passes() as passes:
         _reset_launches(kernels)
-        dt, _ = stream(slam, passes, True)
+        with _p1_counted(p1, "stream"):
+            dt, _ = stream(slam, passes, True)
         launches = _launches(kernels)
         n_passes = len(passes)
     fps = n_timed / dt
@@ -744,8 +798,13 @@ def phase_path(seq, kernels, label: str, cell_size: int, mapping: bool, own: str
           f"{(N_FRAMES - 1) // CHUNK} chunks, per-frame parts replayed "
           f"{sg.replays - sg.part_replays['chunk']} times; every dispatch under sync debug mode "
           f"'error'; mapping passes {n_passes} (counted on the card)")
-    print(f"[{label}] launches during the run: {launches}")
+    print(f"[{label}] launches during the run: {launches}; pose_opt (P1) {p1['stream']} "
+          f"launches run on the card (its own count) for {N_FRAMES - 1} tracked frames: "
+          f"{p1['stream'] / (N_FRAMES - 1):.2f} a frame")
     require(slam.state == STATE_OK, f"{label}: tracking lost (state {slam.state})")
+    require(p1["stream"] >= 3 * (N_FRAMES - 1),
+            f"{label}: P1 ran {p1['stream']} times for {N_FRAMES - 1} tracked frames, want 3 "
+            "a frame at least (two motion hypotheses, the local map)")
     require(n_kf >= 2, f"{label}: only {n_kf} keyframes")
     require(ate < ATE_LIMIT_M, f"{label}: ATE {ate:.6f} m >= {ATE_LIMIT_M} m")
     n_extract = 1 + (N_FRAMES - 1) // CHUNK
@@ -1614,7 +1673,8 @@ def phase_path_stereo(label, seq, cfg, n_stream, ate_limit, kernels):
         require(all(m.is_cuda for m in slam.config.rect_maps),
                 f"{label}: the rectification maps are not on the card")
     il, ir, ts = _u8(seq.images), _u8(seq.right_images), seq.timestamps
-    with _counted_passes() as pass_s:
+    p1 = {}
+    with _counted_passes() as pass_s, _p1_counted(p1, "stream"):
         _reset_launches(kernels)
         relocalization.reset_counts()
         sess = slam.open_stream("stereo", CHUNK)
@@ -1655,8 +1715,13 @@ def phase_path_stereo(label, seq, cfg, n_stream, ate_limit, kernels):
           + (f"; track_stereo per pair: {np.mean(per_frame_s) * 1e3:.1f} ms mean over "
              f"{len(per_frame_s)}, median {np.median(per_frame_s) * 1e3:.1f} (host clock, "
              f"synced; the first captures the per-frame step graphs)" if per_frame_s else ""))
-    print(f"[{label}] launches during the run: {launches}")
+    print(f"[{label}] launches during the run: {launches}; pose_opt (P1) {p1['stream']} "
+          f"launches run on the card (its own count) for {n - 1} tracked pairs: "
+          f"{p1['stream'] / (n - 1):.2f} a pair")
     require(slam.state == STATE_OK, f"{label}: tracking lost (state {slam.state})")
+    require(p1["stream"] >= 3 * (n - 1),
+            f"{label}: P1 ran {p1['stream']} times for {n - 1} tracked pairs, want 3 "
+            "a pair at least (two motion hypotheses, the local map)")
     require(n_kf >= 2, f"{label}: only {n_kf} keyframes")
     require(ate < ate_limit, f"{label}: ATE {ate:.6f} m >= {ate_limit} m")
     require(attempts == 0, f"{label}: {attempts} relocalization attempts in a steady run")
@@ -3707,20 +3772,25 @@ def main() -> int:
               f"{time.perf_counter() - t_data:.1f} s after the render pool started (6 worker "
               f"processes, host)")
         results = phase_kernels(seq)
+        pose_row = phase_pose_kernel()
         fp, fp_err = phase_frame_programs(seq)
         results["fast_band"]["max_abs_err"] = max(results["fast_band"]["max_abs_err"], fp_err)
         lap("build and kernels")
         summary = [f"frame build ({WIDTH}x{HEIGHT}) graphed / op by op: " + ", ".join(
             f"{k} {v['ms'][True]:.3f} / {v['ms'][False]:.3f} ms" for k, v in fp.items())]
         vocab, bow_ms, eig = phase_vocabulary(seq)   # the graph phases' LOST branches use it
+        p1 = {}   # P1's launches on each path, counted on the card
         for label, cell, mapping, own in (("path 1", 16, False, "fast_band"),
                                           ("path 2", 8, True, "fast_nms")):
-            n, fps, fps_pf, ate, g = phase_path(seq, kernels, label, cell, mapping, own, vocab)
+            with _p1_counted(p1, label):
+                n, fps, fps_pf, ate, g = phase_path(seq, kernels, label, cell, mapping, own,
+                                                    vocab)
             results[own]["launches"] = n
             summary.append(f"{label} {fps:.2f} frames/s through the chunk graph, {fps_pf:.2f} "
                            f"through per-frame replays, ATE {ate:.6f} m, " + _graph_note(g))
             lap(label)
-        n3, fps3, ate3, r3, map3 = phase_path3(seq, kernels, vocab)
+        with _p1_counted(p1, "path 3"):
+            n3, fps3, ate3, r3, map3 = phase_path3(seq, kernels, vocab)
         results["fast_band"]["launches_path3"] = n3
         results["fast_nms"]["launches_path3"] = 0
         summary.append(
@@ -3743,22 +3813,25 @@ def main() -> int:
         phase_band_shapes(kitti, euroc, euroc_maps, band)
         match_ms, share = phase_stereo_matcher(kitti)
         cfg4a = _sensor_config("stereo", vocab=vocab, max_frames_between_kf=10, **KITTI)
-        n4a, fps4a, ate4a, pass4a, slam4a = phase_path_stereo("path 4a", kitti, cfg4a, N_KITTI,
-                                                              0.01, kernels)
-        g4a = phase_graph("path 4a", cfg4a, "stereo", (_u8(kitti.images),
-                                                       _u8(kitti.right_images)),
-                          kitti.timestamps, True, vocab, slam4a)
-        del slam4a
-        n4b, fps4b, ate4b, _, _ = phase_path_stereo(
-            "path 4b", euroc, _sensor_config("stereo", vocab=vocab, rect_maps=euroc_maps,
-                                             max_frames_between_kf=10, **EUROC),
-            N_EUROC - N_EUROC_PER_FRAME, 0.02, kernels)
+        with _p1_counted(p1, "path 4a"):
+            n4a, fps4a, ate4a, pass4a, slam4a = phase_path_stereo("path 4a", kitti, cfg4a,
+                                                                  N_KITTI, 0.01, kernels)
+            g4a = phase_graph("path 4a", cfg4a, "stereo", (_u8(kitti.images),
+                                                           _u8(kitti.right_images)),
+                              kitti.timestamps, True, vocab, slam4a)
+            del slam4a
+        with _p1_counted(p1, "path 4b"):
+            n4b, fps4b, ate4b, _, _ = phase_path_stereo(
+                "path 4b", euroc, _sensor_config("stereo", vocab=vocab, rect_maps=euroc_maps,
+                                                 max_frames_between_kf=10, **EUROC),
+                N_EUROC - N_EUROC_PER_FRAME, 0.02, kernels)
         summary.append(f"path 4a {fps4a:.2f} frames/s, ATE {ate4a:.6f} m, {pass4a} mapping "
                        f"passes, match_stereo {match_ms / CHUNK:.3f} ms per frame, depth "
                        f"on {share:.3f} of the keypoints, {_graph_note(g4a)}; path 4b "
                        f"{fps4b:.2f} frames/s, ATE {ate4b:.6f} m")
         two_view_ms = phase_two_view()
-        n5, fps5, ate5, boot5, n_init, g5 = phase_path5(seq, kernels, vocab)
+        with _p1_counted(p1, "path 5"):
+            n5, fps5, ate5, boot5, n_init, g5 = phase_path5(seq, kernels, vocab)
         summary.append(f"two-view {two_view_ms:.1f} ms; path 5 {fps5:.2f} frames/s, Sim3 ATE "
                        f"{ate5:.6f} m, initialized after {n_init} frames, a bootstrap attempt "
                        f"graphed / op by op {boot5['ms'][True]:.1f} / {boot5['ms'][False]:.1f} "
@@ -3769,7 +3842,8 @@ def main() -> int:
         seq6 = _join_frames(loop_jobs)
         print(f"[data] path 6: {N_LOOP} frames; waited {time.perf_counter() - t0:.1f} s for the "
               f"render pool (host)")
-        n6, fps6, ate6, raw6, n_closures, ph6, stages = phase_path6(seq6, kernels, vocab)
+        with _p1_counted(p1, "path 6"):
+            n6, fps6, ate6, raw6, n_closures, ph6, stages = phase_path6(seq6, kernels, vocab)
         mean6 = {k: float(np.mean(ph6.get(k, [np.nan])))
                  for k in ("detect", "correct", "gba_slice", "merge")}
         summary.append(f"path 6 {fps6:.2f} frames/s, {n_closures} closures, ATE {ate6:.6f} m "
@@ -3795,7 +3869,7 @@ def main() -> int:
                        f"{stages['gba']['bitwise']}, {stages['gba']['syncs']} host syncs "
                        f"graphed)")
         lap("path 6")
-        with tempfile.TemporaryDirectory() as workdir:
+        with tempfile.TemporaryDirectory() as workdir, _p1_counted(p1, "path 7"):
             n7, rows7 = phase_path7(seq, kitti, euroc, kernels, vocab, workdir)
         summary.append("path 7 " + ", ".join(
             f"{k} {rows7[k][0]:.2f} frames/s (decode {rows7[k][1]:.3f} of the run), ATE "
@@ -3810,9 +3884,10 @@ def main() -> int:
             "chunk {:.0f} / {:.0f} ms".format(*(rows7["warm"][p][i] for i in (1, 2, 3)
                                                for p in (True, False))))
         lap("path 7")
-        r8a, cfg8, map8 = phase_path8a(seq6, kernels, vocab)
+        with _p1_counted(p1, "path 8"):
+            r8a, cfg8, map8 = phase_path8a(seq6, kernels, vocab)
         lap("path 8a")
-        with tempfile.TemporaryDirectory() as workdir:
+        with tempfile.TemporaryDirectory() as workdir, _p1_counted(p1, "path 8"):
             r8b = phase_path8b(cfg8, map8, workdir)
             del map8
             t0 = time.perf_counter()
@@ -3836,15 +3911,18 @@ def main() -> int:
             f"{r8c['steady_stream']:.2f} / {r8c['eager']['steady_stream']:.2f} and "
             f"{r8c['steady_fleet']:.2f} / {r8c['eager']['steady_fleet']:.2f}), ATE max "
             f"{max(r8c['ates']):.6f} m; path 8d NCCL world of 1 ok")
-        r9a = phase_path9a(seq6, kernels, vocab)
+        with _p1_counted(p1, "path 9"):
+            r9a = phase_path9a(seq6, kernels, vocab)
         lap("path 9a")
         t0 = time.perf_counter()
         seq9b = _join_frames(bounded_jobs)
         print(f"[data] path 9b: {N_BOUNDED} frames; waited {time.perf_counter() - t0:.1f} s for "
               f"the render pool (host)")
-        r9b = phase_path9b(seq9b, kernels)
+        with _p1_counted(p1, "path 9"):
+            r9b = phase_path9b(seq9b, kernels)
         lap("path 9b")
-        n_prof, prof = phase_profile_stages(kernels)
+        with _p1_counted(p1, "profile stages"):
+            n_prof, prof = phase_profile_stages(kernels)
         lap("profile stages")
         with tempfile.TemporaryDirectory() as workdir:
             scaling = phase_scaling(workdir)
@@ -3874,6 +3952,12 @@ def main() -> int:
                        launches_path7=n7 if own else 0, launches_path8=n8 if own else 0,
                        launches_path9=n9 if own else 0,
                        launches_profile_stages=n_prof if own else 0)
+        print(f"[pose_opt] P1's launches on each path, counted on the card: {p1}")
+        for label, n in p1.items():
+            require(n > 0, f"{label}: P1 never ran on the card")
+        results["pose_opt"] = dict(pose_row, launches=p1["path 1"], **{
+            "launches_" + k.replace("path ", "path").replace(" ", "_"): v
+            for k, v in p1.items() if k not in ("path 1", "path 2")})
     except PhaseError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -3888,7 +3972,8 @@ def main() -> int:
     print("[kernels] launches: each wrapper counts where it launches its kernel; inside a CUDA "
           "graph capture that launch is only recorded, so the counts below are the wrappers' "
           "own, less the recordings, plus graph replays x launches per capture "
-          "(models/program_graphs.py)")
+          "(models/program_graphs.py); pose_opt's are the launches the card ran over each "
+          "path's whole phase, counted on the card (pose_opt.device_launches)")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results.values()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

@@ -70,6 +70,7 @@ import torch
 from torch.utils._pytree import tree_leaves, tree_map
 
 from ..kernels import CudaKernel
+from ..ops.optim import pose_opt
 from ..ops.orb import fast_band, fast_nms
 from ..utils import profiling
 from . import frame as frame_mod
@@ -83,7 +84,21 @@ from .streaming import _SENSORS
 # reset by whoever reads them)
 LAUNCHES_REPLAYED: collections.Counter = collections.Counter()
 LAUNCHES_AT_CAPTURE: collections.Counter = collections.Counter()
-_KERNELS = (fast_band.kernel, fast_nms.kernel)
+_KERNELS = (fast_band.kernel, fast_nms.kernel, pose_opt.kernel)
+
+
+def launch_counts() -> dict:
+    """Every hand-written kernel's wrapper count now, by name."""
+    return {k.name: k.launches for k in _KERNELS}
+
+
+def launches_since(before: dict) -> collections.Counter:
+    """The launches each kernel's wrapper made since launch_counts() gave
+    `before`; records them in LAUNCHES_AT_CAPTURE (what a capture made)."""
+    made = collections.Counter({k.name: k.launches - before[k.name] for k in _KERNELS
+                                if k.launches > before[k.name]})
+    LAUNCHES_AT_CAPTURE.update(made)
+    return made
 
 
 class GraphPool:
@@ -332,13 +347,11 @@ class Program:
         if generator is not None:
             graph.register_generator_state(generator)
             state = generator.get_state()
-        before = {k.name: k.launches for k in _KERNELS}
+        before = launch_counts()
         with (conditional_capture(graph, self._pool(), self.device) if self.conditional
               else _plain_capture(graph, self._pool())):
             self._out = self.fn(*self.statics, generator)
-        self.per_replay = collections.Counter(
-            {k.name: k.launches - before[k.name] for k in _KERNELS if k.launches > before[k.name]})
-        LAUNCHES_AT_CAPTURE.update(self.per_replay)
+        self.per_replay = launches_since(before)
         if generator is not None:
             generator.set_state(state)
         torch.cuda.synchronize(self.device)

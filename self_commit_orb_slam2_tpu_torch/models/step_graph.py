@@ -193,6 +193,10 @@ class StepGraph:
         self.draw_span: int | None = None   # Philox offset of one LOST part (the card)
         self.replays = 0      # graph replays (every part)
         self.part_replays: collections.Counter = collections.Counter()   # by part name
+        # part name -> the hand-written kernels' launches its capture recorded
+        # (what each replay runs; the chunk graph's IF nodes decide that at
+        # each replay, so its launches are counted at capture only)
+        self.per_replay: dict = {}
         self.captures = 0     # times a mode's graphs were captured
         self.capture_s = 0.0  # host seconds of warm-up and capture, in all
         self.chunk_stats: dict = {}   # chunk graph name -> program_graphs.CaptureStats
@@ -280,6 +284,7 @@ class StepGraph:
             self._graphs[name].replay()
         self.replays += 1
         self.part_replays[name] += 1
+        program_graphs.LAUNCHES_REPLAYED.update(self.per_replay.get(name, {}))
         profiling.count("replays." + name)
         return self._out[name]
 
@@ -446,8 +451,10 @@ class StepGraph:
                 if drawn:
                     graph.register_generator_state(generator)
                     state = generator.get_state()
+                before = program_graphs.launch_counts()
                 with no_collection(), torch.cuda.graph(graph, pool=pool):
                     self._out[name] = run[name](generator)
+                self.per_replay[name] = program_graphs.launches_since(before)
                 if drawn:
                     generator.set_state(state)
                 self._graphs[name] = graph
@@ -464,9 +471,11 @@ class StepGraph:
         if drawn:
             graph.register_generator_state(generator)
             state = generator.get_state()
+        before = program_graphs.launch_counts()
         with profiling.suspended(), program_graphs.conditional_capture(
                 graph, self.pool(), self.device) as stats:
             self._out[name] = self._run_chunk(loc, generator)
+        program_graphs.launches_since(before)
         if drawn:
             generator.set_state(state)
         torch.cuda.synchronize(self.device)

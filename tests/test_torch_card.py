@@ -830,6 +830,55 @@ def test_step_core_and_tail_run_without_a_sync(cuda):
     assert int(m2.n_kf) == int(slam.map.n_kf) + 1
 
 
+def test_step_graph_replays_the_pose_kernel_and_no_lu(cuda):
+    """A per-frame track_rgbd step: its core graph records one pose_opt
+    launch for each pose_optimize call (the two motion hypotheses and the
+    local map), each replay runs them, and a profiled replay of the core
+    holds the kernel and no LU factorization (getrf) of the plain version
+    (the tail's mapping pass solves its own systems)."""
+    from self_commit_orb_slam2_tpu_torch.models import program_graphs
+    from self_commit_orb_slam2_tpu_torch.ops.optim import pose_opt
+
+    cfg, seq, slam = _graph_setup(cuda, n_frames=6)
+    program_graphs.LAUNCHES_AT_CAPTURE.clear()
+    program_graphs.LAUNCHES_REPLAYED.clear()
+    before = pose_opt.kernel.launches
+    on_card = pose_opt.device_launches()
+    for i in range(3):
+        slam.track_rgbd(seq.images[i], seq.depths[i], float(seq.timestamps[i]))
+    sg = slam.step_graph
+    core = sg.per_replay["core"]["pose_opt"]
+    assert core >= 3 and program_graphs.LAUNCHES_AT_CAPTURE["pose_opt"] >= core
+    assert program_graphs.LAUNCHES_REPLAYED["pose_opt"] == core * sg.part_replays["core"]
+    # the host's arithmetic is what the card counted
+    assert pose_opt.device_launches() - on_card == _device_launches(pose_opt.kernel) - before
+    frame, _ = _card_frame(cfg, seq, 3, cuda)
+    sg.prepare(slam.map, slam.carry, frame, True, slam._stream_gen)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        sg._core()
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    assert sum(n.count("pose_opt_kernel") for n in names) >= 1, names
+    assert not [n for n in names if "getrf" in n.lower()], names
+    assert _device_launches(pose_opt.kernel) - before >= core * sg.part_replays["core"]
+
+
+def test_chunk_stream_runs_the_pose_kernel_three_times_a_frame(cuda):
+    """Chunks of 4 RGB-D frames through the chunk graph: its IF nodes decide
+    at each replay what runs, so the card counts P1's launches: three a
+    tracked frame at least (the two motion hypotheses and the local map)."""
+    from self_commit_orb_slam2_tpu_torch.models.system import STATE_OK
+    from self_commit_orb_slam2_tpu_torch.ops.optim import pose_opt
+
+    _, seq, slam = _graph_setup(cuda, n_frames=13)
+    on_card = pose_opt.device_launches()
+    slam.track_batch_rgbd(seq.images, seq.depths, seq.timestamps, chunk=4)
+    assert slam.state == STATE_OK and slam.step_graph.part_replays["chunk"] == 3
+    assert pose_opt.device_launches() - on_card >= 3 * 12
+
+
 def test_warm_start_captures_and_touches_no_state(cuda):
     """warm_start captures the step graphs on a scratch state: the map, the
     carry, the trajectory and the engine's generators are untouched, and the

@@ -158,3 +158,29 @@ def test_pose_optimize_matches(rng, stereo_obs, outlier_frac, ur_weight):
     assert abs(int(got.n_inliers) - int(ref.n_inliers)) <= 2
     assert np.abs(got.Tcw.numpy() - T_true).max() < 0.02   # and it converged
     assert int(got.n_inliers) > 120
+
+
+@pytest.mark.parametrize("stereo_obs,outlier_frac,ur_weight",
+                         [(True, 0.0, 25.0), (False, 0.25, 1.0)])
+def test_pose_optimize_op_under_vmap_matches(rng, stereo_obs, outlier_frac, ur_weight):
+    """The custom op the card launches (its CPU implementation here), three
+    initial poses folded into one call by its vmap rule, each against JAX
+    pose_optimize from the same pose."""
+    from self_commit_orb_slam2_tpu_torch.ops.optim import pose_opt
+
+    T_true, T0, pts, obs, sigma2, valid = _pose_problem(
+        rng, outlier_frac=outlier_frac, stereo_obs=stereo_obs)
+    moves = [np.asarray(jse3.se3_exp(jnp.asarray(d, jnp.float32))) for d in
+             ([0.0] * 6, [0.01, -0.02, 0.0, 0.005, 0.0, -0.01], [-0.02, 0.0, 0.03, 0.0, 0.01, 0.0])]
+    T0s = np.stack([m @ T0 for m in moves]).astype(np.float32)
+    cam = CameraParams.create(**CAM_ARGS)
+    got = torch.vmap(lambda T: torch.ops.slam_torch.pose_optimize(
+        T[None], _t(pts)[None], _t(obs)[None], _t(sigma2)[None], _t(valid)[None],
+        pose_opt._camera(cam), 4, 10, 1e-5, ur_weight))(_t(T0s))
+    for i in range(3):
+        ref = jpose_optimize(JCam.create(**CAM_ARGS), jnp.asarray(T0s[i]), jnp.asarray(pts),
+                             jnp.asarray(obs), jnp.asarray(sigma2), jnp.asarray(valid),
+                             ur_weight=ur_weight)
+        np.testing.assert_allclose(got[0][i, 0].numpy(), np.asarray(ref.Tcw), atol=1e-4)
+        assert abs(int(got[2][i, 0]) - int(ref.n_inliers)) <= 2
+        assert np.abs(got[0][i, 0].numpy() - T_true).max() < 0.02
