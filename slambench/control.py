@@ -41,9 +41,10 @@ def control(cell: str, seed: int, device, overrides: dict | None = None,
     start = int(overrides.get("start", frames.start_frame(seed, n)))
     cycle = frames.cell_cycle(s, cfg, mix, device, start, n)
     values = check.control_numbers(cycle, s, device, int(mix["frames_per_call"]),
-                                   cfg["sensor"] == "stereo", kind)
+                                   cfg["sensor"], kind)
     limits = overrides.get("limits") or spec.limits(cell)
     ok, checks = check.judge(values, limits)
+    ok = ok and check.aligned(values)
     return {"cell": cell, "seed": seed, "kind": kind, "numbers": values, "correct": ok,
             "checks": checks}
 

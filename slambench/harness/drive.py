@@ -17,7 +17,7 @@ from . import settings as st
 from . import trace as tr
 from .traffic import Calls
 
-STATE_LOST = 2   # the System's LOST state
+STATE_OK = 1   # the System's OK state: tracking, the map initialized
 
 
 def log(msg: str) -> None:
@@ -27,7 +27,11 @@ def log(msg: str) -> None:
 class Run:
     """What a run measured (`setup`, `calls`: (start, end, frame numbers,
     poses, lost) a call, `trace`, `timers`, `memory_peak`) and produced
-    (`outputs`), with what the check needs to read them (`context`)."""
+    (`outputs`), with what the check needs to read them (`context`).  A
+    call is lost when the System is not OK after it (LOST, or a monocular
+    map not yet bootstrapped).  `miscounted`: frames of calls after the
+    warm-up that returned another number of poses than they took frames;
+    their poses are NaN, so that every frame keeps its place."""
 
     def __init__(self):
         self.setup: dict[str, float] = {}
@@ -35,6 +39,7 @@ class Run:
         self.window_start = 0.0
         self.window_end = 0.0
         self.n_window_calls = 0   # r.calls[:n] are the window's, the rest traced
+        self.miscounted = 0
         self.trace = None
         self.timers: dict = {}
         self.memory_peak = 0
@@ -81,19 +86,25 @@ def run(cell: str, seed: int, seconds: float, trace: bool, device, t_process: fl
     if hooks is not None:
         hooks(slam, calls)
 
-    def one_call(n: int) -> None:
+    def one_call(n: int, warm: bool = False) -> None:
         k = calls.frame_numbers(n)
         args = calls.arguments(k)
         t0 = time.perf_counter()
         poses = calls.invoke(slam, args)
         t1 = time.perf_counter()
-        r.calls.append((t0, t1, k, poses, slam.state == STATE_LOST))
+        if len(poses) != n and not warm:
+            # no pose can be paired with its frame: the call answered none
+            r.miscounted += n
+            poses = np.full((n, 4, 4), np.nan)
+        r.calls.append((t0, t1, k, poses, slam.state != STATE_OK))
 
     def warmup():
-        one_call(1)   # the initializing frame
+        # the initializing frame, then a cycle; a monocular bootstrap takes
+        # frames of both, and its calls return fewer poses than frames
+        one_call(1, warm=True)
         n_warm = int(overrides.get("warmup_frames", int(mix.get("warmup_cycles", 1)) * n_cycle))
         for _ in range(n_warm // calls.per_call):
-            one_call(calls.per_call)
+            one_call(calls.per_call, warm=True)
 
     _timed(r, "warmup_cycle", warmup)
     n_warm = len(r.calls)
@@ -137,7 +148,8 @@ def run(cell: str, seed: int, seconds: float, trace: bool, device, t_process: fl
 def _outputs(slam, calls: Calls, r: Run) -> dict:
     """What the check compares, copied to the host: every pose the calls
     returned, the live keyframes and map points, and the last frame's
-    features with the images of the call that built it."""
+    features with the images of the call that built it (None where the
+    System has tracked no frame: a monocular map never bootstrapped)."""
     m = slam.map
     last = slam.last_frame
     k_last = r.calls[-1][2]
@@ -156,8 +168,9 @@ def _outputs(slam, calls: Calls, r: Run) -> dict:
         kf_Tcw=m.kf_Tcw[m.kf_valid].cpu().numpy().astype(np.float64),
         kf_timestamp=m.kf_timestamp[m.kf_valid].cpu().numpy().astype(np.float64),
         points=m.pt_pos[m.pt_valid].cpu().numpy().astype(np.float64),
-        last_features=dict(xy=last.xy_raw.cpu().numpy(), level=last.level.cpu().numpy(),
-                           desc=last.desc.cpu().numpy(), valid=last.valid.cpu().numpy()),
+        last_features=None if last is None else dict(
+            xy=last.xy_raw.cpu().numpy(), level=last.level.cpu().numpy(),
+            desc=last.desc.cpu().numpy(), valid=last.valid.cpu().numpy()),
         last_batch=batch, last_index=len(k_last) - 1,
         keyframes_inserted=int(m.n_kf),
         closures=int(slam._loop_closer.n_big_changes) if slam._loop_closer is not None else 0,

@@ -11,7 +11,8 @@ import numpy as np
 
 # (sensor, api) -> the System method the call goes through
 _METHODS = {("rgbd", "batch"): "track_batch_rgbd", ("rgbd", "frame"): "track_rgbd",
-            ("stereo", "batch"): "track_batch_stereo", ("stereo", "frame"): "track_stereo"}
+            ("stereo", "batch"): "track_batch_stereo", ("stereo", "frame"): "track_stereo",
+            ("mono", "batch"): "track_batch_mono", ("mono", "frame"): "track_monocular"}
 # every key a mix may state: the call pattern (api, frames_per_call, loop,
 # clients), the frames (trajectory, cycle_frames: frames.py) and the run's
 # phases (warmup_cycles, trace_calls: drive.py)
@@ -39,7 +40,9 @@ class Calls:
         if self.api == "frame" and self.per_call != 1:
             raise ValueError("a per-frame call takes one frame")
         self.cycle = cycle
-        self.second = cycle.depth if sensor == "rgbd" else cycle.right
+        # the planes a call hands over: the image, then depth or the right eye
+        self.planes = (cycle.left,) + {"rgbd": (cycle.depth,), "stereo": (cycle.right,),
+                                       "mono": ()}[sensor]
         self.fps = float(fps)
         self.next_frame = 0
 
@@ -53,8 +56,8 @@ class Calls:
         c = self.cycle.index(k)
         ts = k.astype(np.float64) / self.fps
         if self.api == "batch":
-            return self.cycle.left[c], self.second[c], ts
-        return self.cycle.left[c[0]], self.second[c[0]], float(ts[0])
+            return (*(p[c] for p in self.planes), ts)
+        return (*(p[c[0]] for p in self.planes), float(ts[0]))
 
     def invoke(self, slam, args) -> np.ndarray:
         """Poses [n, 4, 4] of the call."""

@@ -2,7 +2,9 @@
 poses and the room's planes (numpy, float64).
 
 The program's world is the first tracked camera's frame, so a true pose
-Tcw of the room is compared as Tcw @ inv(Tcw_first).
+Tcw of the room is compared as Tcw @ inv(Tcw_first).  A monocular map has
+neither that frame nor metres: it is brought onto the truth by one
+similarity (align_sim3) before it is compared.
 """
 
 from __future__ import annotations
@@ -87,3 +89,50 @@ def backproject(K: np.ndarray, xy: np.ndarray, depth: np.ndarray,
     pc = np.stack([x, y, depth], -1)
     Twc = inv_se3(Tcw)
     return pc @ Twc[:3, :3].T + Twc[:3, 3]
+
+
+def align_sim3(src: np.ndarray, dst: np.ndarray):
+    """The similarity (s, R, t) that takes points src [n, 3] closest to dst
+    [n, 3] in the least squares, dst ~ s R src + t: Umeyama, "Least-squares
+    estimation of transformation parameters between two point patterns",
+    IEEE TPAMI 13(4), 1991, eqs. (34) to (42).  Refuses (ValueError) fewer
+    than 3 pairs, or pairs whose covariance has rank below 2 (collinear or
+    coincident points), where no one similarity is the answer."""
+    x, y = np.asarray(src, np.float64), np.asarray(dst, np.float64)
+    if x.shape != y.shape or x.ndim != 2 or x.shape[1] != 3:
+        raise ValueError(f"align_sim3 takes two [n, 3] arrays, not {x.shape} and {y.shape}")
+    n = len(x)
+    if n < 3:
+        raise ValueError(f"align_sim3 needs 3 pairs or more, got {n}")
+    mu_x, mu_y = x.mean(0), y.mean(0)
+    xc, yc = x - mu_x, y - mu_y
+    var_x = np.einsum("ij,ij->", xc, xc) / n                 # (36)
+    cov = yc.T @ xc / n                                      # (38)
+    U, D, Vt = np.linalg.svd(cov)
+    if not D[0] > 0 or D[1] <= 1e-9 * D[0]:
+        raise ValueError("align_sim3: the points are collinear or coincide")
+    S = np.ones(3)
+    if np.linalg.det(U) * np.linalg.det(Vt) < 0:            # (39), (43)
+        S[2] = -1.0
+    R = (U * S) @ Vt                                         # (40)
+    s = float((D * S).sum() / var_x)                         # (42)
+    t = mu_y - s * R @ mu_x                                  # (41)
+    return s, R, t
+
+
+def sim3_poses(Tcw: np.ndarray, s: float, R: np.ndarray, t: np.ndarray) -> np.ndarray:
+    """Poses Tcw [n, 4, 4] of a world that the similarity x -> s R x + t
+    takes onto another, as rigid poses of that other world: the camera
+    centres mapped by it, the rotations turned by R, lengths in its units."""
+    T = np.asarray(Tcw, np.float64)
+    out = np.zeros(T.shape, np.float64)
+    Rcw = T[:, :3, :3] @ R.T
+    out[:, :3, :3] = Rcw
+    out[:, :3, 3] = s * T[:, :3, 3] - Rcw @ t
+    out[:, 3, 3] = 1.0
+    return out
+
+
+def sim3_points(p: np.ndarray, s: float, R: np.ndarray, t: np.ndarray) -> np.ndarray:
+    """Points [n, 3] under the similarity x -> s R x + t."""
+    return s * np.asarray(p, np.float64) @ R.T + t

@@ -97,7 +97,8 @@ def execute(cell: str, seed: int, seconds: float, trace: bool, device, t_process
 
     values = check.numbers(run, device)
     values["lost_frames"] = float(sum(len(c[2]) for c in run.calls if c[4]))
-    nonfinite = int(sum((~np.isfinite(c[3]).all(axis=(1, 2))).sum() for c in run.calls))
+    bad = [(~np.isfinite(c[3]).all(axis=(1, 2))).sum() for c in run.calls]
+    nonfinite = int(sum(bad))
     if overrides and "limits" in overrides:
         limits = overrides["limits"]
     else:
@@ -106,7 +107,10 @@ def execute(cell: str, seed: int, seconds: float, trace: bool, device, t_process
         except FileNotFoundError:
             limits = {}
     ok, checks = check.judge(values, limits)
-    ok = ok and bool(limits) and nonfinite == 0
+    # a pose that is not finite, a call that did not return one pose a frame
+    # (its poses are NaN) or a monocular trajectory that cannot be aligned
+    # is not correct, whatever the limits name
+    ok = ok and bool(limits) and nonfinite == 0 and run.miscounted == 0 and check.aligned(values)
 
     ctx = run.context
     s = ctx["settings"]
@@ -114,8 +118,9 @@ def execute(cell: str, seed: int, seconds: float, trace: bool, device, t_process
     device_info = {"platform": "gpu" if on_card else "cpu",
                    "kind": torch.cuda.get_device_name(0) if on_card else "cpu",
                    "count": 1, "memory_peak_bytes": run.memory_peak}
+    # a frame fails when its call left the System not OK or its pose is not finite
     out = {"correct": ok, "attempted": int(sum(len(c[2]) for c in run.calls)),
-           "failed": int(values["lost_frames"]) + nonfinite}
+           "failed": int(sum(len(c[2]) if c[4] else b for c, b in zip(run.calls, bad)))}
     lines = []
     if trace:
         images = ctx["per_call"] * (2 if ctx["sensor"] == "stereo" else 1)
@@ -151,6 +156,9 @@ def execute(cell: str, seed: int, seconds: float, trace: bool, device, t_process
     parts = ", ".join(f"{k} {v:.3f}" for k, v in run.setup.items())
     lines.append(f"[slambench] set-up parts (s): {parts}; setup_s {setup_s:.3f}")
     lines.append("[slambench] numbers: " + ", ".join(f"{k} {v:.6g}" for k, v in values.items()))
+    if run.miscounted:
+        lines.append(f"[slambench] {run.miscounted} frames in calls that returned another "
+                     "number of poses than they took frames")
     lines.append(f"[slambench] device: {device_info['kind']}; correct {ok}")
     lines += [f"{name} {c['value']:.6g} limit {c['limit']:.6g}" for name, c in checks.items()]
     return out, lines

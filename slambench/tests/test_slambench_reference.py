@@ -77,3 +77,43 @@ def test_surface_distance(small):
     off = on + 0.01 * pl.normal()
     d = truth.surface_distance(np.stack([on, off]), cycle.scene)
     assert d[0] < 1e-12 and abs(d[1] - 0.01) < 1e-9
+
+
+def _rotation(axis, deg):
+    """Rodrigues: the rotation of `deg` degrees about `axis`."""
+    k = np.asarray(axis, np.float64) / np.linalg.norm(axis)
+    K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    a = np.radians(deg)
+    return np.eye(3) + np.sin(a) * K + (1 - np.cos(a)) * K @ K
+
+
+def test_align_sim3_recovers_a_known_similarity():
+    poses = room.lookat_trajectory(40)
+    gt = truth.in_first_frame(poses, poses[0])
+    U, _, Vt = np.linalg.svd(gt[:, :3, :3])   # rigid to float64's rounding, not float32's
+    gt[:, :3, :3] = U @ Vt
+    R = _rotation([0.3, -1.0, 0.5], 30.0)
+    t = np.array([0.8, -2.5, 1.7])
+    est = truth.sim3_poses(gt, 0.37, R, t)   # a world at 0.37 of the truth's scale
+    centres = truth.inv_se3(est)[:, :3, 3]
+    s_fit, R_fit, t_fit = truth.align_sim3(centres, truth.inv_se3(gt)[:, :3, 3])
+    assert abs(s_fit * 0.37 - 1.0) < 1e-9
+    assert np.abs(R_fit - R.T).max() < 1e-9
+    assert np.abs(t_fit + R.T @ t / 0.37).max() < 1e-9
+    at, ar = truth.pose_errors(truth.sim3_poses(est, s_fit, R_fit, t_fit), gt)
+    rt, rr = truth.relative_errors(truth.sim3_poses(est, s_fit, R_fit, t_fit), gt)
+    assert at.max() * 1e3 < 1e-6 and rt.max() * 1e3 < 1e-6
+    assert ar.max() < 1e-6 and rr.max() < 1e-6
+    p = np.random.default_rng(0).normal(size=(50, 3))
+    back = truth.sim3_points(truth.sim3_points(p, 0.37, R, t), s_fit, R_fit, t_fit)
+    assert np.abs(back - p).max() < 1e-9
+
+
+def test_align_sim3_refuses_what_fixes_no_similarity():
+    line = np.outer(np.linspace(0.0, 2.0, 10), [1.0, 2.0, -0.5]) + [0.3, 0.1, 4.0]
+    plane = np.random.default_rng(1).normal(size=(10, 3))
+    for src, dst in [(line, plane), (plane, line), (plane[:2], plane[:2]),
+                     (np.zeros((5, 3)), plane[:5])]:
+        with pytest.raises(ValueError):
+            truth.align_sim3(src, dst)
+    truth.align_sim3(plane[:3], plane[:3] * 2.0)   # three points in general position suffice
