@@ -6,7 +6,10 @@ the JAX order: cull recent points (MapPointCulling), triangulate new points
 against covisible keyframes (CreateNewMapPoints), fuse (SearchInNeighbors +
 ORBmatcher::Fuse), refresh the new keyframe's points (ProcessNewKeyFrame),
 local bundle adjustment, cull one redundant keyframe (KeyFrameCulling), and
-rebuild the incidence cache.
+rebuild the incidence cache.  The two stages that search the covisible
+neighbours, create_new_points and fuse_into_keyframe, stamp their start and
+end into rings of their own (utils/profiling.stamp), where they run: op by
+op, in the per-frame tail graph and inside the chunk graph.
 
 Where PyTorch does not give what XLA gives, the rule is explicit:
   * scatter-sets with duplicate indices keep the update that comes last, as
@@ -36,6 +39,7 @@ from ..ops.matching import core as mcore
 from ..ops.matching.hamming import hamming_distance
 from ..ops.optim.bundle_adjust import bundle_adjust
 from ..ops.triangulate import camera_matrix, projection_matrix, triangulate_linear_fast
+from ..utils import profiling
 from . import map_state as ms
 from .config import SlamConfig
 from .map_state import MapState
@@ -484,11 +488,16 @@ def _process(config: SlamConfig, m: MapState, kf_id: torch.Tensor) -> MapState:
     row (from the incidence cache) and the observation counts are computed
     once and shared across the stages, as in the JAX package; the pass ends
     by rebuilding the cache the per-frame tracking reads."""
+    dev = m.kf_valid.device
     m = cull_points(config, m, kf_id)
     counts = ms.covisibility_row_cached(m, row(m.kf_obs_pt, kf_id))
     obs_count = ms.observation_count(m)
+    profiling.stamp(dev, "create_new_points")
     m = create_new_points(config, m, kf_id, counts=counts)
+    profiling.stamp(dev, "create_new_points")
+    profiling.stamp(dev, "fuse_into_keyframe")
     m = fuse_into_keyframe(config, m, kf_id, counts=counts, obs_count=obs_count)
+    profiling.stamp(dev, "fuse_into_keyframe")
     m = refresh_observed_points(config, m, kf_id)
     m = local_bundle_adjustment(config, m, kf_id, counts=counts)
     m = cull_keyframes(config, m, kf_id, counts=counts)

@@ -570,7 +570,8 @@ class System:
         image: with the graphs, a replay of the doubled-budget frame build
         and one of the attempt (program_graphs.MonoInitGraphs), else op by
         op.  Host reads: the feature count, then (success, matches) in one
-        transfer."""
+        transfer.  Each attempt is a device span `mono.init` and adds one to
+        the counter `mono_init.attempts`."""
         sg = self.step_graph
         if sg is not None:
             frame = sg.mono.frame((image,))
@@ -583,8 +584,10 @@ class System:
         else:
             args = (self.map, self._mono_first, frame, self._mono_first_ts, timestamp,
                     len(self.trajectory), self._mono_gen)
-            res = (sg.mono.try_initialize(*args) if sg is not None
-                   else mono_init.try_initialize(self.config, *args))
+            profiling.count("mono_init.attempts")
+            with profiling.span("mono.init", self.device):
+                res = (sg.mono.try_initialize(*args) if sg is not None
+                       else mono_init.try_initialize(self.config, *args))
             if res.success:
                 self.map, self.carry = res.m, res.carry
                 self.state = STATE_OK

@@ -30,10 +30,13 @@ one-thread kernel (csrc/stamp.cu) reads %globaltimer, so a stamp captured
 into a CUDA graph times the graph's work where it runs, with no host read;
 on the CPU the plain version writes perf_counter_ns.  Every local-mapping
 pass stamps its start and end (models/pipeline.py); the head counts the
-stamps since reset_stamps() (pipeline.mapping_passes() halves it).  A trace
-reads the ring once, at its close, and aligns the card's stamps to the host
-clock with one stamp launched between two synchronizes at its open and one
-at its close.
+stamps since reset_stamps() (pipeline.mapping_passes() halves it).
+`stamp(device, stage)` writes into a ring of the stage's own, one for each
+name in STAGES, so the pass ring and its count stay the passes': the pass's
+stages that search the covisible neighbours stamp their start and end
+there (models/local_mapping.py).  A trace reads the rings once, at its
+close, and aligns the card's stamps to the host clock with one stamp
+launched between two synchronizes at its open and one at its close.
 
 `timed(names)` synchronizes the card on both sides of the named spans and
 keeps their host times as they close: pipeline.timed_mapping_passes() and
@@ -202,14 +205,18 @@ def card_line() -> str:
 # ------------------------------------------------------------------ stamps
 
 RING_SLOTS = 8192   # 4,096 start and end pairs
+# the mapping pass's stages that stamp rings of their own (models/local_mapping.py)
+STAGES = ("create_new_points", "fuse_into_keyframe")
 _STAMP = CudaKernel("stamp", "stamp.cu", "stamp",
                     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
 
 
 class _Ring(NamedTuple):
-    slots: torch.Tensor   # [RING_SLOTS] int64: the stamps
-    head: torch.Tensor    # [2] int64: stamps written since the ring was made, and
-                          # that count at the last reset_stamps()
+    slots: torch.Tensor   # [1 + len(STAGES), RING_SLOTS] int64: the passes' stamps,
+                          # then each stage's
+    head: torch.Tensor    # [2 + len(STAGES)] int64: the stamps written into each row
+                          # of the slots since the ring was made, then the passes'
+                          # count at the last reset_stamps()
     align: torch.Tensor   # [2] int64: a one-slot ring of its own for aligning
 
 
@@ -234,53 +241,56 @@ def _launch(slots: torch.Tensor, head: torch.Tensor, n: int) -> None:
 
 
 def _ring(device) -> _Ring:
-    """The device's stamp ring, made (and on the card its kernel built and
+    """The device's stamp rings, made (and on the card its kernel built and
     launched once) at first use, which must come before any capture that
-    stamps into it."""
+    stamps into them."""
     dev = _key(device)
     r = _rings.get(dev)
     if r is None:
         if dev.type == "cuda" and _capturing():
             raise RuntimeError("the stamp ring must exist before a graph that stamps "
                                "is captured")
-        r = _rings[dev] = _Ring(torch.zeros(RING_SLOTS, dtype=torch.int64, device=dev),
-                                torch.zeros(2, dtype=torch.int64, device=dev),
-                                torch.zeros(2, dtype=torch.int64, device=dev))
+        r = _rings[dev] = _Ring(
+            torch.zeros(1 + len(STAGES), RING_SLOTS, dtype=torch.int64, device=dev),
+            torch.zeros(2 + len(STAGES), dtype=torch.int64, device=dev),
+            torch.zeros(2, dtype=torch.int64, device=dev))
         if dev.type == "cuda":
             _launch(r.align[:1], r.align[1:], 1)
     return r
 
 
-def stamp(device) -> None:
-    """The device's clock now into the next slot of its stamp ring (nothing
-    on the meta device)."""
+def stamp(device, stage: str | None = None) -> None:
+    """The device's clock now into the next slot of its stamp ring, or of
+    the ring of `stage`, one of STAGES (nothing on the meta device)."""
     dev = torch.device(device)
     if dev.type == "meta":
         return
     r = _ring(dev)
+    row = 0 if stage is None else 1 + STAGES.index(stage)
+    slots, head = r.slots[row], r.head[row:row + 1]
     if dev.type == "cuda":
-        _launch(r.slots, r.head, RING_SLOTS)
+        _launch(slots, head, RING_SLOTS)
         return
     # the plain version: no host read, the time a fill
-    r.slots.index_fill_(0, torch.remainder(r.head[:1], RING_SLOTS), time.perf_counter_ns())
-    r.head[:1].add_(1)
+    slots.index_fill_(0, torch.remainder(head, RING_SLOTS), time.perf_counter_ns())
+    head.add_(1)
 
 
 def stamp_head(device) -> torch.Tensor:
-    """The device's ring head ([2] int64; the ring made if missing): what a
-    warm-up that stamps saves and restores."""
+    """The device's ring heads ([2 + len(STAGES)] int64; the rings made if
+    missing): what a warm-up that stamps saves and restores."""
     return _ring(device).head
 
 
 def reset_stamps() -> None:
-    """Count stamps from now (on the device: no host read)."""
+    """Count pass stamps from now (on the device: no host read)."""
     for r in _rings.values():
-        r.head[1:].copy_(r.head[:1])
+        r.head[-1:].copy_(r.head[:1])
 
 
 def stamps() -> int:
-    """Stamps written since reset_stamps(), on every device; reads them."""
-    return sum(int(r.head[0] - r.head[1]) for r in _rings.values())
+    """Pass stamps written since reset_stamps(), on every device; reads them."""
+    return sum(int(r.head[0] - r.head[-1]) for r in _rings.values())
 
 
 def _align(r: _Ring) -> tuple[int, int]:
@@ -307,16 +317,20 @@ class SpanRecord(NamedTuple):
 
 class TraceSummary:
     """A closed trace: the spans, the stamped passes ((start, end) ns on the
-    host clock, in order), the counters, the window: from the first `call`
+    host clock, in order), the stamped stages of the passes (`stages`: each
+    stage's name -> its (start, end) pairs on the host clock, in order; no
+    name without one), the counters, the window: from the first `call`
     span's start to the last one's end (the trace's own open and close
     without calls), the stretches the timed spans' synchronizes cost the
     device (`syncs`, host clock), which window_ns and every device interval
     leave out, and the seconds each timed span name was timed (`timed`, as
     timed() gave them).  Built by tracing(); by hand in tests."""
 
-    def __init__(self, spans, passes=(), counts=None, window=None, syncs=(), timed=None):
+    def __init__(self, spans, passes=(), counts=None, window=None, syncs=(), timed=None,
+                 stages=None):
         self.spans = list(spans)
         self.passes = [tuple(p) for p in passes]
+        self.stages = {k: [tuple(p) for p in v] for k, v in (stages or {}).items() if v}
         self.counts = dict(counts or {})
         self.timed = {k: list(v) for k, v in (timed or {}).items()}
         calls = [s.host for s in self.spans if s.name == "call"]
@@ -365,10 +379,18 @@ class TraceSummary:
         return _union(self._clip([s.device for s in self.spans if s.device is not None]
                                 + self.passes))
 
+    def _inside(self, pairs) -> list:
+        w0, w1 = self.window
+        return [b - a for a, b in pairs if w1 == w0 or (a >= w0 and b <= w1)]
+
     def pass_ns(self) -> list:
         """The duration of each stamped pass inside the window, ns."""
-        w0, w1 = self.window
-        return [b - a for a, b in self.passes if w1 == w0 or (a >= w0 and b <= w1)]
+        return self._inside(self.passes)
+
+    def stage_ns(self, name: str) -> list:
+        """The duration of each stamped interval of the pass's stage `name`
+        inside the window, ns (none where the stage stamped nothing)."""
+        return self._inside(self.stages.get(name, ()))
 
     def idle_by_span(self) -> dict:
         """Device idle ns inside the window by the name of the innermost host
@@ -460,7 +482,7 @@ class Trace:
         self.syncs: list = []     # (event before, host ns after) of each timed synchronize
         self.summary: TraceSummary | None = None
         self.cuda = torch.cuda.is_initialized()
-        self.heads0 = {d: int(r.head[0]) for d, r in _rings.items() if d.type != "meta"}
+        self.heads0 = {d: r.head.tolist() for d, r in _rings.items() if d.type != "meta"}
         self.events: list = []
         self.aligned0: dict = {}
         if self.cuda:
@@ -557,32 +579,45 @@ class Trace:
             else:
                 dev = (to_host(e0), to_host(e1))
             spans.append(SpanRecord(name, call, parent, (h0, h1), dev))
-        passes = []
+        passes, stages = [], {name: [] for name in STAGES}
         for d, r in _rings.items():
             if d.type == "meta":
                 continue
-            passes += self._passes(d, r)
+            pairs = self._stamped(d, r)
+            passes += pairs[0]
+            for name, p in zip(STAGES, pairs[1:]):
+                stages[name] += p
         self.counts["passes"] += len(passes)
         self.summary = TraceSummary(spans, sorted(passes), self.counts, syncs=syncs,
-                                    timed=self.timed_s)
+                                    timed=self.timed_s,
+                                    stages={k: sorted(v) for k, v in stages.items()})
         return self.summary
 
-    def _passes(self, d: torch.device, r: _Ring) -> list:
-        """The (start, end) pairs stamped since the trace opened, host clock."""
-        head = int(r.head[0])
-        first = self.heads0.get(d, 0)
-        if head - first > RING_SLOTS:
-            self.counts["stamps_lost"] += head - first - RING_SLOTS
-            first = head - RING_SLOTS
-        first += (head - first) % 2   # whole pairs
+    def _stamped(self, d: torch.device, r: _Ring) -> list:
+        """The (start, end) pairs stamped since the trace opened, host clock:
+        the passes', then each stage's (STAGES' order)."""
+        heads = r.head.tolist()
+        firsts = self.heads0.get(d, [0] * len(heads))
         slots = r.slots.cpu().numpy()
-        stamped = [int(slots[i % RING_SLOTS]) for i in range(first, head)]
+        to_host = int
         if d.type == "cuda":
             h1, g1 = _align(r)
             h0, g0 = self.aligned0.get(d, (h1, g1))
             rate = (h1 - h0) / (g1 - g0) if g1 != g0 else 1.0
-            stamped = [h1 + round((g - g1) * rate) for g in stamped]
-        return [(stamped[i], stamped[i + 1]) for i in range(0, len(stamped) - 1, 2)]
+
+            def to_host(g):
+                return h1 + round((int(g) - g1) * rate)
+
+        out = []
+        for row in range(len(slots)):
+            head, first = heads[row], firsts[row]
+            if head - first > RING_SLOTS:
+                self.counts["stamps_lost"] += head - first - RING_SLOTS
+                first = head - RING_SLOTS
+            first += (head - first) % 2   # whole pairs
+            stamped = [to_host(slots[row, i % RING_SLOTS]) for i in range(first, head)]
+            out.append([(stamped[i], stamped[i + 1]) for i in range(0, len(stamped) - 1, 2)])
+        return out
 
 
 _trace: Trace | None = None          # the open trace

@@ -1538,3 +1538,44 @@ def test_dispatch_reads_nothing_with_the_tracer_open(cuda):
     assert names.count("graph.launch") >= 6
     assert len(s.passes) == pipeline.mapping_passes() == s.counts["keyframes"]
     assert s.coverage() > 0.9 and 0 < s.busy_ns() < s.window_ns
+
+
+def test_tail_replays_and_op_by_op_passes_stamp_the_same_stages(cuda):
+    """The same 25 RGB-D frames one call a frame through the tail replay
+    and op by op (step_graph None), then streamed through the chunk graph:
+    each pass stamps one create_new_points and one fuse_into_keyframe
+    interval, triangulation before fusion, inside its pass."""
+    from self_commit_orb_slam2_tpu_torch.models import pipeline
+    from self_commit_orb_slam2_tpu_torch.models.system import STATE_OK
+    from self_commit_orb_slam2_tpu_torch.utils import profiling
+
+    cfg, seq, graphed = _graph_setup(cuda)
+    eager = type(graphed)(cfg, enable_mapping=True, enable_loop_closing=False)
+    eager.step_graph = None
+    streamed = type(graphed)(cfg, enable_mapping=True, enable_loop_closing=False)
+    streamed.warm_start()
+    slack = 50_000   # ns: the card's stamps on the host clock
+
+    def traced(run):
+        pipeline.reset_mapping_passes()
+        with profiling.tracing() as t:
+            run()
+        s = t.summary
+        assert len(s.passes) == pipeline.mapping_passes() > 0
+        for name in profiling.STAGES:
+            assert len(s.stages[name]) == len(s.passes), name
+        for (p0, p1), (c0, c1), (f0, f1) in zip(s.passes, s.stages["create_new_points"],
+                                               s.stages["fuse_into_keyframe"]):
+            assert p0 - slack <= c0 <= c1 <= f0 <= f1 <= p1 + slack
+        return len(s.passes)
+
+    def per_frame(slam):
+        for i in range(len(seq.images)):
+            slam.track_rgbd(seq.images[i], seq.depths[i], float(seq.timestamps[i]))
+
+    n_graphed = traced(lambda: per_frame(graphed))
+    n_eager = traced(lambda: per_frame(eager))
+    assert n_graphed == n_eager
+    n = traced(lambda: streamed.track_batch_rgbd(seq.images, seq.depths, seq.timestamps,
+                                                 chunk=4))
+    assert n > 0 and graphed.state == eager.state == streamed.state == STATE_OK

@@ -5,13 +5,16 @@ tracing() spans nest, carry their call's id and parent, and a CPU span's
 device interval is its host interval; nothing is recorded while a stream
 captures a graph; under torch.profiler the span names sit among kineto's
 host operations.  The stamp ring times every local-mapping pass on the plain
-path and counts them for pipeline.mapping_passes(); the two module timers
+path and counts them for pipeline.mapping_passes(); the pass's two
+neighbour-wide stages stamp rings of their own, each interval inside its
+pass, and leave the passes as they were; the two module timers
 (pipeline.timed_mapping_passes, loop_closing.timed_phases) are views over
 the tracer; trace_counts takes busy time as a union of intervals.
 """
 
 from __future__ import annotations
 
+import itertools
 import time
 
 import pytest
@@ -202,6 +205,104 @@ def test_the_stamp_ring_times_passes_on_the_plain_path(op_by_op):
     assert all(ns > 0 for ns in s.pass_ns())
     pipeline.reset_mapping_passes()
     assert pipeline.mapping_passes() == 0
+
+
+@pytest.mark.parametrize("run", ["op_by_op", "graphed"])
+def test_each_pass_stamps_its_two_stages_inside_it(run, request):
+    _, s, n_passes = request.getfixturevalue(run)
+    assert set(s.stages) == set(profiling.STAGES)
+    for name in profiling.STAGES:
+        assert len(s.stages[name]) == len(s.passes) == n_passes > 0, name
+        assert len(s.stage_ns(name)) == n_passes and all(ns > 0 for ns in s.stage_ns(name))
+    for (p0, p1), (c0, c1), (f0, f1) in zip(s.passes, s.stages["create_new_points"],
+                                           s.stages["fuse_into_keyframe"]):
+        # triangulation, then fusion, both inside the pass
+        assert p0 <= c0 < c1 <= f0 < f1 <= p1
+
+
+def test_the_stage_stamps_leave_the_passes_as_they_were(op_by_op, monkeypatch):
+    """The same stream with the stage stamps left out: the same passes,
+    counted and traced, and the same map."""
+    real = profiling.stamp
+    monkeypatch.setattr(profiling, "stamp",
+                        lambda device, stage=None: None if stage else real(device))
+    slam, s, n_passes = _run(graphs=False)
+    ref_slam, ref, ref_passes = op_by_op
+    assert n_passes == ref_passes and len(s.pass_ns()) == len(ref.pass_ns())
+    assert s.counts["passes"] == ref.counts["passes"] and s.stages == {}
+    for a, b in zip(slam.map, ref_slam.map):
+        assert torch.equal(a, b)
+
+
+def test_stage_stamps_go_to_their_own_rings(monkeypatch):
+    """Stage stamps between a pass's two stamps: the pass count and the
+    pass's interval are the pass stamps' alone, and each stage's interval
+    is its own two stamps (a clock that ticks at every read)."""
+    ticks, reads = itertools.count(10_000), []
+
+    def clock():
+        reads.append(next(ticks))
+        return reads[-1]
+
+    monkeypatch.setattr(profiling.time, "perf_counter_ns", clock)
+    pipeline.reset_mapping_passes()
+    stages = {}
+    with profiling.tracing() as t:
+        with profiling.span("call"):
+            profiling.stamp("cpu")
+            p0 = reads[-1]
+            for name in profiling.STAGES:
+                profiling.stamp("cpu", name)
+                a = reads[-1]
+                profiling.stamp("cpu", name)
+                stages[name] = [(a, reads[-1])]
+            profiling.stamp("cpu")
+            p1 = reads[-1]
+    s = t.summary
+    assert pipeline.mapping_passes() == 1 and s.counts["passes"] == 1
+    assert s.passes == [(p0, p1)] and s.pass_ns() == [p1 - p0]
+    assert s.stages == stages and all(s.stage_ns(n) == [1] for n in profiling.STAGES)
+    pipeline.reset_mapping_passes()
+
+
+def test_a_summary_without_stage_stamps_has_no_stage_intervals():
+    s = _hand_built()
+    assert s.stages == {} and all(s.stage_ns(name) == [] for name in profiling.STAGES)
+    with profiling.tracing() as t:
+        with profiling.span("call"):
+            profiling.stamp("cpu")
+            profiling.stamp("cpu")
+    assert len(t.summary.passes) == 1 and t.summary.stages == {}
+    assert t.summary.stage_ns("create_new_points") == []
+
+
+def test_each_bootstrap_attempt_is_spanned_and_counted():
+    """A monocular System's two-view attempts: one `mono.init` span inside
+    the frame's `step.init` for each, with a device interval, and the
+    counter mono_init.attempts; none after the map is made."""
+    torch.set_num_threads(2)
+    cam = CameraParams.create(fx=260.0, fy=260.0, cx=160.0, cy=120.0, width=320, height=240)
+    cfg = config.SlamConfig(camera=cam, orb=OrbConfig(n_features=700),
+                            caps=config.Capacities(max_keyframes=32, max_points=8192,
+                                                   local_points=1024),
+                            tracking=config.TrackingConfig(max_frames_between_kf=8,
+                                                           kf_ref_ratio_stereo=0.8),
+                            sensor="mono")
+    seq = generate_sequence(n_frames=6, width=320, height=240, seed=5)
+    slam = System(cfg, enable_loop_closing=False, device="cpu")
+    with profiling.tracing() as t:
+        for i in range(6):
+            slam.track_monocular(seq.images[i], float(seq.timestamps[i]))
+    s = t.summary
+    assert slam.state == STATE_OK
+    attempts = [r for r in s.spans if r.name == "mono.init"]
+    assert len(attempts) == s.counts["mono_init.attempts"] >= 1
+    for r in attempts:
+        assert s.spans[r.parent].name == "step.init" and r.device == r.host
+    # the last attempt made the map: the frames after it only track
+    last_init = max(r.call for r in attempts)
+    assert all(r.call <= last_init for r in s.spans if r.name == "step.init")
+    assert any(r.name == "step.frame" and r.call > last_init for r in s.spans)
 
 
 def test_the_streamed_and_per_frame_calls_are_spanned(op_by_op):
