@@ -6,10 +6,11 @@ the JAX order: cull recent points (MapPointCulling), triangulate new points
 against covisible keyframes (CreateNewMapPoints), fuse (SearchInNeighbors +
 ORBmatcher::Fuse), refresh the new keyframe's points (ProcessNewKeyFrame),
 local bundle adjustment, cull one redundant keyframe (KeyFrameCulling), and
-rebuild the incidence cache.  The two stages that search the covisible
-neighbours, create_new_points and fuse_into_keyframe, stamp their start and
-end into rings of their own (utils/profiling.stamp), where they run: op by
-op, in the per-frame tail graph and inside the chunk graph.
+rebuild the incidence cache.  Four stages, create_new_points,
+fuse_into_keyframe, refresh_observed_points and local_bundle_adjustment,
+stamp their start and end into rings of their own (utils/profiling.stamp),
+where they run: op by op, in the per-frame tail graph and inside the chunk
+graph.
 
 Where PyTorch does not give what XLA gives, the rule is explicit:
   * scatter-sets with duplicate indices keep the update that comes last, as
@@ -93,10 +94,8 @@ def refresh_observed_points(config: SlamConfig, m: MapState,
     pos_t = m.pt_pos[ids.clamp(0, P - 1).long()]                           # [N, 3]
     rays = pos_t[tgt.clamp(0, N - 1).long()] - centers[:, None, :]          # [K, N, 3]
     rays = rays / torch.clamp_min(torch.linalg.norm(rays, dim=-1, keepdim=True), 1e-9)
-    normal_sum = index_add_fixed(
-        torch.zeros(N + 1, 3, dtype=torch.float32, device=dev), 0,
-        torch.where(hit, tgt, N).reshape(-1).long(),
-        torch.where(hit[..., None], rays, 0.0).reshape(-1, 3))[:N]
+    normal_sum = index_add_fixed(torch.zeros(N, 3, dtype=torch.float32, device=dev), 0,
+                                 tgt.reshape(-1), rays.reshape(-1, 3))   # misses dropped
     mean_normal = normal_sum / torch.clamp_min(
         torch.linalg.norm(normal_sum, dim=-1, keepdim=True), 1e-9)
 
@@ -498,7 +497,11 @@ def _process(config: SlamConfig, m: MapState, kf_id: torch.Tensor) -> MapState:
     profiling.stamp(dev, "fuse_into_keyframe")
     m = fuse_into_keyframe(config, m, kf_id, counts=counts, obs_count=obs_count)
     profiling.stamp(dev, "fuse_into_keyframe")
+    profiling.stamp(dev, "refresh_observed_points")
     m = refresh_observed_points(config, m, kf_id)
+    profiling.stamp(dev, "refresh_observed_points")
+    profiling.stamp(dev, "local_bundle_adjustment")
     m = local_bundle_adjustment(config, m, kf_id, counts=counts)
+    profiling.stamp(dev, "local_bundle_adjustment")
     m = cull_keyframes(config, m, kf_id, counts=counts)
     return ms.rebuild_incidence(m)

@@ -49,12 +49,38 @@ def add_drop(arr: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
 
 def index_add_fixed(target: torch.Tensor, dim: int, index: torch.Tensor,
                     source: torch.Tensor) -> torch.Tensor:
-    """target.index_add_(dim, index, source) whose sums come out the same on
-    every run: on the card index_add_ adds duplicate indices in whatever
-    order its atomics land, so two runs of one stream part at the last bit;
-    with deterministic algorithms on it sorts the indices and adds each
+    """target.index_add(dim, index, source) with mode="drop", whose sums come
+    out the same on every run, as a new tensor (target is not written).
+
+    A row of source whose index lies outside [0, n), n = target.shape[dim],
+    is left out of every sum: it is added into a zero row of its own past
+    n (n + its position in index), and only the first n rows are returned.
+    No dropped row reaches a target another row reaches, so no run of equal
+    indices is longer than the kept duplicates: the card walks each run in
+    series, and one sink row for every dropped row would be a run of them
+    all.  Each kept target's rows are added in their order in index, with or
+    without dropped rows beside them.
+
+    On the card index_add_ adds duplicate indices in whatever order its
+    atomics land, so two runs of one stream part at the last bit; with
+    deterministic algorithms on it sorts the indices (stably) and adds each
     row's updates in their order (no host sync; a CUDA graph captures it).
     The CPU's index_add_ already adds in index order."""
+    n, m = target.shape[dim], index.shape[0]
+    index = index.long()
+    index = torch.where((index >= 0) & (index < n), index,
+                        torch.arange(n, n + m, device=index.device))
+    scratch = list(target.shape)
+    scratch[dim] = m
+    out = torch.cat([target, target.new_zeros(scratch)], dim)
+    return ordered_index_add_(out, dim, index, source).narrow(dim, 0, n)
+
+
+def ordered_index_add_(target: torch.Tensor, dim: int, index: torch.Tensor,
+                       source: torch.Tensor) -> torch.Tensor:
+    """target.index_add_(dim, index, source), each target's rows added in
+    their order in index (in range: index_add_'s own rule), on the card by
+    the sorted deterministic algorithm."""
     if not target.is_cuda:
         return target.index_add_(dim, index, source)
     before = torch.are_deterministic_algorithms_enabled()

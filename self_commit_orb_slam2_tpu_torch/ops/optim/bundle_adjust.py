@@ -19,7 +19,7 @@ Differences of form, not of result:
 The scatter-add sums a (keyframe, point) pair's duplicate observations in
 a fixed order on the card (indexing.index_add_fixed), so repeated runs
 agree to the bit; the card agrees with the CPU (another order) to a
-tolerance.
+tolerance.  Inactive observations are dropped from it (index -1).
 """
 
 from __future__ import annotations
@@ -148,14 +148,13 @@ def bundle_adjust(cam: CameraParams,
         Hpp_obs = torch.einsum("knia,knib->knab", J_p * w[..., None, None], J_p)
         bp_obs = torch.einsum("knia,kni->kna", J_p, Wres)          # [K, N, 3]
 
-        # group observations by (keyframe, point): inactive ones go to the
-        # sink column P
-        col = torch.where(active > 0, pid, P)
-        flat = (torch.arange(K, device=dev)[:, None] * (P + 1) + col).reshape(-1)
+        # group observations by (keyframe, point): inactive ones are dropped
+        flat = torch.where(active > 0, torch.arange(K, device=dev)[:, None] * P + pid,
+                           -1).reshape(-1)
         packed = torch.cat([U.reshape(K, N, 18), Hpp_obs.reshape(K, N, 9), bp_obs],
                            dim=-1).reshape(K * N, 30)
-        grouped = index_add_fixed(torch.zeros(K * (P + 1), 30, dtype=f32, device=dev), 0,
-                                  flat, packed).reshape(K, P + 1, 30)[:, :P]   # [K, P, 30]
+        grouped = index_add_fixed(torch.zeros(K * P, 30, dtype=f32, device=dev), 0,
+                                  flat, packed).reshape(K, P, 30)          # [K, P, 30]
         A = grouped[..., :18].reshape(K, P, 6, 3)                  # per (k, p): J_c^T W J_p
         H_pp = grouped[..., 18:27].sum(0).reshape(P, 3, 3)
         b_p = grouped[..., 27:30].sum(0)                           # [P, 3]

@@ -20,10 +20,15 @@ script's order, with four of the port's step beside them (ADDED):
              with the mapping pass, local_mapping._process on
              create_keyframe's map, and the whole step_rgbd;
   --mapping  the six stages of the mapping pass on the newest keyframe of
-             the System's map, then index_add_fixed and plain index_add_ at
-             the pass's two scatter-add sites (refresh_observed_points'
-             mean normals, the local BA's grouping), on the arguments the
-             pass hands them.
+             the System's map, then three forms of the sum at the pass's
+             two scatter-add sites (refresh_observed_points' mean normals,
+             the local BA's grouping), on the arguments the pass hands
+             index_add_fixed: index_add_fixed itself (its inactive rows
+             dropped), the sink form it replaced (the same fixed-order sum
+             with every inactive row on one sink row, in the BA one sink
+             column a keyframe, sliced off after) and plain index_add_ on
+             the kept rows alone (no fixed order; it raises on a dropped
+             index).
 
 On the card each stage is timed two ways on one copy of its inputs each:
 op by op (a warm call, then n calls ending in cuda.synchronize, as the
@@ -69,7 +74,7 @@ from ..models.map_state import MapState
 from ..models.pipeline import TrackCarry
 from ..models.system import System, resolve_device
 from ..ops.camera import CameraParams
-from ..ops.indexing import index_add_fixed
+from ..ops.indexing import index_add_fixed, ordered_index_add_
 from ..ops.optim import bundle_adjust
 from ..ops.orb.extractor import OrbConfig
 from ..utils.profiling import card_line, trace_counts
@@ -88,8 +93,10 @@ MAIN = ("make_frame_rgbd", "track_motion", "pose_optimize", "_motion_hypotheses"
 # the mapping pass's two scatter-add sites: (label, module holding the call)
 SCATTER_SITES = (("refresh_observed_points", local_mapping),
                  ("bundle_adjust", bundle_adjust))
-MAPPING = JAX_MAPPING + tuple(f"{fn} ({site})" for site, _ in SCATTER_SITES
-                              for fn in ("index_add_fixed", "index_add_"))
+# the sums timed at each site: the pass's, the sink form it replaced, plain
+SCATTER_FORMS = ("index_add_fixed", "sink form", "index_add_")
+MAPPING = JAX_MAPPING + tuple(f"{form} ({site})" for site, _ in SCATTER_SITES
+                              for form in SCATTER_FORMS)
 SEARCH_RADIUS = 7.0   # the JAX script's track_motion radius
 
 
@@ -199,9 +206,18 @@ def pose_optimize_args(st: State, frame: FrameData) -> tuple:
     return args[0], kw, tuple(args[1:])
 
 
-def _scatter(fixed: bool, shape, index, source):
-    z = torch.zeros(shape, dtype=source.dtype, device=source.device)
-    return index_add_fixed(z, 0, index, source) if fixed else z.index_add_(0, index, source)
+def _scatter(form: str, shape, index, source, window: int = 1):
+    """One of SCATTER_FORMS, summed into zeros: [*shape], or for the sink
+    form `window` blocks of shape[0] // window targets, each followed by its
+    sink row, returned without the sink rows ([window, shape[0] // window,
+    ...], a view)."""
+    zeros = functools.partial(torch.zeros, dtype=source.dtype, device=source.device)
+    if form == "index_add_fixed":
+        return index_add_fixed(zeros(shape), 0, index, source)
+    if form == "index_add_":
+        return zeros(shape).index_add_(0, index, source)
+    z = zeros((shape[0] + window, *shape[1:]))
+    return ordered_index_add_(z, 0, index, source).unflatten(0, (window, -1))[:, :-1]
 
 
 def scatter_args(st: State, kf_id: torch.Tensor) -> dict:
@@ -215,7 +231,40 @@ def scatter_args(st: State, kf_id: torch.Tensor) -> dict:
             fn(st.config, _clone(st.map), kf_id)
         (target, dim, index, source), _ = calls[0]
         assert dim == 0
-        out[site] = (tuple(target.shape), index, source)
+        out[site] = (tuple(target.shape), index.long(), source)
+    return out
+
+
+def scatter_forms(st: State, site: str, shape, index, source) -> dict:
+    """form -> (window, index, source), _scatter's arguments for each of
+    SCATTER_FORMS at one site.  The sink form: refresh_observed_points' N
+    targets and one sink row N for every dropped row, zeroed; the BA's
+    window x P (keyframe, point) targets laid out window x (P + 1), each
+    keyframe's dropped rows on its sink column P.  Plain: the kept rows
+    alone (picked here, on the host)."""
+    n = shape[0]
+    keep = (index >= 0) & (index < n)
+    if site == "refresh_observed_points":
+        sink = (1, torch.where(keep, index, n), torch.where(keep[:, None], source, 0.0))
+    else:
+        K = (min(st.config.caps.ba_free_kfs, st.map.max_kf)
+             + min(st.config.caps.ba_fixed_kfs, st.map.max_kf))
+        P, N = n // K, index.shape[0] // K
+        k = torch.arange(K, device=index.device).repeat_interleave(N)
+        sink = (K, k * (P + 1) + torch.where(keep, index - k * P, P), source)
+    return {"index_add_fixed": (1, index, source), "sink form": sink,
+            "index_add_": (1, index[keep], source[keep])}
+
+
+def sink_form_equal(st: State) -> dict:
+    """site -> whether index_add_fixed's sums equal the kept rows of the
+    sink form's, bit for bit, on this state's newest keyframe."""
+    out = {}
+    for site, (shape, *args) in scatter_args(st, (st.map.n_kf - 1).to(torch.int32)).items():
+        sums = {form: _scatter(form, shape, index, source, window).reshape(shape)
+                for form, (window, index, source) in scatter_forms(st, site, shape,
+                                                                   *args).items()}
+        out[site] = bitwise_equal(sums["index_add_fixed"], sums["sink form"])
     return out
 
 
@@ -261,11 +310,11 @@ def mapping_stages(st: State, n: int) -> list:
     kf_id = (m.n_kf - 1).to(torch.int32)
     stages = [Stage(name, functools.partial(getattr(local_mapping, name), cfg), (m, kf_id), n)
               for name in JAX_MAPPING]
-    for site, (shape, index, source) in scatter_args(st, kf_id).items():
-        for fixed in (True, False):
-            stages.append(Stage(f"index_add_{'fixed' if fixed else ''} ({site})",
-                                functools.partial(_scatter, fixed, shape), (index, source),
-                                n, exact=fixed))
+    for site, (shape, *args) in scatter_args(st, kf_id).items():
+        for form, (window, index, source) in scatter_forms(st, site, shape, *args).items():
+            stages.append(Stage(f"{form} ({site})",
+                                functools.partial(_scatter, form, shape, window=window),
+                                (index, source), n, exact=form != "index_add_"))
     return stages
 
 
@@ -479,6 +528,9 @@ def report(st: State, mapping: bool, n: int | None = None, trace_op: bool = True
     print(format_rows(rows, on_card))
     if on_card and not mapping:
         print(step_accounting(rows))
+    if mapping:
+        print(f"index_add_fixed against the sink form's kept rows, bitwise: "
+              f"{sink_form_equal(st)}")
     if not on_card:
         print("device metrics need the card (--device cuda)")
     return rows
@@ -513,6 +565,9 @@ def main(argv=None) -> int:
           f"frames ({time.perf_counter() - t0:.1f} s)")
     rows = report(st, args.mapping)
     bad = failures(rows)
+    if args.mapping:
+        bad += [f"{site}: index_add_fixed differs from the sink form"
+                for site, same in sink_form_equal(st).items() if not same]
     if bad:
         print(f"FAILED: replays that differ from op by op or sync: {bad}", file=sys.stderr)
         return 1

@@ -32,9 +32,10 @@ on the CPU the plain version writes perf_counter_ns.  Every local-mapping
 pass stamps its start and end (models/pipeline.py); the head counts the
 stamps since reset_stamps() (pipeline.mapping_passes() halves it).
 `stamp(device, stage)` writes into a ring of the stage's own, one for each
-name in STAGES, so the pass ring and its count stay the passes': the pass's
-stages that search the covisible neighbours stamp their start and end
-there (models/local_mapping.py).  A trace reads the rings once, at its
+name in STAGES, so the pass ring and its count stay the passes': four of
+the pass's stages (triangulation, fusion, the refresh of the new
+keyframe's points, the local BA) stamp their start and end there
+(models/local_mapping.py).  A trace reads the rings once, at its
 close, and aligns the card's stamps to the host clock with one stamp
 launched between two synchronizes at its open and one at its close.
 
@@ -206,7 +207,8 @@ def card_line() -> str:
 
 RING_SLOTS = 8192   # 4,096 start and end pairs
 # the mapping pass's stages that stamp rings of their own (models/local_mapping.py)
-STAGES = ("create_new_points", "fuse_into_keyframe")
+STAGES = ("create_new_points", "fuse_into_keyframe", "refresh_observed_points",
+          "local_bundle_adjustment")
 _STAMP = CudaKernel("stamp", "stamp.cu", "stamp",
                     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
 

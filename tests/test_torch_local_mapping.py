@@ -144,6 +144,59 @@ def test_stage_matches(chain, stage):
     assert_maps_match(got, after)
 
 
+def _sink_form(site: str, calls: list, window: int):
+    """The parent's scatter-add at `site`, rebuilt from the dropped form's
+    arguments (the CPU's index_add_, as the parent's helper ran it there):
+    refresh_observed_points summed into N + 1 rows with every miss zeroed
+    on the sink row N; the local BA's grouping into window x (P + 1) rows,
+    each keyframe's inactive observations on its sink column P; the sink
+    rows sliced off."""
+    def refresh(target, dim, index, source):
+        calls.append(int((index < 0).sum()))
+        N = target.shape[0]
+        hit = index >= 0
+        return torch.zeros(N + 1, 3).index_add_(
+            0, torch.where(hit, index, N).long(), torch.where(hit[:, None], source, 0.0))[:N]
+
+    def grouping(target, dim, index, source):
+        calls.append(int((index < 0).sum()))
+        P, N = target.shape[0] // window, index.shape[0] // window
+        k = torch.arange(window).repeat_interleave(N)
+        flat = k * (P + 1) + torch.where(index >= 0, index - k * P, P)
+        return torch.zeros(window * (P + 1), 30).index_add_(0, flat, source).reshape(
+            window, P + 1, 30)[:, :P].reshape(window * P, 30)
+
+    return refresh if site == "refresh_observed_points" else grouping
+
+
+@pytest.mark.parametrize("stage", ["refresh_observed_points", "local_bundle_adjustment"])
+def test_dropped_rows_give_the_parents_sink_form_bitwise(chain, stage, monkeypatch):
+    """The two stages whose scatter-adds drop their inactive rows (index
+    -1) equal, field by field and to the bit, the same stage with the sink
+    rows it summed them into before."""
+    from self_commit_orb_slam2_tpu_torch.ops.optim import bundle_adjust
+
+    names = ["inserted"] + STAGES
+    before = _port_state(chain["states"][names[names.index(stage) - 1]])
+    kf = torch.tensor(chain["kf"], dtype=torch.int32)
+    kwargs = ({"counts": torch.tensor(chain["counts"])}
+              if stage == "local_bundle_adjustment" else {})
+    tcfg = chain["tcfg"]
+    got = getattr(local_mapping, stage)(tcfg, before, kf, **kwargs)
+    window = min(tcfg.caps.ba_free_kfs, before.max_kf) + min(tcfg.caps.ba_fixed_kfs,
+                                                             before.max_kf)
+    calls = []
+    module = local_mapping if stage == "refresh_observed_points" else bundle_adjust
+    monkeypatch.setattr(module, "index_add_fixed", _sink_form(stage, calls, window))
+    ref = getattr(local_mapping, stage)(tcfg, _port_state(chain["states"][
+        names[names.index(stage) - 1]]), kf, **kwargs)
+    assert calls and all(n > 0 for n in calls)   # every call dropped rows
+    for f in ms.MapState._fields:
+        a, b = getattr(got, f), getattr(ref, f)
+        assert torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                           b.view(torch.int32) if b.dtype == torch.float32 else b), f
+
+
 def test_stages_change_the_map(chain):
     """The compared stages do work on this state (the comparison is not
     vacuous): points are culled, created and bound, and BA moves poses."""

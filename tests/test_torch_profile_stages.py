@@ -59,7 +59,7 @@ def test_stage_lists_follow_the_jax_script():
     assert list(tool.JAX_MAPPING) == mapping and len(mapping) == 6
     assert [s for s in tool.MAIN if s not in tool.ADDED] == main
     assert set(tool.ADDED) <= set(tool.MAIN) and len(tool.MAIN) == len(main) + 4
-    assert tool.MAPPING[:6] == tool.JAX_MAPPING and len(tool.MAPPING) == 10
+    assert tool.MAPPING[:6] == tool.JAX_MAPPING and len(tool.MAPPING) == 12
 
 
 @pytest.fixture(scope="module")
@@ -205,6 +205,10 @@ def test_cpu_run_prints_a_row_a_stage_and_no_device_metric(port_state, mapping):
     rows, out = _lines(lambda: tool.report(port_state, mapping, 1))
     _assert_cpu_table(out, tool.MAPPING if mapping else tool.MAIN)
     assert tool.failures(rows) == [] and all("graph" not in r for r in rows)
+    if mapping:   # the pass's sums against the sink form they replaced
+        assert tool.sink_form_equal(port_state) == {
+            "refresh_observed_points": True, "bundle_adjust": True}
+        assert "sink form's kept rows, bitwise: {'refresh_observed_points': True" in out
 
 
 def test_tool_refuses_without_a_card():

@@ -214,10 +214,11 @@ def test_each_pass_stamps_its_two_stages_inside_it(run, request):
     for name in profiling.STAGES:
         assert len(s.stages[name]) == len(s.passes) == n_passes > 0, name
         assert len(s.stage_ns(name)) == n_passes and all(ns > 0 for ns in s.stage_ns(name))
-    for (p0, p1), (c0, c1), (f0, f1) in zip(s.passes, s.stages["create_new_points"],
-                                           s.stages["fuse_into_keyframe"]):
-        # triangulation, then fusion, both inside the pass
-        assert p0 <= c0 < c1 <= f0 < f1 <= p1
+    for p, *stages in zip(s.passes, *(s.stages[name] for name in profiling.STAGES)):
+        # triangulation, fusion, the refresh, then the local BA, all inside the pass
+        ends = [p[0]] + [t for st in stages for t in st] + [p[1]]
+        assert all(a <= b for a, b in zip(ends, ends[1:]))
+        assert all(a < b for a, b in stages)
 
 
 def test_the_stage_stamps_leave_the_passes_as_they_were(op_by_op, monkeypatch):
